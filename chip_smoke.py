@@ -5,20 +5,36 @@
 
 Phases, each of which must pass (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from whisper_tpu_torch/csrc (nvcc, sm_90a);
+  2. build the CUDA kernels from whisper_tpu_torch/csrc (nvcc, sm_90a, one
+     process per source);
   3. K1, encoder self-attention, against its plain PyTorch version at
      large-v3-turbo encoder shapes (1, 20, 1500, 64), bf16 and f32;
   4. K2, the fused decode step, against its plain version at
-     large-v3-turbo decoder shapes (L=4, C=1280, H=20, T=256, Ta=1500, B=1),
-     bf16 and f32;
-  5. end to end: a large-v3-turbo model with random weights (init_params
-     from a seeded generator, bf16, on the card; the repo holds no
-     checkpoint for load_model), transcribe tests/jfk.flac with language
-     detection, check that both kernels ran on that path; then decode the
+     large-v3-turbo decoder shapes (L=4, C=1280, H=20, T=256, Ta=1500) for
+     one row (B=1, greedy) and a group of five (B=5, beam or best-of), bf16
+     and f32;
+  5. K3, the median filter, against its plain version at the word-timing
+     shape (40 heads, 1, 256 tokens, 1500 frames) f32, width 7: bit-equal;
+  6. K4, the DTW trace, against its plain version at n = 253, m = 1500:
+     bit-equal;
+  7. the greedy path end to end: a large-v3-turbo model with random weights
+     (init_params from a seeded generator, bf16, on the card; the repo holds
+     no checkpoint for load_model), transcribe tests/jfk.flac with language
+     detection, check that K1 and K2 (B=1) ran on that path; then decode the
      window again with a pinned production-shaped 110-token sequence and
      time it;
-  6. with --profile only: the pinned window under torch.profiler and
-     cProfile (device idle share, host time per token step).
+  8. the CLI's default path end to end (what ``cli()`` does after
+     load_model): transcribe jfk.flac with language detection, beam 5 at
+     T = 0, best-of 5 on the 0.2-step ladder above it and word timestamps,
+     then write every format with highlighted words; check that K1, K2 at
+     B=5, K3 and K4 ran on that path, that the files were written and that
+     every word lies inside its segment (its first and last word within the
+     0.7 s that add_word_timestamps may move them past its edges);
+  9. a beam-5 window (DecodingTask.run from jfk's encoder features; random
+     weights run all 224 steps): wall and ms per step;
+ 10. with --profile only: the pinned greedy window and the beam-5 window
+     under torch.profiler, and the greedy one under cProfile (device idle
+     share, host time per token step).
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -29,6 +45,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -40,7 +57,9 @@ AUDIO = os.path.join(REPO, "tests", "jfk.flac")
 # reads at most 2.3e-3 and 5.2e-3 at the shapes of those tests; a kernel
 # that stops masking the keys past T = 1500 reads an RMS error of 1.45e-2.
 # K2: max error relative to max |plain| (bf16: a few bf16 ulps after four
-# layers; f32: summation order only).
+# layers; f32: summation order only), for one row and for a group of rows.
+# K3 and K4 select and compare, they do no arithmetic that could round
+# otherwise: their outputs must equal the plain versions' bit for bit.
 K1_F32_ATOL = 1e-5
 K1_BF16_REL_RMS, K1_BF16_REL_MAX = 5e-3, 1e-2
 K2_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -109,7 +128,7 @@ def check_k1(gen, device):
     return rows
 
 
-def check_k2(gen, device):
+def check_k2(gen, device, B: int):
     import torch
 
     from whisper_tpu_torch.ops.kernels.fused_step import (
@@ -136,9 +155,9 @@ def check_k2(gen, device):
             base[n] = 1.0 + randn(*shape, scale=0.1)
         else:
             base[n] = randn(*shape, scale=0.02)
-    x32 = randn(1, C, scale=0.5)
-    sk32, sv32 = randn(L, 1, H, D, T), randn(L, 1, H, D, T)
-    xk32, xv32 = randn(L, 1, H, D, Ta), randn(L, 1, H, D, Ta)
+    x32 = randn(B, C, scale=0.5)
+    sk32, sv32 = randn(L, B, H, D, T), randn(L, B, H, D, T)  # each row its own history
+    xk32, xv32 = randn(L, 1, H, D, Ta), randn(L, 1, H, D, Ta)  # one audio, shared
 
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -155,13 +174,71 @@ def check_k2(gen, device):
         ms = time_ms(lambda: fused_decoder_layers(*args))
         plain_ms = time_ms(lambda: fused_decoder_layers_plain(*args))
         err_abs = (out[0].float() - ref[0].float()).abs().max().item()
-        log(f"K2 fused_decoder_layers {name}: max_abs_err hidden {err_abs:.3e}; "
+        log(f"K2 fused_decoder_layers B={B} {name}: max_abs_err hidden {err_abs:.3e}; "
             f"relative errors hidden/k_new/v_new {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
             f"(tol {K2_REL_TOL[name]:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
         if not max(errs) <= K2_REL_TOL[name]:
-            raise RuntimeError(f"K2 {name} disagrees with its plain version: {errs}")
+            raise RuntimeError(f"K2 B={B} {name} disagrees with its plain version: {errs}")
         rows[name] = dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms)
     return rows
+
+
+def check_k3(gen, device):
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.median import median_filter, median_filter_plain
+
+    x = torch.randn((40, 1, 256, 1500), generator=gen, device=device)
+    x[..., ::97] = 0.0  # equal values and signed zeros: the order rule decides
+    x[..., 5::89] = -0.0
+    out = median_filter(x, 7)
+    ref = median_filter_plain(x, 7)
+    torch.cuda.synchronize()
+    mismatches = int((out.view(torch.int32) != ref.view(torch.int32)).sum().item())
+    err = (out - ref).abs().max().item()
+    ms = time_ms(lambda: median_filter(x, 7))
+    plain_ms = time_ms(lambda: median_filter_plain(x, 7), iters=5)
+    log(f"K3 median_filter (40,1,256,1500) f32 width 7: {mismatches} outputs differ in any bit "
+        f"(bound 0), max_abs_err {err:.3e}, kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    if mismatches:
+        raise RuntimeError(f"K3 disagrees with its plain version in {mismatches} outputs")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def check_k4(gen, device):
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.dtw import dtw_trace, dtw_trace_plain
+
+    n, m = 253, 1500
+    rows = {}
+    for kind in ("random", "ties"):
+        x = torch.randn((1, n, m), generator=gen, device=device)
+        if kind == "ties":  # integer costs: the tie rule decides many cells
+            x = torch.randint(0, 3, (1, n, m), generator=gen, device=device).float()
+        out = dtw_trace(x, n, m)
+        ref = dtw_trace_plain(x, n, m)
+        torch.cuda.synchronize()
+        mismatches = int((out != ref).sum().item())
+        log(f"K4 dtw_trace n={n} m={m} {kind} costs: {mismatches} trace codes differ (bound 0)")
+        if mismatches:
+            raise RuntimeError(f"K4 disagrees with its plain version in {mismatches} codes")
+        rows[kind] = x
+    x = rows["random"]
+    ms = time_ms(lambda: dtw_trace(x, n, m))
+    plain_ms = time_ms(lambda: dtw_trace_plain(x, n, m), iters=2)
+    log(f"K4 dtw_trace n={n} m={m}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+
+
+def reset_launches():
+    from whisper_tpu_torch.ops.kernels import attention, dtw, fused_step, median
+
+    attention.attention.launches = 0
+    fused_step.fused_decoder_layers.launches = 0
+    fused_step.fused_decoder_layers.launches_by_rows.clear()
+    median.median_filter.launches = 0
+    dtw.dtw_trace.launches = 0
 
 
 def end_to_end(device, name: str = "turbo"):
@@ -188,14 +265,13 @@ def end_to_end(device, name: str = "turbo"):
     audio_s = len(audio) / 16000
     log(f"load_audio(jfk.flac) on the host: {time.perf_counter() - t0:.3f} s for {audio_s:.3f} s")
 
-    attention.launches = 0
-    fused_decoder_layers.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     result = model.transcribe(AUDIO, language=None, seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"encoder_attention": attention.launches,
-                "fused_decoder_layers": fused_decoder_layers.launches}
+                "fused_decoder_layers": fused_decoder_layers.launches_by_rows[1]}
     n_tokens = sum(len(s["tokens"]) for s in result["segments"])
     log(f"transcribe(jfk.flac, language=None): language {result['language']!r}, "
         f"{len(result['segments'])} segments, {n_tokens} tokens kept, "
@@ -237,16 +313,134 @@ def end_to_end(device, name: str = "turbo"):
     return launches, model, audio, forced
 
 
-def profile_window(model, audio, forced) -> None:
-    """--profile: wall, device busy time and idle share of the pinned window
-    and of its encoder and decode parts, then the host's time per token
-    step.  Wall is the median of three runs without a profiler; busy is the
-    sum of kernel and copy time under torch.profiler (device activity only);
-    idle share is 1 - busy / wall.  The host split is cProfile's, which
-    slows the host itself: its shares, not its sums, carry over."""
+# the CLI's defaults (whisper_tpu_torch.transcribe.cli) as transcribe
+# arguments; --model has no turbo checkpoint in the repo, so the model is
+# the random one, and --verbose is None here to keep the log short
+CLI_DEFAULTS = dict(
+    task="transcribe", language=None, best_of=5, beam_size=5, patience=None,
+    length_penalty=None, suppress_tokens="-1", initial_prompt=None,
+    carry_initial_prompt=False, condition_on_previous_text=True, fp16=True,
+    compression_ratio_threshold=2.4, logprob_threshold=-1.0, no_speech_threshold=0.6,
+    prepend_punctuations="\"'“¿([{-", append_punctuations="\"'.。,，!！?？:：”)]}、",
+    clip_timestamps="0", hallucination_silence_threshold=None,
+)
+
+
+def _word_inside(segment, i: int) -> bool:
+    """Whether word i of a segment lies inside it.  add_word_timestamps may
+    move a segment's first word to start, and its last word to end, up to
+    the median word duration (at most 0.7 s) past the segment's edge, when
+    it prefers the segment's own timestamp to a word that looks too long."""
+    words, edge = segment["words"], 0.7
+    lo = max(0.0, segment["start"] - (edge if i == 0 else 0.0))
+    hi = segment["end"] + (edge if i == len(words) - 1 else 0.0)
+    return lo <= words[i]["start"] <= words[i]["end"] <= hi
+
+
+def cli_default_path(model):
+    """transcribe(jfk.flac) as ``python -m whisper_tpu_torch jfk.flac
+    --word_timestamps True --highlight_words True`` runs it after
+    load_model, then the writers of ``-f all``."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.ops.kernels import attention, dtw, fused_step, median
+    from whisper_tpu_torch.utils.writers import get_writer
+
+    temperature = tuple(np.arange(0.0, 1.0 + 1e-6, 0.2))  # --temperature_increment_on_fallback 0.2
+    # the best-of rungs draw their sampling seed from numpy's global RNG, as
+    # whisper_tpu's do: seeding it makes the phase repeat from run to run
+    np.random.seed(0)
+    reset_launches()
+    t0 = time.perf_counter()
+    result = model.transcribe(AUDIO, verbose=None, temperature=temperature, word_timestamps=True,
+                              **CLI_DEFAULTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = dict(fused_step.fused_decoder_layers.launches_by_rows)
+    launches = {"encoder_attention": attention.attention.launches,
+                "fused_decoder_layers_b5": rows.get(5, 0),
+                "median_filter": median.median_filter.launches,
+                "dtw_trace": dtw.dtw_trace.launches}
+    with tempfile.TemporaryDirectory() as out_dir:
+        get_writer("all", out_dir)(result, AUDIO, highlight_words=True, max_line_count=None,
+                                   max_line_width=None, max_words_per_line=None)
+        written = {f: os.path.getsize(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))}
+    segments = result["segments"]
+    words = [(s, w) for s in segments for w in s["words"]]
+    log(f"CLI default path transcribe(jfk.flac, beam 5, best_of 5, ladder "
+        f"{[round(float(t), 1) for t in temperature]}, word_timestamps): language {result['language']!r}, "
+        f"{len(segments)} segments, {len(words)} words, rungs kept "
+        f"{sorted({float(s['temperature']) for s in segments})}, wall {wall:.3f} s, launches {launches}, "
+        f"K2 launches by rows {rows}, files {written}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the CLI default path never launched: {launches}")
+    if set(written) != {f"jfk.{e}" for e in ("txt", "vtt", "srt", "tsv", "json")} or not written["jfk.json"]:
+        raise RuntimeError(f"the writers did not write every format: {written}")
+    outside = [(s["start"], s["end"], w["start"], w["end"]) for s in segments
+               for i, w in enumerate(s["words"]) if not _word_inside(s, i)]
+    if not words or outside:
+        raise RuntimeError(f"no words, or words outside their segments: {outside[:5]}")
+    return launches
+
+
+def beam_window(model, audio):
+    """DecodingTask(beam_size=5).run on jfk's encoder features: the wall of
+    one beam-5 window (median of 3 after a warm-up) and its ms per step."""
+    import torch
+
+    from whisper_tpu_torch import log_mel_spectrogram, pad_or_trim
+    from whisper_tpu_torch.decoding import DecodingOptions, DecodingTask
+    from whisper_tpu_torch.ops.kernels.fused_step import fused_decoder_layers
+
+    mel = log_mel_spectrogram(pad_or_trim(audio), model.dims.n_mels, device=model.device)
+    features = model.embed_audio(mel[None])
+    options = DecodingOptions(language="en", beam_size=5)
+    walls = []
+    for _ in range(4):  # the first is a warm-up
+        before = fused_decoder_layers.launches
+        t0 = time.perf_counter()
+        DecodingTask(model, options).run(features)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        steps = fused_decoder_layers.launches - before
+    wall = sorted(walls[1:])[1]
+    log(f"beam-5 window (DecodingTask.run from features: prefill + {steps} steps of 5 rows): "
+        f"wall {wall:.4f} s (median of 3 after a warm-up), {1000 * wall / steps:.4f} ms per step")
+    return features, options
+
+
+def host_split(fn, steps: int, label: str) -> None:
+    """cProfile's host time per token step of one decode (which it slows:
+    its shares, not its sums, carry over)."""
     import cProfile
     import pstats
 
+    import torch
+
+    profiler = cProfile.Profile()
+    profiler.enable()
+    fn()
+    torch.cuda.synchronize()
+    profiler.disable()
+    per_step = {}
+    for (_, _, fn_name), (_, calls, own, cum, _) in pstats.Stats(profiler).stats.items():
+        if fn_name in ("apply_logit_filters", "_greedy_update", "_beam_update", "decoder_step_fused",
+                       "fused_decoder_layers", "project_logits"):
+            per_step[fn_name] = (calls, 1e3 * cum)
+        elif fn_name == "decode_engine":  # its own time holds completed's read-back
+            per_step["decode_engine (own time)"] = (calls, 1e3 * own)
+    log(f"profile host per step of the {label} (cProfile, total ms / {steps} steps): " + ", ".join(
+        f"{k} {ms / steps:.3f} ms ({calls} calls)" for k, (calls, ms) in sorted(per_step.items())))
+
+
+def profile_window(model, audio, forced, beam) -> None:
+    """--profile: wall, device busy time and idle share of the pinned window,
+    of its encoder and decode parts and of the beam-5 window, then the
+    host's time per token step of the two decodes.  Wall is the median of
+    three runs without a profiler; busy is the sum of kernel and copy time
+    under torch.profiler (device activity only); idle share is
+    1 - busy / wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -256,14 +450,25 @@ def profile_window(model, audio, forced) -> None:
     mel = log_mel_spectrogram(pad_or_trim(audio), model.dims.n_mels, device=model.device)
     features = model.embed_audio(mel[None])
     options = DecodingOptions(language="en", temperature=0.0)
-    parts = {
-        "window: transcribe(waveform)": lambda: model.transcribe(audio, language="en", temperature=0.0),
-        "encoder: embed_audio(mel)": lambda: model.embed_audio(mel[None]),
-        f"decode from features: prefill + {len(forced)} steps": lambda: DecodingTask(model, options).run(features),
-    }
-    DecodingTask._forced_tokens = forced
+    beam_features, beam_options = beam
+
+    def greedy():
+        return DecodingTask(model, options).run(features)
+
+    def beam5():
+        return DecodingTask(model, beam_options).run(beam_features)
+
+    # (label, fn, pinned): the pinned sequence is greedy-only
+    parts = [
+        ("window: transcribe(waveform)",
+         lambda: model.transcribe(audio, language="en", temperature=0.0), True),
+        ("encoder: embed_audio(mel)", lambda: model.embed_audio(mel[None]), True),
+        (f"decode from features: prefill + {len(forced)} steps", greedy, True),
+        ("beam-5 window from features: prefill + 224 steps of 5 rows", beam5, False),
+    ]
     try:
-        for label, fn in parts.items():
+        for label, fn, pinned in parts:
+            DecodingTask._forced_tokens = forced if pinned else None
             walls = []
             for _ in range(4):  # the first is a warm-up
                 t0 = time.perf_counter()
@@ -281,29 +486,19 @@ def profile_window(model, audio, forced) -> None:
                                               max_name_column_width=60)
             for line in table.splitlines():
                 log(f"  {line}")
-
-        profiler = cProfile.Profile()
-        profiler.enable()
-        DecodingTask(model, options).run(features)
-        torch.cuda.synchronize()
-        profiler.disable()
+        DecodingTask._forced_tokens = forced
+        host_split(greedy, len(forced), "pinned greedy decode")
+        DecodingTask._forced_tokens = None
+        host_split(beam5, 224, "beam-5 decode")
     finally:
         DecodingTask._forced_tokens = None
-    per_step = {}
-    for (_, _, fn_name), (_, calls, own, cum, _) in pstats.Stats(profiler).stats.items():
-        if fn_name in ("apply_logit_filters", "_greedy_update", "decoder_step_fused",
-                       "fused_decoder_layers", "project_logits"):
-            per_step[fn_name] = (calls, 1e3 * cum)
-        elif fn_name == "decode_engine":  # its own time holds completed's read-back
-            per_step["decode_engine (own time)"] = (calls, 1e3 * own)
-    log(f"profile host per step (cProfile, total ms / calls over {len(forced)} steps): " + ", ".join(
-        f"{k} {ms / len(forced):.3f} ms ({calls} calls)" for k, (calls, ms) in sorted(per_step.items())))
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="after the phases, profile the pinned window (device idle share, host time per step)")
+                        help="after the phases, profile the pinned window and the beam-5 window "
+                        "(device idle share, host time per step)")
     args = parser.parse_args()
 
     import torch
@@ -328,20 +523,34 @@ def main() -> int:
 
     gen = torch.Generator(device=device).manual_seed(0)
     k1 = check_k1(gen, device)
-    k2 = check_k2(gen, device)
+    k2 = check_k2(gen, device, B=1)
+    k2g = check_k2(gen, device, B=5)
+    k3 = check_k3(gen, device)
+    k4 = check_k4(gen, device)
     launches, model, audio, forced = end_to_end(device)
+    cli_launches = cli_default_path(model)
+    beam = beam_window(model, audio)
     if args.profile:
-        profile_window(model, audio, forced)
+        profile_window(model, audio, forced, beam)
 
+    fused = dict(route="cuda", source="whisper_tpu_torch/csrc/fused_step.cu",
+                 replaces="whisper_tpu/ops/kernels/fused_step_pallas.py:301")
     kernels = [
         dict(name="encoder_attention", route="cuda",
              source="whisper_tpu_torch/csrc/attention.cu",
              replaces="whisper_tpu/ops/kernels/attention_pallas.py:62",
              launches=launches["encoder_attention"], **k1["bfloat16"]),
-        dict(name="fused_decoder_layers", route="cuda",
-             source="whisper_tpu_torch/csrc/fused_step.cu",
-             replaces="whisper_tpu/ops/kernels/fused_step_pallas.py:301",
+        # B=1: the greedy path's count; B=5 and K3, K4: the CLI default path's
+        dict(name="fused_decoder_layers", **fused,
              launches=launches["fused_decoder_layers"], **k2["bfloat16"]),
+        dict(name="fused_decoder_layers_b5", **fused,
+             launches=cli_launches["fused_decoder_layers_b5"], **k2g["bfloat16"]),
+        dict(name="median_filter", route="cuda", source="whisper_tpu_torch/csrc/median.cu",
+             replaces="whisper_tpu/ops/kernels/median_pallas.py:36",
+             launches=cli_launches["median_filter"], **k3),
+        dict(name="dtw_trace", route="cuda", source="whisper_tpu_torch/csrc/dtw.cu",
+             replaces="whisper_tpu/ops/kernels/dtw_pallas.py:80",
+             launches=cli_launches["dtw_trace"], **k4),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

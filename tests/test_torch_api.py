@@ -1,0 +1,103 @@
+"""whisper_tpu_torch's public signatures against whisper_tpu's.
+
+``transcribe``, ``decode`` and ``load_model`` must take the same parameters
+(names, kinds and defaults, in order), ``DecodingOptions`` must have the same
+fields with the same defaults, and ``cli`` must declare the same flags with
+the same defaults.  A difference fails unless it is on the allow-list below,
+which names why it stands: a later slice of the port, or a deliberate
+difference of the port.  Annotations are not compared: they name each
+framework's own types.
+"""
+
+import argparse
+import dataclasses
+import importlib
+import inspect
+
+import pytest
+
+import whisper_tpu
+from whisper_tpu.decoding import DecodingOptions as JOptions
+
+import whisper_tpu_torch
+from whisper_tpu_torch.decoding import DecodingOptions as TOptions
+
+# the modules (each package's __init__ rebinds the name to the function)
+jtranscribe = importlib.import_module("whisper_tpu.transcribe")
+ttranscribe = importlib.import_module("whisper_tpu_torch.transcribe")
+
+# (where, name) -> why the port differs
+ALLOWED = {
+    ("DecodingOptions", "draft_len"): "speculative decoding: ROADMAP Queue 1 item 16",
+    ("DecodingOptions", "fused_step"): "K2 always runs on the card; the XLA/Pallas switch has no port",
+    ("load_model", "quantize"): "int8: ROADMAP Queue 1 item 14",
+    # the port never picks a device by itself: CUDA unless told otherwise
+    ("load_model", "device"): "default 'cuda' (whisper_tpu: None, JAX's default backend)",
+    ("cli", "--device"): "default 'cuda' (whisper_tpu: None, JAX's default backend)",
+}
+
+
+def _params(fn):
+    return {
+        name: (p.kind, p.default)
+        for name, p in inspect.signature(fn).parameters.items()
+    }
+
+
+def _diff(where, ref, port):
+    """Names whose presence, kind or default differ, minus the allow-list."""
+    names = sorted(set(ref) | set(port))
+    bad = [n for n in names if ref.get(n) != port.get(n) and (where, n) not in ALLOWED]
+    return bad
+
+
+@pytest.mark.parametrize("name", ["transcribe", "decode", "load_model"])
+def test_function_signatures_match(name):
+    ref, port = _params(getattr(whisper_tpu, name)), _params(getattr(whisper_tpu_torch, name))
+    if name == "decode":  # the default options object is each package's own class
+        ref["options"], port["options"] = ref["options"][0], port["options"][0]
+    assert _diff(name, ref, port) == []
+    shared = [n for n in ref if n in port]
+    assert shared == [n for n in port if n in ref], "parameter order"
+
+
+def test_decoding_options_fields_match():
+    def fields(cls):
+        return {f.name: f.default for f in dataclasses.fields(cls)}
+
+    assert _diff("DecodingOptions", fields(JOptions), fields(TOptions)) == []
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _cli_flags(module, monkeypatch):
+    """The flags ``module.cli`` declares, {option: default}, captured at its
+    parse_args call (which is stopped there)."""
+    seen = {}
+
+    def capture(parser, *args, **kwargs):
+        seen.update(
+            {a.option_strings[0] if a.option_strings else a.dest: a.default for a in parser._actions}
+        )
+        raise _Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    with pytest.raises(_Parsed):
+        module.cli()
+    monkeypatch.undo()
+    return seen
+
+
+def test_cli_signature_and_flags_match(monkeypatch):
+    assert _params(jtranscribe.cli) == _params(ttranscribe.cli) == {}
+    ref, port = _cli_flags(jtranscribe, monkeypatch), _cli_flags(ttranscribe, monkeypatch)
+    assert "--word_timestamps" in port and "--beam_size" in port
+    assert _diff("cli", ref, port) == []
+
+
+def test_transcribe_takes_the_word_timing_parameters():
+    params = inspect.signature(whisper_tpu_torch.transcribe).parameters
+    for name in ("prepend_punctuations", "append_punctuations", "hallucination_silence_threshold"):
+        assert params[name].kind is inspect.Parameter.KEYWORD_ONLY

@@ -11,7 +11,9 @@ outputs of unit scale.  K1 bf16: relative to the plain output, RMS error
 5e-3 and max error 1e-2 of max |plain|; on an H100 the kernel reads at most
 2.3e-3 and 5.2e-3 at these shapes, while a kernel that stops masking the
 keys past T reads an RMS error of 1.45e-2 at T = 1500 and more at shorter
-T.  K2: max error relative to max |plain| (f32 1e-4, bf16 2e-2).
+T.  K2: max error relative to max |plain| (f32 1e-4, bf16 2e-2), at one
+row and at grouped rows.  K3 and K4 select: their outputs must equal the
+plain versions' bit for bit.
 """
 
 import numpy as np
@@ -19,7 +21,9 @@ import pytest
 import torch
 
 from whisper_tpu_torch.ops.kernels import attention as k1
+from whisper_tpu_torch.ops.kernels import dtw as k4
 from whisper_tpu_torch.ops.kernels import fused_step as k2
+from whisper_tpu_torch.ops.kernels import median as k3
 
 pytestmark = pytest.mark.cuda
 
@@ -63,7 +67,7 @@ def test_k1_kernel_refuses_other_head_dims(cuda):
         k1.attention(q, q, q)
 
 
-def _k2_inputs(device, dtype, L=3, C=128, T=64, Ta=1500):
+def _k2_inputs(device, dtype, L=3, C=128, T=64, Ta=1500, B=1, A=1):
     gen = torch.Generator(device=device).manual_seed(0)
     H = C // 64
 
@@ -75,14 +79,16 @@ def _k2_inputs(device, dtype, L=3, C=128, T=64, Ta=1500):
     for n in k2.WEIGHTS:
         shape = (L, *sizes.get(n, (C, C) if n.endswith("_w") else (C,)))
         blocks[n] = (1.0 + randn(*shape, scale=0.1)) if n.endswith("_g") else randn(*shape, scale=0.02)
-    caches = [randn(L, 1, H, 64, T), randn(L, 1, H, 64, T), randn(L, 1, H, 64, Ta), randn(L, 1, H, 64, Ta)]
-    return blocks, H, randn(1, C, scale=0.5), caches
+    # each row its own self cache (distinct histories); cross K/V of A audios
+    caches = [randn(L, B, H, 64, T), randn(L, B, H, 64, T), randn(L, A, H, 64, Ta), randn(L, A, H, 64, Ta)]
+    return blocks, H, randn(B, C, scale=0.5), caches
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t", [0, 7, 64])
-def test_k2_kernel_matches_plain(cuda, dtype, t):
-    blocks, H, x, caches = _k2_inputs(cuda, dtype)
+@pytest.mark.parametrize("B", [1, 2, 5, 8, 16])
+def test_k2_kernel_matches_plain(cuda, dtype, t, B):
+    blocks, H, x, caches = _k2_inputs(cuda, dtype, B=B)
     launches = k2.fused_decoder_layers.launches
     out = k2.fused_decoder_layers(blocks, H, x, t, *caches)
     assert k2.fused_decoder_layers.launches == launches + 1
@@ -93,12 +99,66 @@ def test_k2_kernel_matches_plain(cuda, dtype, t):
         assert rel <= K2_REL_TOL[dtype]
 
 
+@pytest.mark.parametrize("B", [3, 4, 8, 16])
+def test_k2_kernel_over_input_chunks(cuda, B):
+    """At width 1280 the rows' inputs fill the GEMV's shared memory: fc2's
+    come in chunks from B = 2 on, and from B = 10 on so do the LayerNorm
+    GEMVs', whose statistics then come from device memory first."""
+    blocks, H, x, caches = _k2_inputs(cuda, torch.float32, L=1, C=1280, T=16, Ta=64, B=B)
+    out = k2.fused_decoder_layers(blocks, H, x, 5, *caches)
+    ref = k2.fused_decoder_layers_plain(blocks, H, x, 5, *caches)
+    for a, b in zip(out, ref):
+        rel = (a - b).abs().max().item() / b.abs().max().item()
+        assert rel <= K2_REL_TOL[torch.float32]
+
+
+def test_k2_kernel_one_cross_cache_per_row(cuda):
+    """A = B: each row reads its own audio's cross K/V (at one position)."""
+    blocks, H, x, caches = _k2_inputs(cuda, torch.float32, B=3, A=3)
+    out = k2.fused_decoder_layers(blocks, H, x, 9, *caches)
+    ref = k2.fused_decoder_layers_plain(blocks, H, x, 9, *caches)
+    for a, b in zip(out, ref):
+        rel = (a - b).abs().max().item() / b.abs().max().item()
+        assert rel <= K2_REL_TOL[torch.float32]
+
+
 def test_k2_kernel_refuses_what_it_does_not_take(cuda):
-    blocks, H, x, caches = _k2_inputs(cuda, torch.float32)
-    with pytest.raises(ValueError, match="batch 1"):
-        k2.fused_decoder_layers(blocks, H, x.repeat(2, 1), 3, *caches)
+    blocks, H, x, caches = _k2_inputs(cuda, torch.float32, B=17)
+    with pytest.raises(ValueError, match="at most 16 rows"):
+        k2.fused_decoder_layers(blocks, H, x, 3, *caches)
+    blocks, H, x, caches = _k2_inputs(cuda, torch.float32, B=4, A=2)
+    with pytest.raises(ValueError, match="audios 1 or 4"):
+        k2.fused_decoder_layers(blocks, H, x, 3, *caches)
+    blocks, H, x, caches = _k2_inputs(cuda, torch.float32, B=2)
     with pytest.raises(ValueError, match="contiguous"):
         k2.fused_decoder_layers(blocks, H, x.to(torch.bfloat16), 3, *caches)
+
+
+@pytest.mark.parametrize("width", [3, 5, 7, 13])
+@pytest.mark.parametrize("shape", [(40, 1, 37, 1500), (3, 7), (2, 5, 345)])
+def test_k3_kernel_equals_plain(cuda, width, shape):
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    x = torch.randn(shape, generator=gen, device=cuda)
+    x[..., ::11] = 0.0  # ties, and signed zeros
+    x[..., 1::13] = -0.0
+    launches = k3.median_filter.launches
+    out = k3.median_filter(x, width)
+    assert k3.median_filter.launches == launches + 1
+    ref = k3.median_filter_plain(x, width)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("B,n,m", [(1, 253, 1500), (3, 29, 200), (2, 1, 7), (1, 500, 40)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_k4_kernel_equals_plain(cuda, B, n, m, ties):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((B, n, m), generator=gen, device=cuda)
+    if ties:  # integer costs: many equal branch costs, decided by the tie rule
+        x = torch.randint(0, 3, (B, n, m), generator=gen, device=cuda).float()
+    launches = k4.dtw_trace.launches
+    out = k4.dtw_trace(x, n, m)
+    assert k4.dtw_trace.launches == launches + 1
+    assert torch.equal(out, k4.dtw_trace_plain(x, n, m))
 
 
 def test_greedy_path_runs_both_kernels(cuda):
@@ -116,3 +176,27 @@ def test_greedy_path_runs_both_kernels(cuda):
     result = model.decode(mel, DecodingOptions(language=None, sample_len=8))
     assert k1.attention.launches > 0 and k2.fused_decoder_layers.launches > 0
     assert all(0 <= t < model.dims.n_vocab for t in result.tokens)
+
+
+def test_beam_and_word_timestamp_path_runs_the_kernels(cuda):
+    """transcribe with beam 5 and word timestamps on tiny random weights
+    launches K2 for groups of 5 rows, K3 and K4."""
+    import whisper_tpu_torch
+    from whisper_tpu_torch.models import KNOWN_MODELS
+    from whisper_tpu_torch.models.whisper import init_params
+
+    dims = KNOWN_MODELS["tiny"]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = whisper_tpu_torch.Whisper(dims, init_params(dims, gen, torch.bfloat16, cuda))
+    audio = np.random.RandomState(0).randn(16000 * 4).astype(np.float32) * 0.1
+    k2.fused_decoder_layers.launches_by_rows.clear()
+    k3.median_filter.launches = 0
+    k4.dtw_trace.launches = 0
+    result = model.transcribe(audio, language="en", temperature=0.0, beam_size=5, sample_len=16,
+                              word_timestamps=True, logprob_threshold=None,
+                              compression_ratio_threshold=None, no_speech_threshold=None)
+    assert k2.fused_decoder_layers.launches_by_rows[5] > 0
+    assert k3.median_filter.launches > 0 and k4.dtw_trace.launches > 0
+    for segment in result["segments"]:
+        for word in segment["words"]:
+            assert word["start"] <= word["end"]

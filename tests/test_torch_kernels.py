@@ -183,3 +183,30 @@ def test_k2_wrapper_refuses_other_devices(tparams, step_inputs):
         k2.fused_decoder_layers(tparams["decoder"]["blocks"], 2, x, 3, *cache)
     with pytest.raises(ValueError, match="unsupported device"):
         k1.attention(*(torch.zeros(1, 2, 8, 64, device="meta") for _ in range(3)))
+
+
+def test_k2_grouped_step_matches_jax(jparams, tparams, step_inputs):
+    """A beam group of G = 5 rows with distinct histories (each row its own
+    self cache and token) against decoder_step(..., n_group=5), which folds
+    the group into the query axis of one shared cross K/V: hidden atol 3e-5,
+    rtol 1e-4; cache columns atol 1e-5."""
+    xk, xv, _, _, t0 = step_inputs
+    G = 5
+    rng = np.random.RandomState(2)
+    shape = (DIMS.n_text_layer, G, DIMS.n_text_head, 64, 64)
+    sk = (rng.randn(*shape) * 0.1).astype(np.float32)
+    sv = (rng.randn(*shape) * 0.1).astype(np.float32)
+    sk[..., t0:] = 0
+    sv[..., t0:] = 0
+    tokens = np.array([42, 7, 1999, 50257, 311])
+
+    cache = jw.KVCache(*(jnp.asarray(a) for a in (sk, sv, xk, xv)))
+    ref_h, ref_cache = jw.decoder_step(
+        jparams, JDIMS, jnp.asarray(tokens, jnp.int32), jnp.int32(t0), cache, n_group=G
+    )
+    tcache = tw.KVCache(*(torch.from_numpy(a.copy()) for a in (sk, sv, xk, xv)))
+    assert tcache.cross_k.shape[1] == 1  # one audio's cross K/V for the whole group
+    h, tcache = tw.decoder_step_fused(tparams, DIMS, torch.from_numpy(tokens), t0, tcache)
+    np.testing.assert_allclose(h.numpy(), np.asarray(ref_h), atol=3e-5, rtol=1e-4)
+    np.testing.assert_allclose(tcache.self_k.numpy(), np.asarray(ref_cache.self_k), atol=1e-5)
+    np.testing.assert_allclose(tcache.self_v.numpy(), np.asarray(ref_cache.self_v), atol=1e-5)

@@ -4,9 +4,11 @@ NVIDIA H100.
 Public API parity target: ``whisper_tpu/__init__.py`` (reference
 ``whisper/__init__.py``): load_model / available_models / load_audio /
 log_mel_spectrogram / pad_or_trim / transcribe / decode / detect_language /
-DecodingOptions / DecodingResult / ModelDimensions / Whisper.  This slice
-runs the greedy ``load_model`` -> ``transcribe`` path, with the encoder's
-self-attention (K1) and the decode step (K2) as hand-written CUDA kernels.
+DecodingOptions / DecodingResult / ModelDimensions / Whisper, and the
+command line (``python -m whisper_tpu_torch``).  It runs ``load_model`` ->
+``transcribe`` with greedy decoding, best-of sampling, beam search and word
+timestamps, with the encoder's self-attention (K1), the decode step (K2),
+the median filter (K3) and the DTW trace (K4) as hand-written CUDA kernels.
 """
 
 import hashlib

@@ -1,42 +1,60 @@
-// K2: one greedy decode step through all L decoder layers, batch 1.
+// K2: one decode step through all L decoder layers, for B rows of one audio
+// (B = 1 greedy, B = n_group beam or best-of rows).
 //
 // Replaces whisper_tpu/ops/kernels/fused_step_pallas.py:fused_decoder_layers
-// in its A=1, B=1, no-pending, unquantized variant.  Same contract: input x
-// (1, C) is the token + position embedding; outputs are the hidden state
-// after the last layer (no final LayerNorm) and each layer's new K/V as
-// (L, 1, C); the KV-cache column write stays with the caller.  Per layer:
-// ln1 -> q, k, v -> self-attention over cache positions < t plus the new
-// token -> o + residual -> ln2 -> xq -> cross-attention over Ta -> xo +
-// residual -> ln3 -> fc1 + GELU -> fc2 + residual.  LayerNorm statistics,
-// softmax and every accumulation are f32; each intermediate is rounded to
-// the compute dtype where models.whisper.decoder_step rounds it.
+// in its A=1 variants without a pending block, unquantized: B rows with
+// their own self-KV caches and one uniform position t, all of them reading
+// the single audio's cross K/V.  (A = B, one audio per row at a shared t,
+// is accepted as well: then each row reads its own cross K/V.)  Same
+// contract: input x (B, C) is the token + position embedding; outputs are
+// the hidden state after the last layer (no final LayerNorm) and each
+// layer's new K/V as (L, B, C); the KV-cache column write stays with the
+// caller.  Per layer: ln1 -> q, k, v -> self-attention over cache positions
+// < t plus the new token -> o + residual -> ln2 -> xq -> cross-attention
+// over Ta -> xo + residual -> ln3 -> fc1 + GELU -> fc2 + residual.
+// LayerNorm statistics, softmax and every accumulation are f32; each
+// intermediate is rounded to the compute dtype where models.whisper's
+// decoder_step rounds it.
 //
-// What bounds it on an H100: at B = 1 every weight is read once per step
-// for 2 flops per element, and cross-attention reads 2 * H * D * Ta cache
+// What bounds it on an H100: every weight is read once per step for 2 * B
+// flops per element, and cross-attention reads 2 * H * D * Ta cache
 // elements per layer, so the step is bound by device-memory bytes
 // (large-v3-turbo, bf16: ~46 MB of weights and ~7.7 MB of cross K/V per
-// layer) and, at four layers, by the fixed cost of its launches.
+// layer) and, at four layers, by the fixed cost of its launches.  The
+// grouped form keeps that byte count at any B <= 16: the rows share each
+// weight row's read (the point of the TPU kernel's grouped layout) and the
+// cross K/V read.
 //
 // Design: the TPU kernel is one pallas_call whose (layer, phase) grid
 // streams weight tiles through VMEM with the residual stream resident.
-// Blocks on a GPU run in no order and share nothing, so this first form is
-// eight launches per layer, queued back to back on one stream by one host
-// call (no Python between them):
+// Blocks on a GPU run in no order and share nothing, so this form is eight
+// launches per layer, queued back to back on one stream by one host call
+// (no Python between them):
 //   gemv  (LayerNorm prologue, q|k|v in one launch of 3C rows)
 //   decode_attention (self: cache positions < t and the new token)
 //   gemv  (o, + residual in place)      gemv (LayerNorm prologue, xq)
 //   decode_attention (cross: Ta keys)
 //   gemv  (xo, + residual)              gemv (LayerNorm prologue, fc1, GELU)
 //   gemv  (fc2, + residual)
-// The GEMV keeps torch's (out, in) weight layout so one warp reads one
-// output's weight row with 16-byte loads; each block recomputes the
-// LayerNorm of x (C values) into shared memory instead of paying a launch
-// for it.  decode_attention gives each head a cluster of 8 blocks (a
-// Hopper thread-block cluster) that split the keys; the blocks exchange
-// their max, their sum and their partial outputs through distributed
-// shared memory, so the softmax is still the exact one (weights normalised
-// before they round) while 8x more SMs stream the cache.  One persistent
-// kernel over all layers and TMA weight streaming are later work.
+// The GEMV keeps torch's (out, in) weight layout: one warp reads one output
+// row's weights with 16-byte loads and dots it against all B input rows,
+// which the block holds in shared memory.  B input rows of fc2 (4C = 5120
+// at turbo) do not fit in the 48 KB a launch gets without opting in (B = 5:
+// 100 KB in f32), so the block walks the input in chunks of at most 47 KB
+// (B x chunk floats, chunk a multiple of 256); each chunk is loaded (and
+// LayerNorm-ed: from the rows in shared memory when the input fits in one
+// chunk, else from per-row statistics computed first) by the whole block,
+// then the warps accumulate over it.  decode_attention gives each (row,
+// head) of self-attention a cluster of 8 blocks (a Hopper thread-block
+// cluster) that split the keys; for cross-attention one cluster per head
+// takes every row's query and reads each key and value once for all of
+// them, so the shared K/V leaves device memory once per step whatever B
+// is, instead of B times through the L2.  The blocks of a
+// cluster exchange their max, their sum and their partial outputs through
+// distributed shared memory, so the softmax is still the exact one (weights
+// normalised before they round) while 8x more SMs stream the cache.  One
+// persistent kernel over all layers and TMA weight streaming are later
+// work.
 
 #include <cooperative_groups.h>
 
@@ -53,11 +71,18 @@ constexpr int HD = 64;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int ROWS_PER_BLOCK = WARPS;  // one output row per warp
-constexpr int CLUSTER = 8;             // blocks per head in decode_attention
+constexpr int CLUSTER = 8;             // blocks per (row, head) in decode_attention
+constexpr int MAX_ROWS = 16;           // B (and queries per cluster) at most
+// GEMV input rows per block: 47 KB, which leaves room for the kernel's
+// static shared memory inside the 48 KB a launch gets without opting in
+// (192 KB, fc2's whole input at B = 5, measured no faster)
+constexpr int SMEM_FLOATS = 12032;
+constexpr int CHUNK_ALIGN = 256;       // 32 lanes x 8 bf16 (or 2 x 4 f32)
 constexpr float LN_EPS = 1e-5f;
 
 // Up to three weight segments of seg_rows output rows each: output row r
 // uses segment r / seg_rows (q|k|v share one launch).  A null bias is none.
+// Input row b of output segment s is written at out[s] + b * seg_rows.
 template <typename T>
 struct Segments {
   const T* w[3];
@@ -69,158 +94,314 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
 }
 
-// y[r] = epilogue(W[r, :] . h) for r < rows, h = x or LayerNorm(x).
-// Epilogue, rounding as decoder_step does: y = round(acc); with a bias
-// y = round(y + b); with GELU y = round(gelu(y)); with RESID the output
-// holds the residual and y = round(out + y) is written back in place.
-template <typename T, bool LN, bool GELU, bool RESID>
-__global__ void __launch_bounds__(THREADS)
-gemv_kernel(const T* __restrict__ x, int n_in, const T* __restrict__ ln_g,
+// acc[b] += W[r, i : i + V] . h[b, i : i + V] for the NB (>= nb) rows held
+// in shared memory at hs + b * chunk
+template <typename T, int NB>
+__device__ __forceinline__ void dot_rows(const T* __restrict__ w, const float* hs, int chunk,
+                                         int nb, int i, float* acc) {
+  constexpr int V = Vec16<T>::N;
+  float wv[V];
+  load16(w + i, wv);
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    if (b < nb) {
+      const float4* h4 = reinterpret_cast<const float4*>(hs + b * chunk + i);
+#pragma unroll
+      for (int u4 = 0; u4 < V / 4; ++u4) {
+        const float4 h = h4[u4];
+        acc[b] = fmaf(wv[4 * u4 + 0], h.x, acc[b]);
+        acc[b] = fmaf(wv[4 * u4 + 1], h.y, acc[b]);
+        acc[b] = fmaf(wv[4 * u4 + 2], h.z, acc[b]);
+        acc[b] = fmaf(wv[4 * u4 + 3], h.w, acc[b]);
+      }
+    }
+  }
+}
+
+// y[b, r] = epilogue(W[r, :] . h[b, :]) for r < rows and b < nb (<= NB),
+// h = x or LayerNorm(x) rowwise.  Epilogue, rounding as decoder_step does:
+// y = round(acc); with a bias y = round(y + b); with GELU
+// y = round(gelu(y)); with RESID the output holds the residual and
+// y = round(out + y) is written back in place.
+// Occupancy: one row (NB = 1) keeps to 32 registers, so that eight blocks
+// fit on an SM and fc1's 640 blocks run in one wave; more rows get up to
+// 64 (four blocks, as their 48 KB of input rows allow anyway) or 128.
+template <typename T, int NB, bool LN, bool GELU, bool RESID>
+__global__ void __launch_bounds__(THREADS, NB == 1 ? 8 : (NB <= 5 ? 4 : 2))
+gemv_kernel(const T* __restrict__ x, int nb, int n_in, int chunk, const T* __restrict__ ln_g,
             const T* __restrict__ ln_b, Segments<T> seg, int seg_rows, int rows) {
   extern __shared__ float4 hs4[];
-  float* hs = reinterpret_cast<float*>(hs4);
+  float* hs = reinterpret_cast<float*>(hs4);  // (nb, chunk)
   __shared__ float red[32];
+  __shared__ float mean_s[NB], rstd_s[NB];
 
-  for (int i = threadIdx.x; i < n_in; i += THREADS) hs[i] = to_f(x[i]);
-  if (LN) {
-    __syncthreads();
-    float s = 0.f;
-    for (int i = threadIdx.x; i < n_in; i += THREADS) s += hs[i];
-    const float mean = block_sum(s, red) / n_in;
-    float s2 = 0.f;
-    for (int i = threadIdx.x; i < n_in; i += THREADS) {
-      const float d = hs[i] - mean;
-      s2 += d * d;
+  // LayerNorm statistics: from the rows in shared memory when the whole
+  // input fits in one chunk, else first from device memory
+  const bool whole = chunk >= n_in;
+  if (LN && !whole) {
+    for (int b = 0; b < nb; ++b) {
+      const T* xb = x + (size_t)b * n_in;
+      float s = 0.f;
+      for (int i = threadIdx.x; i < n_in; i += THREADS) s += to_f(xb[i]);
+      const float mean = block_sum(s, red) / n_in;
+      float s2 = 0.f;
+      for (int i = threadIdx.x; i < n_in; i += THREADS) {
+        const float d = to_f(xb[i]) - mean;
+        s2 += d * d;
+      }
+      const float rstd = rsqrtf(block_sum(s2, red) / n_in + LN_EPS);
+      if (threadIdx.x == 0) {
+        mean_s[b] = mean;
+        rstd_s[b] = rstd;
+      }
     }
-    const float rstd = rsqrtf(block_sum(s2, red) / n_in + LN_EPS);
-    for (int i = threadIdx.x; i < n_in; i += THREADS)
-      hs[i] = round_to<T>((hs[i] - mean) * rstd * to_f(ln_g[i]) + to_f(ln_b[i]));
   }
-  __syncthreads();
 
   constexpr int V = Vec16<T>::N;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.x * ROWS_PER_BLOCK + warp;
-  if (r < rows) {
-    const int s = r / seg_rows, rr = r - s * seg_rows;
-    const T* w = seg.w[s] + (size_t)rr * n_in;
-    float acc = 0.f;
-    // unrolled so that several 16-byte loads of the row are in flight
-#pragma unroll 4
-    for (int i = lane * V; i < n_in; i += 32 * V) {
-      float wv[V];
-      load16(w + i, wv);
+  const bool active = r < rows;
+  const int s = active ? r / seg_rows : 0;
+  const int rr = r - s * seg_rows;
+  const T* w = active ? seg.w[s] + (size_t)rr * n_in : nullptr;
+  float acc[NB];
 #pragma unroll
-      for (int u = 0; u < V; ++u) acc = fmaf(wv[u], hs[i + u], acc);
+  for (int b = 0; b < NB; ++b) acc[b] = 0.f;
+
+  for (int c0 = 0; c0 < n_in; c0 += chunk) {
+    const int len = min(chunk, n_in - c0);
+    __syncthreads();  // the previous chunk is consumed; the statistics are visible
+    for (int b = 0; b < nb; ++b) {
+      const T* xb = x + (size_t)b * n_in + c0;
+      for (int i = threadIdx.x; i < len; i += THREADS) {
+        float v = to_f(xb[i]);
+        if (LN && !whole)
+          v = round_to<T>((v - mean_s[b]) * rstd_s[b] * to_f(ln_g[c0 + i]) + to_f(ln_b[c0 + i]));
+        hs[b * chunk + i] = v;
+      }
     }
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      float y = round_to<T>(acc);
+    if (LN && whole) {
+      __syncthreads();
+      for (int b = 0; b < nb; ++b) {
+        float* hb = hs + b * chunk;
+        float s = 0.f;
+        for (int i = threadIdx.x; i < n_in; i += THREADS) s += hb[i];
+        const float mean = block_sum(s, red) / n_in;
+        float s2 = 0.f;
+        for (int i = threadIdx.x; i < n_in; i += THREADS) {
+          const float d = hb[i] - mean;
+          s2 += d * d;
+        }
+        const float rstd = rsqrtf(block_sum(s2, red) / n_in + LN_EPS);
+        for (int i = threadIdx.x; i < n_in; i += THREADS)
+          hb[i] = round_to<T>((hb[i] - mean) * rstd * to_f(ln_g[i]) + to_f(ln_b[i]));
+      }
+    }
+    __syncthreads();
+    if (active) {
+      // unrolled so that several 16-byte weight loads are in flight
+      if constexpr (NB == 1) {
+#pragma unroll 4
+        for (int i = lane * V; i < len; i += 32 * V) dot_rows<T, NB>(w + c0, hs, chunk, nb, i, acc);
+      } else {
+#pragma unroll 2
+        for (int i = lane * V; i < len; i += 32 * V) dot_rows<T, NB>(w + c0, hs, chunk, nb, i, acc);
+      }
+    }
+  }
+
+  if (active) {
+    float mine = 0.f;  // lane b keeps row b's sum
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (b < nb) {
+        const float sum = warp_sum(acc[b]);
+        if (lane == b) mine = sum;
+      }
+    }
+    if (lane < nb) {
+      float y = round_to<T>(mine);
       if (seg.b[s] != nullptr) y = round_to<T>(y + to_f(seg.b[s][rr]));
       if (GELU) y = round_to<T>(gelu_erf(y));
-      T* out = seg.out[s] + rr;
+      T* out = seg.out[s] + (size_t)lane * seg_rows + rr;
       if (RESID) y = round_to<T>(to_f(*out) + y);
       *out = from_f<T>(y);
     }
   }
 }
 
-// One query (1, D) per head against keys/values stored time-last, (H, D,
+// Block-wide max (or sum) of NQ values at once: one shuffle tree per value,
+// then one exchange through `red` (at least WARPS * NQ floats).  Every
+// thread gets the NQ results in v.
+template <int NQ, bool MAX>
+__device__ __forceinline__ void block_reduce_n(float* v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) v[j] = MAX ? warp_max(v[j]) : warp_sum(v[j]);
+  __syncthreads();  // red may still be read by a previous reduction
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) red[warp * NQ + j] = v[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    float r = MAX ? -INFINITY : 0.f;
+    for (int w = 0; w < WARPS; ++w) r = MAX ? fmaxf(r, red[w * NQ + j]) : r + red[w * NQ + j];
+    v[j] = r;
+  }
+}
+
+// NQ queries (1, D) per head against keys/values stored time-last, (H, D,
 // t_cap) with the first n positions valid, plus optionally the new token's
-// own key/value (self-attention).  As qkv_attention_kt / decoder_step:
-// q * D^-0.25 and k * D^-0.25 each rounded to T, f32 scores, f32 softmax,
-// weights rounded to T, f32 PV, output rounded to T.  Grid: a cluster of
-// CLUSTER blocks per head, block `rank` taking keys [rank * chunk, ...);
-// its scores live in its shared memory (chunk floats), and the cluster
-// combines maxima, sums and partial outputs over distributed shared memory
-// in rank order (deterministic).
-template <typename T>
+// own key/value (self-attention, NQ = 1).  As qkv_attention_kt /
+// decoder_step: q * D^-0.25 and k * D^-0.25 each rounded to T, f32 scores,
+// f32 softmax, weights rounded to T, f32 PV, output rounded to T.  Grid: a
+// cluster of CLUSTER blocks per (group g, head h), block `rank` taking keys
+// [rank * chunk, ...).  Group g reads K/V at k + g * kv_stride and the query
+// rows g * NQ + j, j < NQ (row stride C; output likewise), so each key and
+// value element is read once for all NQ queries.  Its scores live in its
+// shared memory (NQ x chunk floats), and the cluster combines maxima, sums
+// and partial outputs over distributed shared memory in rank order
+// (deterministic).
+template <typename T, int NQ>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ k_new,
-                        const T* __restrict__ v_new, T* __restrict__ out, int n,
-                        int t_cap, float scale) {
+                        const T* __restrict__ v_new, T* __restrict__ out, int n_head, int C,
+                        size_t kv_stride, int n, int t_cap, float scale) {
   extern __shared__ float4 sc4[];
-  float* sc = reinterpret_cast<float*>(sc4);
-  __shared__ float qs[HD];
-  __shared__ float red[32];
-  __shared__ float stat[2];    // this block's max, then its sum
-  __shared__ float part[HD];   // this block's share of the output
+  float* sc = reinterpret_cast<float*>(sc4);  // (NQ, chunk)
+  __shared__ float qs[NQ][HD];
+  __shared__ float red[WARPS * NQ];
+  __shared__ float stat[2][NQ];    // this block's maxima, then its sums
+  __shared__ float part[NQ][HD];   // this block's share of each output
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int h = blockIdx.x / CLUSTER;
+  const int gh = blockIdx.x / CLUSTER;
+  const int g = gh / n_head, h = gh - g * n_head;
   const int chunk = (n + CLUSTER - 1) / CLUSTER;
   const int t0 = rank * chunk, t1 = min(n, t0 + chunk);
-  const T* kh = k + (size_t)h * HD * t_cap;
-  const T* vh = v + (size_t)h * HD * t_cap;
-  if (threadIdx.x < HD) qs[threadIdx.x] = round_to<T>(to_f(q[h * HD + threadIdx.x]) * scale);
+  const T* kh = k + g * kv_stride + (size_t)h * HD * t_cap;
+  const T* vh = v + g * kv_stride + (size_t)h * HD * t_cap;
+  const size_t row0 = (size_t)g * NQ;
+  for (int i = threadIdx.x; i < NQ * HD; i += THREADS) {
+    const int j = i / HD, d = i - j * HD;
+    qs[j][d] = round_to<T>(to_f(q[(row0 + j) * C + h * HD + d]) * scale);
+  }
   __syncthreads();
 
-  float lmax = -INFINITY;
+  float m[NQ];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) m[j] = -INFINITY;
   for (int t = t0 + threadIdx.x; t < t1; t += THREADS) {
-    float s = 0.f;
+    float s[NQ];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) s[j] = 0.f;
 #pragma unroll 16
-    for (int d = 0; d < HD; ++d)
-      s = fmaf(qs[d], round_to<T>(to_f(kh[(size_t)d * t_cap + t]) * scale), s);
-    sc[t - t0] = s;
-    lmax = fmaxf(lmax, s);
+    for (int d = 0; d < HD; ++d) {
+      const float kv = round_to<T>(to_f(kh[(size_t)d * t_cap + t]) * scale);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) s[j] = fmaf(qs[j][d], kv, s[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      sc[j * chunk + t - t0] = s[j];
+      m[j] = fmaxf(m[j], s[j]);
+    }
   }
+  block_reduce_n<NQ, true>(m, red);
+  if (threadIdx.x == 0) {  // static indices keep m[] in registers
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) stat[0][j] = m[j];
+  }
+  // the new token (self-attention, NQ = 1): every thread computes its
+  // score in one order, so no broadcast is needed
   const bool has_new = k_new != nullptr;
+  const T* kn = has_new ? k_new + row0 * C + h * HD : nullptr;
+  const T* vn = has_new ? v_new + row0 * C + h * HD : nullptr;
   float s_new = -INFINITY;
-  if (has_new) {  // every thread computes it, in one order: no broadcast needed
+  if (has_new) {
     s_new = 0.f;
-    for (int d = 0; d < HD; ++d)
-      s_new = fmaf(qs[d], round_to<T>(to_f(k_new[h * HD + d]) * scale), s_new);
+    for (int d = 0; d < HD; ++d) s_new = fmaf(qs[0][d], round_to<T>(to_f(kn[d]) * scale), s_new);
   }
-  lmax = block_max(lmax, red);
-  if (threadIdx.x == 0) stat[0] = lmax;
   cluster.sync();
-  float m = s_new;
-  for (int r = 0; r < CLUSTER; ++r) m = fmaxf(m, *cluster.map_shared_rank(&stat[0], r));
 
-  float lsum = 0.f;
-  for (int t = t0 + threadIdx.x; t < t1; t += THREADS) {
-    const float p = expf(sc[t - t0] - m);
-    sc[t - t0] = p;
-    lsum += p;
+  float l[NQ];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    m[j] = j == 0 ? s_new : -INFINITY;
+    for (int rk = 0; rk < CLUSTER; ++rk) m[j] = fmaxf(m[j], *cluster.map_shared_rank(&stat[0][j], rk));
+    l[j] = 0.f;
   }
-  lsum = block_sum(lsum, red);
-  if (threadIdx.x == 0) stat[1] = lsum;
+  for (int t = t0 + threadIdx.x; t < t1; t += THREADS) {
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float p = expf(sc[j * chunk + t - t0] - m[j]);
+      sc[j * chunk + t - t0] = p;
+      l[j] += p;
+    }
+  }
+  block_reduce_n<NQ, false>(l, red);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) stat[1][j] = l[j];
+  }
   cluster.sync();
-  const float p_new = has_new ? expf(s_new - m) : 0.f;
-  float denom = 0.f;
-  for (int r = 0; r < CLUSTER; ++r) denom += *cluster.map_shared_rank(&stat[1], r);
-  denom += p_new;
-  for (int t = t0 + threadIdx.x; t < t1; t += THREADS)
-    sc[t - t0] = round_to<T>(sc[t - t0] / denom);
+  const float p_new = has_new ? expf(s_new - m[0]) : 0.f;
+  float denom[NQ];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    denom[j] = 0.f;
+    for (int rk = 0; rk < CLUSTER; ++rk) denom[j] += *cluster.map_shared_rank(&stat[1][j], rk);
+  }
+  denom[0] += p_new;
+  for (int t = t0 + threadIdx.x; t < t1; t += THREADS) {
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+      sc[j * chunk + t - t0] = round_to<T>(sc[j * chunk + t - t0] / denom[j]);
+  }
   __syncthreads();
 
-  // PV: warp w owns rows d = w + WARPS * j; its lanes walk the chunk's
-  // keys and keep one accumulator per row, so the rows' loads overlap
+  // PV: warp w owns rows d = w + WARPS * i; its lanes walk the chunk's
+  // keys and keep one accumulator per (row, query), so each value is read
+  // once and the rows' loads overlap
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   constexpr int ROWS = HD / WARPS;
-  float acc[ROWS];
+  float acc[ROWS][NQ];
 #pragma unroll
-  for (int j = 0; j < ROWS; ++j) acc[j] = 0.f;
+  for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) acc[i][j] = 0.f;
   for (int t = t0 + lane; t < t1; t += 32) {
-    const float w = sc[t - t0];
+    float w[NQ];
 #pragma unroll
-    for (int j = 0; j < ROWS; ++j)
-      acc[j] = fmaf(w, to_f(vh[(size_t)(warp + WARPS * j) * t_cap + t]), acc[j]);
+    for (int j = 0; j < NQ; ++j) w[j] = sc[j * chunk + t - t0];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const float vv = to_f(vh[(size_t)(warp + WARPS * i) * t_cap + t]);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) acc[i][j] = fmaf(w[j], vv, acc[i][j]);
+    }
   }
 #pragma unroll
-  for (int j = 0; j < ROWS; ++j) {
-    const float s = warp_sum(acc[j]);
-    if (lane == 0) part[warp + WARPS * j] = s;
+  for (int i = 0; i < ROWS; ++i) {
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float s = warp_sum(acc[i][j]);
+      if (lane == 0) part[j][warp + WARPS * i] = s;
+    }
   }
   cluster.sync();
-  if (rank == 0 && threadIdx.x < HD) {
-    const int d = threadIdx.x;
-    float acc = 0.f;
-    for (int r = 0; r < CLUSTER; ++r) acc += *cluster.map_shared_rank(&part[d], r);
-    if (has_new) acc = fmaf(round_to<T>(p_new / denom), to_f(v_new[h * HD + d]), acc);
-    out[h * HD + d] = from_f<T>(acc);
+  if (rank == 0) {
+    for (int i = threadIdx.x; i < NQ * HD; i += THREADS) {
+      const int j = i / HD, d = i - j * HD;
+      float o = 0.f;
+      for (int rk = 0; rk < CLUSTER; ++rk) o += *cluster.map_shared_rank(&part[j][d], rk);
+      if (has_new) o = fmaf(round_to<T>(p_new / denom[0]), to_f(vn[d]), o);
+      out[(row0 + j) * C + h * HD + d] = from_f<T>(o);
+    }
   }
   cluster.sync();  // rank 0 has read every block's part[] before any exits
 }
@@ -233,19 +414,63 @@ enum W {
   MLP_LN_G, MLP_LN_B, FC1_W, FC1_B, FC2_W, FC2_B, N_WEIGHTS
 };
 
-template <typename T, bool LN, bool GELU, bool RESID>
-void gemv(const T* x, int n_in, const T* g, const T* b, Segments<T> seg,
-          int seg_rows, int rows, cudaStream_t stream) {
+template <typename T, int NB, bool LN, bool GELU, bool RESID>
+void gemv_launch(const T* x, int nb, int n_in, const T* g, const T* b, Segments<T> seg,
+                 int seg_rows, int rows, cudaStream_t stream) {
+  // the input rows in chunks of at most SMEM_FLOATS floats in all
+  const int whole = (n_in + CHUNK_ALIGN - 1) / CHUNK_ALIGN * CHUNK_ALIGN;
+  const int chunk = min(whole, SMEM_FLOATS / nb / CHUNK_ALIGN * CHUNK_ALIGN);
   const int blocks = (rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  gemv_kernel<T, LN, GELU, RESID>
-      <<<blocks, THREADS, n_in * sizeof(float), stream>>>(x, n_in, g, b, seg, seg_rows, rows);
+  gemv_kernel<T, NB, LN, GELU, RESID><<<blocks, THREADS, (size_t)nb * chunk * sizeof(float),
+                                        stream>>>(x, nb, n_in, chunk, g, b, seg, seg_rows, rows);
+}
+
+// the kernel instance for nb rows: the smallest of 1, 2, 4, 5, 8, 16 >= nb
+template <typename T, bool LN, bool GELU, bool RESID>
+void gemv(const T* x, int nb, int n_in, const T* g, const T* b, Segments<T> seg, int seg_rows,
+          int rows, cudaStream_t stream) {
+  if (nb <= 1) gemv_launch<T, 1, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+  else if (nb <= 2) gemv_launch<T, 2, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+  else if (nb <= 4) gemv_launch<T, 4, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+  else if (nb <= 5) gemv_launch<T, 5, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+  else if (nb <= 8) gemv_launch<T, 8, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+  else gemv_launch<T, 16, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+}
+
+// cross-attention launch for nq queries of one audio: the kernel instance
+// for the largest NQ <= 8 that divides nq, over nq / NQ query groups that
+// all read the same K/V (kv stride 0); or one row per audio (A = B: nq = 1,
+// B groups, stride one audio)
+template <typename T>
+void cross_attention(int nq, int groups, size_t stride, int n_head, int C, int ta,
+                     cudaStream_t stream, const T* q, const T* k, const T* v, T* out) {
+  const float scale = (float)pow((double)HD, -0.25);
+  int per = 8;
+  while (nq % per) --per;
+  const size_t smem = (size_t)per * ((ta + CLUSTER - 1) / CLUSTER) * sizeof(float);
+  const int blocks = groups * (nq / per) * n_head * CLUSTER;
+#define CROSS(NQ)                                                                              \
+  decode_attention_kernel<T, NQ><<<blocks, THREADS, smem, stream>>>(q, k, v, nullptr, nullptr, \
+                                                                   out, n_head, C, stride, ta, \
+                                                                   ta, scale)
+  switch (per) {
+    case 1: CROSS(1); break;
+    case 2: CROSS(2); break;
+    case 3: CROSS(3); break;
+    case 4: CROSS(4); break;
+    case 5: CROSS(5); break;
+    case 6: CROSS(6); break;
+    case 7: CROSS(7); break;
+    default: CROSS(8); break;
+  }
+#undef CROSS
 }
 
 template <typename T>
-int run(int L, int C, int H, int t_cap, int t, int ta, const void* x_, void* out_,
+int run(int L, int B, int A, int C, int H, int t_cap, int t, int ta, const void* x_, void* out_,
         void* k_new_, void* v_new_, const void* self_k_, const void* self_v_,
-        const void* cross_k_, const void* cross_v_, const void* const* table,
-        void* scratch_, cudaStream_t stream) {
+        const void* cross_k_, const void* cross_v_, const void* const* table, void* scratch_,
+        cudaStream_t stream) {
   const T* x = static_cast<const T*>(x_);
   T* out = static_cast<T*>(out_);
   T* k_new = static_cast<T*>(k_new_);
@@ -254,66 +479,71 @@ int run(int L, int C, int H, int t_cap, int t, int ta, const void* x_, void* out
   const T* self_v = static_cast<const T*>(self_v_);
   const T* cross_k = static_cast<const T*>(cross_k_);
   const T* cross_v = static_cast<const T*>(cross_v_);
-  T* q = static_cast<T*>(scratch_);  // (C): q (self, then cross)
-  T* attn = q + C;                   // (C): attention output, merged heads
-  T* ff = attn + C;                  // (4C): fc1 + GELU output
+  T* q = static_cast<T*>(scratch_);      // (B, C): q (self, then cross)
+  T* attn = q + (size_t)B * C;           // (B, C): attention output, merged heads
+  T* ff = attn + (size_t)B * C;          // (B, 4C): fc1 + GELU output
 
   const float scale = (float)pow((double)HD, -0.25);
-  const size_t cc = (size_t)C * C, self_l = (size_t)H * HD * t_cap, cross_l = (size_t)H * HD * ta;
-  // each block of a head's cluster holds its chunk of the scores
+  const size_t cc = (size_t)C * C;
+  const size_t self_row = (size_t)H * HD * t_cap, cross_row = (size_t)H * HD * ta;
+  // cross-attention: clusters per head take all B queries of the one audio
+  // (A = 1), or one cluster per (row, head) reads that row's audio
+  const int x_groups = A == 1 ? 1 : B, x_nq = A == 1 ? B : 1;
+  const size_t x_stride = A == 1 ? 0 : cross_row;
+  // each block of a cluster holds its chunk of the scores for its queries
   const size_t self_smem = (size_t)((t + CLUSTER - 1) / CLUSTER + 1) * sizeof(float);
-  const size_t cross_smem = (size_t)((ta + CLUSTER - 1) / CLUSTER) * sizeof(float);
 
-  cudaError_t e = cudaMemcpyAsync(out, x, C * sizeof(T), cudaMemcpyDeviceToDevice, stream);
+  cudaError_t e = cudaMemcpyAsync(out, x, (size_t)B * C * sizeof(T), cudaMemcpyDeviceToDevice, stream);
   if (e != cudaSuccess) return (int)e;
   for (int l = 0; l < L; ++l) {
     auto p = [&](W i, size_t per_layer) {
       return static_cast<const T*>(table[i]) + l * per_layer;
     };
-    T* kn = k_new + (size_t)l * C;
-    T* vn = v_new + (size_t)l * C;
+    T* kn = k_new + (size_t)l * B * C;
+    T* vn = v_new + (size_t)l * B * C;
 
     Segments<T> s_qkv = {{p(Q_W, cc), p(K_W, cc), p(V_W, cc)},
                          {p(Q_B, C), nullptr, p(V_B, C)},
                          {q, kn, vn}};
-    gemv<T, true, false, false>(out, C, p(ATTN_LN_G, C), p(ATTN_LN_B, C), s_qkv, C, 3 * C, stream);
-    decode_attention_kernel<T><<<H * CLUSTER, THREADS, self_smem, stream>>>(
-        q, self_k + l * self_l, self_v + l * self_l, kn, vn, attn, t, t_cap, scale);
+    gemv<T, true, false, false>(out, B, C, p(ATTN_LN_G, C), p(ATTN_LN_B, C), s_qkv, C, 3 * C, stream);
+    decode_attention_kernel<T, 1><<<B * H * CLUSTER, THREADS, self_smem, stream>>>(
+        q, self_k + l * B * self_row, self_v + l * B * self_row, kn, vn, attn, H, C, self_row,
+        t, t_cap, scale);
     Segments<T> s_o = {{p(O_W, cc)}, {p(O_B, C)}, {out}};
-    gemv<T, false, false, true>(attn, C, nullptr, nullptr, s_o, C, C, stream);
+    gemv<T, false, false, true>(attn, B, C, nullptr, nullptr, s_o, C, C, stream);
 
     Segments<T> s_xq = {{p(XQ_W, cc)}, {p(XQ_B, C)}, {q}};
-    gemv<T, true, false, false>(out, C, p(XATTN_LN_G, C), p(XATTN_LN_B, C), s_xq, C, C, stream);
-    decode_attention_kernel<T><<<H * CLUSTER, THREADS, cross_smem, stream>>>(
-        q, cross_k + l * cross_l, cross_v + l * cross_l, nullptr, nullptr, attn, ta, ta, scale);
+    gemv<T, true, false, false>(out, B, C, p(XATTN_LN_G, C), p(XATTN_LN_B, C), s_xq, C, C, stream);
+    cross_attention<T>(x_nq, x_groups, x_stride, H, C, ta, stream, q,
+                       cross_k + l * A * cross_row, cross_v + l * A * cross_row, attn);
     Segments<T> s_xo = {{p(XO_W, cc)}, {p(XO_B, C)}, {out}};
-    gemv<T, false, false, true>(attn, C, nullptr, nullptr, s_xo, C, C, stream);
+    gemv<T, false, false, true>(attn, B, C, nullptr, nullptr, s_xo, C, C, stream);
 
     Segments<T> s_fc1 = {{p(FC1_W, 4 * cc)}, {p(FC1_B, 4 * C)}, {ff}};
-    gemv<T, true, true, false>(out, C, p(MLP_LN_G, C), p(MLP_LN_B, C), s_fc1, 4 * C, 4 * C, stream);
+    gemv<T, true, true, false>(out, B, C, p(MLP_LN_G, C), p(MLP_LN_B, C), s_fc1, 4 * C, 4 * C, stream);
     Segments<T> s_fc2 = {{p(FC2_W, 4 * cc)}, {p(FC2_B, C)}, {out}};
-    gemv<T, false, false, true>(ff, 4 * C, nullptr, nullptr, s_fc2, C, C, stream);
+    gemv<T, false, false, true>(ff, B, 4 * C, nullptr, nullptr, s_fc2, C, C, stream);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int fused_decoder_layers(int dtype, int L, int C, int H, int t_cap, int t,
-                                    int ta, const void* x, void* out, void* k_new,
+extern "C" int fused_decoder_layers(int dtype, int L, int B, int A, int C, int H, int t_cap,
+                                    int t, int ta, const void* x, void* out, void* k_new,
                                     void* v_new, const void* self_k, const void* self_v,
                                     const void* cross_k, const void* cross_v,
                                     const void* table, void* scratch, void* stream) {
-  // the GEMV's shared input vector is 4C floats (static limit 48 KB)
-  if (C != H * HD || C % 8 != 0 || 16 * C > 48 * 1024 || t < 0 || t > t_cap || ta <= 0)
+  if (C != H * HD || C % 8 != 0 || B < 1 || B > MAX_ROWS || (A != 1 && A != B) || t < 0 ||
+      t > t_cap || ta <= 0)
     return (int)cudaErrorInvalidValue;
   const void* const* tab = static_cast<const void* const*>(table);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16)
-    return run<__nv_bfloat16>(L, C, H, t_cap, t, ta, x, out, k_new, v_new, self_k, self_v,
+    return run<__nv_bfloat16>(L, B, A, C, H, t_cap, t, ta, x, out, k_new, v_new, self_k, self_v,
                               cross_k, cross_v, tab, scratch, s);
   if (dtype == DTYPE_F32)
-    return run<float>(L, C, H, t_cap, t, ta, x, out, k_new, v_new, self_k, self_v, cross_k,
+    return run<float>(L, B, A, C, H, t_cap, t, ta, x, out, k_new, v_new, self_k, self_v, cross_k,
                       cross_v, tab, scratch, s);
   return (int)cudaErrorInvalidValue;
 }

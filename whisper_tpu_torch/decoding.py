@@ -5,8 +5,8 @@ Counterpart of ``whisper_tpu/decoding.py`` (API parity target: reference
 ``decode()``, ``detect_language()`` and the ``DecodingTask`` wiring.  The
 per-token work is in :mod:`whisper_tpu_torch.engine`; this module builds
 the initial tokens and suppression masks and turns the engine's buffers
-into ``DecodingResult`` objects.  This slice decodes greedily (and samples
-at T > 0) one audio at a time.
+into ``DecodingResult`` objects: greedy, best-of sampling and beam search,
+one audio at a time.
 """
 
 from dataclasses import dataclass, field, replace
@@ -156,6 +156,7 @@ class DecodingTask:
         self.tokenizer: Tokenizer = tokenizer
         self.options = self._verify_options(options)
 
+        self.n_group: int = options.beam_size or options.best_of or 1
         self.n_ctx: int = model.dims.n_text_ctx
         self.sample_len: int = options.sample_len or model.dims.n_text_ctx // 2
 
@@ -182,8 +183,17 @@ class DecodingTask:
             max_initial_ts_index = round(options.max_initial_timestamp / precision)
         self._max_initial_ts_index = max_initial_ts_index
 
+        beam = options.beam_size or 0
+        patience = options.patience or 1.0
+        max_candidates = round(beam * patience) if beam else 0
+        if beam:
+            assert max_candidates > 0, f"Invalid beam size ({beam}) or patience ({patience})"
+
         prefill = prefill_bucket(len(self.initial_tokens), self.n_ctx)
         self.spec = EngineSpec(
+            beam_size=beam,
+            n_group=self.n_group,
+            max_candidates=max_candidates,
             prefill_len=prefill,
             ctx_len=ctx_bucket(prefill, self.sample_len, self.n_ctx),
             argmax=options.temperature == 0,
@@ -208,10 +218,6 @@ class DecodingTask:
             raise ValueError("length_penalty (alpha) should be a value between 0 and 1")
         if options.kv_cache_dtype not in (None, "int8"):
             raise ValueError("kv_cache_dtype must be None or 'int8'")
-        if options.beam_size or options.best_of:
-            raise NotImplementedError(
-                "beam_size / best_of: ROADMAP.md, Queue 1, 'Beam search and best-of'"
-            )
         if options.kv_cache_dtype == "int8":
             raise NotImplementedError(
                 "kv_cache_dtype='int8': ROADMAP.md, Queue 1, 'Quantization'"
@@ -288,6 +294,8 @@ class DecodingTask:
         forced = self._forced_tokens
         if forced is None:
             return None
+        if self.options.beam_size:
+            raise ValueError("_forced_tokens is greedy-only (benchmark hook)")
         return [int(x) for x in np.asarray(forced).reshape(-1)]
 
     # -- run ---------------------------------------------------------------
@@ -361,22 +369,51 @@ class DecodingTask:
         )
         return self._assemble(result, languages, language_probs)
 
-    # -- host finalize (parity with decoding.py:712-789) ----------------------
+    # -- host finalize (parity with decoding.py:384-404,712-789) ------------
 
     def _assemble(self, result, languages, language_probs) -> List[DecodingResult]:
         tokenizer = self.tokenizer
         eot = tokenizer.eot
-        tokens_buf = result.tokens.cpu().numpy()  # (1, n_ctx+1)
-        seq_len = min(int(result.seq_len[0]), tokens_buf.shape[1])
-        sum_logprob = float(result.sum_logprobs[0])
+        G = self.n_group
+        sb = self.sample_begin
+        tokens_buf = result.tokens.cpu().numpy()  # (G, n_ctx+1)
+        seq_lens = np.minimum(result.seq_len.cpu().numpy(), tokens_buf.shape[1])
+        sum_logprobs = result.sum_logprobs.cpu().numpy()
         no_speech_prob = float(result.no_speech_probs[0])
 
-        # slice [sample_begin : first EOT] (decoding.py:749-752)
-        seq = [int(t) for t in tokens_buf[0, :seq_len]] + [eot]
-        tokens = seq[self.sample_begin : seq.index(eot, self.sample_begin)]
+        def trim(seq: List[int]) -> List[int]:
+            """slice [sample_begin : first EOT] (decoding.py:749-752)"""
+            seq = [int(t) for t in seq] + [eot]
+            return seq[sb : seq.index(eot, sb)]
 
-        # rank by sum_logprob with length penalty (decoding.py:190-213): one
-        # candidate, so only avg_logprob below depends on it
+        if self.spec.beam_size:
+            beam = self.spec.beam_size
+            fin_count = int(result.fin_count[0])
+            fin_tokens = result.fin_tokens[0, :fin_count].cpu().numpy()
+            # finished rows carry their own EOT; trim() stops there
+            seqs = [list(row) for row in fin_tokens]
+            scores = [float(x) for x in result.fin_scores[0, :fin_count].cpu().numpy()]
+            if len(seqs) < beam:
+                # top up with unfinished beams by score (decoding.py:384-395)
+                for j in list(np.argsort(sum_logprobs))[::-1]:
+                    seqs.append(list(tokens_buf[j, : seq_lens[j]]) + [eot])
+                    scores.append(float(sum_logprobs[j]))
+                    if len(seqs) >= beam:
+                        break
+        else:
+            seqs = [tokens_buf[j, : seq_lens[j]] for j in range(G)]
+            scores = [float(sum_logprobs[j]) for j in range(G)]
+        seqs = [trim(s) for s in seqs]
+
+        # rank by sum_logprob with length penalty (decoding.py:190-213)
+        alpha = self.options.length_penalty
+
+        def score(lp: float, length: int) -> float:
+            penalty = length if alpha is None else ((5 + length) / 6) ** alpha
+            return lp / penalty
+
+        ranked = int(np.argmax([score(lp, len(s)) for lp, s in zip(scores, seqs)]))
+        tokens, sum_logprob = seqs[ranked], scores[ranked]
         text = tokenizer.decode(tokens).strip()
         return [
             DecodingResult(

@@ -1,13 +1,15 @@
-"""Segment decoding engine: encoder, cross K/V, prompt prefill and the greedy
-token loop.
+"""Segment decoding engine: encoder, cross K/V, prompt prefill and the token
+loop (greedy, best-of sampling, beam search).
 
-Counterpart of ``whisper_tpu/engine.py`` for its greedy, per-step branch.
-The JAX engine runs the token loop as one ``lax.while_loop`` on the device;
-here it is a Python loop that queues each step's work (logit filters,
-selection, the decode step through kernel K2, the logits) on the device and
-reads the stop flag back once per step.  The filters are vectorised masks
-recomputed from the token buffer every step, as there.  Beam search, the
-deferred write block and the speculative engine are later slices.
+Counterpart of ``whisper_tpu/engine.py`` for its per-step branch.  The JAX
+engine runs the token loop as one ``lax.while_loop`` on the device; here it
+is a Python loop that queues each step's work (logit filters, selection,
+the decode step through kernel K2, the logits) on the device and reads the
+stop flag back once per step.  The filters are vectorised masks recomputed
+from the token buffer every step, as there, so beam reordering carries no
+extra state.  A beam or best-of group of one audio is n_group rows that
+share its cross K/V.  The deferred write block and the speculative engine
+are later slices.
 """
 
 from dataclasses import dataclass
@@ -18,6 +20,7 @@ import torch
 from .models.dims import ModelDimensions
 from .models.whisper import (
     NEG_INF,
+    KVCache,
     compute_cross_kv,
     decoder_forward,
     decoder_prefill,
@@ -47,7 +50,7 @@ def ctx_bucket(prefill_len: int, sample_len: int, n_text_ctx: int) -> int:
 
 @dataclass(frozen=True)
 class EngineSpec:
-    """Static configuration of one greedy (or sampled) decode."""
+    """Static configuration of one decode."""
 
     prefill_len: int  # bucketed initial-token block size
     argmax: bool  # temperature == 0
@@ -57,6 +60,9 @@ class EngineSpec:
     no_timestamps: int
     timestamp_begin: int
     ctx_len: int = 0  # token-loop time capacity (0 => dims.n_text_ctx)
+    beam_size: int = 0  # 0 => greedy/sampling
+    n_group: int = 1  # beam_size or best_of or 1
+    max_candidates: int = 0  # beam finished-buffer size (round(beam * patience))
 
 
 class FilterArgs(NamedTuple):
@@ -74,6 +80,10 @@ class EngineResult(NamedTuple):
     sum_logprobs: torch.Tensor  # (B,) f32
     no_speech_probs: torch.Tensor  # (n_audio,) f32
     audio_features: torch.Tensor  # (n_audio, Ta, C)
+    # beam-only finished buffers (size-1 placeholders in greedy mode)
+    fin_tokens: torch.Tensor  # (n_audio, max_cand, n_ctx+1)
+    fin_scores: torch.Tensor  # (n_audio, max_cand) f32
+    fin_count: torch.Tensor  # (n_audio,)
 
 
 class _LoopState(NamedTuple):
@@ -82,6 +92,10 @@ class _LoopState(NamedTuple):
     step: int  # shared sampling-step counter
     sum_logprobs: torch.Tensor
     completed: torch.Tensor  # () bool
+    cache: Optional[KVCache] = None  # beam search permutes its self K/V
+    fin_tokens: Optional[torch.Tensor] = None
+    fin_scores: Optional[torch.Tensor] = None
+    fin_count: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +231,121 @@ def _greedy_update(
     )
 
 
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest entries of each row of f32 x, descending, equal values
+    lowest index first (XLA's TopK order).  The ranking runs on int64 keys,
+    the value's IEEE total-order bits above the reversed index, which are
+    all distinct, so no tie is left to the sort's implementation."""
+    bits = x.contiguous().view(torch.int32)
+    order = (bits ^ ((bits >> 31) & 0x7FFFFFFF)).to(torch.int64)
+    V = x.shape[-1]
+    reverse_index = (V - 1) - torch.arange(V, device=x.device)
+    _, idx = torch.topk(order * (1 << 32) + reverse_index, k, dim=-1)
+    return x.gather(-1, idx), idx
+
+
+def _beam_update(spec: EngineSpec, state: _LoopState, logits: torch.Tensor) -> _LoopState:
+    """BeamSearchDecoder.update parity (reference decoding.py:323-382), fixed
+    shapes, as whisper_tpu's ``_beam_update``.
+
+    Candidate order (beam-major, top-k rank within beam) plus a stable sort
+    reproduces the reference's sorted-dict iteration; the first update only
+    draws candidates from beam 0, which is equivalent to the reference's
+    dict-dedup across initially identical beams.  An audio group whose
+    buffer is full freezes entirely (no new candidates, no reordering).
+    The finished buffers carry one spare slot at index max_candidates that
+    takes the writes the JAX package drops.
+    """
+    beam = spec.beam_size
+    k = beam + 1
+    tokens, t = state.tokens, state.t
+    B, n_ctx1 = tokens.shape
+    n_audio = B // beam
+    dev = tokens.device
+    capped_row = t >= n_ctx1  # (B,), group-constant
+
+    logprobs = torch.log_softmax(logits, dim=-1)  # (B, V)
+    top_lp, top_tok = _top_k(logprobs, k)  # (B, k)
+    cand_scores = state.sum_logprobs[:, None] + top_lp
+    if state.step == 0:  # all beams are identical: only beam 0 contributes
+        beam_idx = torch.arange(B, device=dev) % beam
+        cand_scores = cand_scores.masked_fill((beam_idx > 0)[:, None], NEG_INF)
+
+    cand_scores = cand_scores.reshape(n_audio, beam * k)
+    cand_tok = top_tok.reshape(n_audio, beam * k)
+    neg_sorted, order = torch.sort(-cand_scores, dim=1, stable=True)
+    s_scores = -neg_sorted
+    s_tok = cand_tok.gather(1, order)
+    s_src = order // k  # source beam within the audio group
+
+    is_eot = s_tok == spec.eot
+    not_eot = (~is_eot).long()
+    saved_before = not_eot.cumsum(1) - not_eot
+    processed = saved_before < beam  # the reference stops after beam non-EOT saves
+
+    # new live beams: the first `beam` non-EOT candidates in score order (at
+    # least that many exist: each top-k row holds at most one EOT)
+    rank = (processed & ~is_eot).long().cumsum(1)
+    targets = torch.arange(1, beam + 1, device=dev)
+    sel = (rank[:, None, :] >= targets[None, :, None]).long().argmax(-1)  # (n_audio, beam)
+    sel_tok = s_tok.gather(1, sel)
+    sel_src = s_src.gather(1, sel)
+    sel_score = s_scores.gather(1, sel)
+
+    # capped groups freeze: their beams keep their slots and scores
+    capped_audio = capped_row.reshape(n_audio, beam)[:, 0]
+    own_src = torch.arange(beam, device=dev).expand(n_audio, beam)
+    sel_src = torch.where(capped_audio[:, None], own_src, sel_src)
+    sel_score = torch.where(
+        capped_audio[:, None], state.sum_logprobs.reshape(n_audio, beam), sel_score
+    )
+    audio = torch.arange(n_audio, device=dev)[:, None]
+    src_global = (audio * beam + sel_src).reshape(B)
+
+    # finished sequences: EOT candidates above the cut, appended in score
+    # order until the patience budget is full (decoding.py:367-375); at most
+    # `beam` finish per step
+    fin_rank = (processed & is_eot & ~capped_audio[:, None]).long().cumsum(1)
+    slot = torch.arange(1, beam + 1, device=dev)
+    cand_idx = (fin_rank[:, None, :] >= slot[None, :, None]).long().argmax(-1)  # (n_audio, beam)
+    has = fin_rank[:, -1:] >= slot[None, :]  # the j-th EOT exists at all
+    src_small = s_src.gather(1, cand_idx)
+    scores_small = s_scores.gather(1, cand_idx)
+    write_pos = state.fin_count[:, None] + torch.arange(beam, device=dev)[None, :]
+    valid = has & (write_pos < spec.max_candidates)
+    write_pos = torch.where(valid, write_pos, spec.max_candidates)  # the spare slot
+    # finished row content: the source beam's tokens with EOT at position t
+    fin_rows = tokens[audio * beam + src_small]  # (n_audio, beam, n_ctx+1)
+    t_audio = t.reshape(n_audio, beam)[:, 0]
+    cols = torch.arange(n_ctx1, device=dev)
+    fin_rows = torch.where(cols[None, None, :] == t_audio[:, None, None], spec.eot, fin_rows)
+    rows = audio.expand(n_audio, beam)
+    fin_tokens = state.fin_tokens.index_put((rows, write_pos), fin_rows)
+    fin_scores = state.fin_scores.index_put((rows, write_pos), scores_small)
+    fin_count = state.fin_count + valid.sum(1)
+
+    # the beam permutation of tokens and of the self-KV cache (a gather of
+    # whole rows, as in the JAX engine)
+    new_tokens = torch.where(
+        cols[None, :] == t[:, None], sel_tok.reshape(B)[:, None], tokens[src_global]
+    )
+    cache = state.cache._replace(
+        self_k=state.cache.self_k[:, src_global], self_v=state.cache.self_v[:, src_global]
+    )
+    completed = ((fin_count >= spec.max_candidates) | capped_audio).all()
+    return state._replace(
+        tokens=new_tokens,
+        t=t + 1,
+        step=state.step + 1,
+        cache=cache,
+        sum_logprobs=sel_score.reshape(B),
+        completed=completed,
+        fin_tokens=fin_tokens,
+        fin_scores=fin_scores,
+        fin_count=fin_count,
+    )
+
+
 # ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
@@ -238,16 +367,21 @@ def decode_engine(
     features_given: bool = False,
     forced_tokens: Optional[List[int]] = None,
 ) -> EngineResult:
-    """Decode one 30-second segment, greedy (or sampled at T > 0), one row.
+    """Decode one 30-second segment of one audio: greedy or sampled (T > 0)
+    rows, n_group of them for best-of, or a beam search of n_group beams.
 
-    The token loop reads ``completed`` back to the host once per step, after
-    queueing that step's decode step, so the host's launches overlap the
-    device's work on the step before.  Its last decode step is computed and
-    never used, as in the JAX engine.
+    The prompt is prefilled once and its K/V, tokens and first logits are
+    tiled to the group's rows, which share the audio's cross K/V.  The token
+    loop reads ``completed`` back to the host once per step, after queueing
+    that step's decode step, so the host's launches overlap the device's
+    work on the step before.  Its last decode step is computed and never
+    used, as in the JAX engine.
     """
     n_audio = mel_or_features.shape[0]
     if n_audio != 1:
         raise NotImplementedError("batched decoding: ROADMAP.md, Queue 1, 'Batch and chunked'")
+    G = spec.n_group
+    B = n_audio * G
     n_ctx = spec.ctx_len or dims.n_text_ctx  # token-loop time capacity
     P = spec.prefill_len
     compute_dtype = params["decoder"]["tok_emb"].dtype
@@ -270,29 +404,41 @@ def decode_engine(
     else:
         no_speech_probs = torch.full((n_audio,), float("nan"), device=device)
 
-    cur_logits = project_logits(params, hidden[:, initial_len - 1])  # (1, V)
-
-    cache = init_kv_cache(dims, 1, xk, xv, compute_dtype, ctx=n_ctx)
-    # prefill K/V arrive (L, B, H, P, D); the cache stores time-last
+    # 3) tile to n_audio * n_group rows; cross K/V stay at one per audio
+    cur_logits = project_logits(params, hidden[:, initial_len - 1]).repeat_interleave(G, 0)
+    cache = init_kv_cache(dims, B, xk, xv, compute_dtype, ctx=n_ctx)
+    # prefill K/V arrive (L, 1, H, P, D); the cache stores time-last
     cache.self_k[..., :P] = pk.transpose(-1, -2)
     cache.self_v[..., :P] = pv.transpose(-1, -2)
 
-    tokens = torch.zeros((1, n_ctx + 1), dtype=torch.int64, device=device)
+    tokens = torch.zeros((B, n_ctx + 1), dtype=torch.int64, device=device)
     tokens[:, :P] = initial_tokens
+    n_fin = max(spec.max_candidates, 1)
     state = _LoopState(
         tokens=tokens,
-        t=torch.full((1,), initial_len, dtype=torch.int64, device=device),
+        t=torch.full((B,), initial_len, dtype=torch.int64, device=device),
         step=0,
-        sum_logprobs=torch.zeros(1, dtype=torch.float32, device=device),
+        sum_logprobs=torch.zeros(B, dtype=torch.float32, device=device),
         completed=torch.zeros((), dtype=torch.bool, device=device),
+        cache=cache,
+        # one spare slot past n_fin takes the finished writes that miss
+        fin_tokens=torch.zeros((n_audio, n_fin + 1, n_ctx + 1), dtype=torch.int64, device=device),
+        fin_scores=torch.full((n_audio, n_fin + 1), float("-inf"), device=device),
+        fin_count=torch.zeros(n_audio, dtype=torch.int64, device=device),
     )
 
     while state.step < sample_len:
         filtered = apply_logit_filters(spec, cur_logits, state.tokens, state.t, filter_args)
-        state = _greedy_update(spec, state, filtered, temperature, generator, forced_tokens)
-        # the step for the token just chosen, at its (uniform) position
+        if spec.beam_size > 0:
+            state = _beam_update(spec, state, filtered)
+        else:
+            state = _greedy_update(spec, state, filtered, temperature, generator, forced_tokens)
+        # the step for the tokens just chosen, at their (uniform) position
         pos = initial_len + state.step - 1
-        h, cache = decoder_step_fused(params, dims, state.tokens[:, min(pos, n_ctx)], pos, cache)
+        h, cache = decoder_step_fused(
+            params, dims, state.tokens[:, min(pos, n_ctx)], pos, state.cache
+        )
+        state = state._replace(cache=cache)
         cur_logits = project_logits(params, h)
         if bool(state.completed):  # the loop's one host sync per step
             break
@@ -303,6 +449,9 @@ def decode_engine(
         sum_logprobs=state.sum_logprobs,
         no_speech_probs=no_speech_probs,
         audio_features=audio_features,
+        fin_tokens=state.fin_tokens[:, :n_fin],
+        fin_scores=state.fin_scores[:, :n_fin],
+        fin_count=state.fin_count,
     )
 
 

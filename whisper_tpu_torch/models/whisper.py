@@ -160,9 +160,13 @@ def _decoder_block(
     cross_k_t: torch.Tensor,  # (B, H, D, Ta) — time-last, see KVCache
     cross_v_t: torch.Tensor,
     self_mask: Optional[torch.Tensor],
-) -> torch.Tensor:
+    *,
+    return_cross_qk: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One decoder block given its self-attention K/V for the query
-    positions (computed by the caller, which also keeps them)."""
+    positions (computed by the caller, which also keeps them).  Returns the
+    block's output and, with ``return_cross_qk``, the f32 pre-softmax
+    cross-attention scores (B, H, T, Ta)."""
     h = layer_norm(x, p["attn_ln_g"], p["attn_ln_b"])
     q = split_heads(_linear(h, p["q_w"], p["q_b"]), n_head)
     attn, _ = qkv_attention(q, self_k, self_v, self_mask)
@@ -170,12 +174,17 @@ def _decoder_block(
 
     h = layer_norm(x, p["xattn_ln_g"], p["xattn_ln_b"])
     xq = split_heads(_linear(h, p["xq_w"], p["xq_b"]), n_head)
-    xattn = qkv_attention_kt(xq, cross_k_t, cross_v_t)
+    if return_cross_qk:
+        xattn, cross_qk = qkv_attention(
+            xq, cross_k_t.transpose(-1, -2), cross_v_t.transpose(-1, -2), return_qk=True
+        )
+    else:
+        xattn, cross_qk = qkv_attention_kt(xq, cross_k_t, cross_v_t), None
     x = x + _linear(merge_heads(xattn), p["xo_w"], p["xo_b"])
 
     h = layer_norm(x, p["mlp_ln_g"], p["mlp_ln_b"])
     h = _gelu(_linear(h, p["fc1_w"], p["fc1_b"]))
-    return x + _linear(h, p["fc2_w"], p["fc2_b"])
+    return x + _linear(h, p["fc2_w"], p["fc2_b"]), cross_qk
 
 
 def _embed_tokens(dec: Params, tokens: torch.Tensor, length: int) -> torch.Tensor:
@@ -209,7 +218,7 @@ def decoder_prefill(
         h = layer_norm(x, p["attn_ln_g"], p["attn_ln_b"])
         k = split_heads(_linear(h, p["k_w"]), n_head)
         v = split_heads(_linear(h, p["v_w"], p["v_b"]), n_head)
-        x = _decoder_block(x, p, n_head, k, v, cross_k[i], cross_v[i], causal)
+        x, _ = _decoder_block(x, p, n_head, k, v, cross_k[i], cross_v[i], causal)
         ks.append(k)
         vs.append(v)
     x = layer_norm(x, dec["ln_g"], dec["ln_b"])
@@ -304,23 +313,41 @@ def decoder_forward(
     dims: ModelDimensions,
     tokens: torch.Tensor,  # (B, T)
     audio_features: torch.Tensor,
-) -> torch.Tensor:
+    *,
+    alignment_heads: Optional[np.ndarray] = None,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full teacher-forced decoder pass: float32 logits (B, T, n_vocab).
-    (Alignment-head QK capture comes with word timestamps.)"""
+
+    With ``alignment_heads`` (a (K, 2) array of (layer, head) pairs) it
+    returns (logits, qk): qk holds the float32 pre-softmax cross-attention
+    scores of those heads, (K, B, T, Ta), in ``alignment_heads`` order, as
+    whisper_tpu's ``decoder_forward`` (which replaces the reference's
+    hook-based capture, timing.py:185-201).
+    """
     dec = params["decoder"]
     n_head = dims.n_text_head
     _, T = tokens.shape
+    heads = None if alignment_heads is None else np.asarray(alignment_heads).reshape(-1, 2)
     cross_k, cross_v = compute_cross_kv(params, dims, audio_features)
     x = _embed_tokens(dec, tokens, T)
     causal = _causal_mask(T, x.device)
+    layer_qk = {}
     for i in range(dims.n_text_layer):
         p = _layer(dec["blocks"], i)
         h = layer_norm(x, p["attn_ln_g"], p["attn_ln_b"])
         k = split_heads(_linear(h, p["k_w"]), n_head)
         v = split_heads(_linear(h, p["v_w"], p["v_b"]), n_head)
-        x = _decoder_block(x, p, n_head, k, v, cross_k[i], cross_v[i], causal)
+        want = heads is not None and bool((heads[:, 0] == i).any())
+        x, qk = _decoder_block(
+            x, p, n_head, k, v, cross_k[i], cross_v[i], causal, return_cross_qk=want
+        )
+        if want:
+            layer_qk[i] = qk
     x = layer_norm(x, dec["ln_g"], dec["ln_b"])
-    return project_logits(params, x)
+    logits = project_logits(params, x)
+    if heads is None:
+        return logits
+    return logits, torch.stack([layer_qk[int(l)][:, int(h)] for l, h in heads])
 
 
 def init_kv_cache(

@@ -105,5 +105,15 @@ def load_native() -> Optional[ctypes.CDLL]:
         ]
         lib.audio_free.argtypes = [ctypes.POINTER(ctypes.c_float)]
 
+        # ---- DTW backtrace (dtw.cpp) ----
+        lib.dtw_backtrace.restype = ctypes.c_int32
+        lib.dtw_backtrace.argtypes = [
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int32,
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+        ]
+
         _lib = lib
         return _lib

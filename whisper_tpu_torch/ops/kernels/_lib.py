@@ -2,9 +2,10 @@
 
 The kernels are CUDA C++ for Hopper (``sm_90a``) under
 ``whisper_tpu_torch/csrc/``.  They are compiled at first use with ``nvcc``
-into one shared library with a plain C interface (no PyTorch headers, so a
-build takes seconds), placed in the git-ignored ``whisper_tpu_torch/_build/``
-and loaded with ``ctypes``.  Nothing here runs at import time: the CPU tests
+(one process per source, all started together, then one link) into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), placed in the git-ignored ``whisper_tpu_torch/_build/`` and
+loaded with ``ctypes``.  Nothing here runs at import time: the CPU tests
 import every module on machines without ``nvcc``.
 """
 
@@ -21,11 +22,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libwhisper_kernels.so")
-SOURCES = ("attention.cu", "fused_step.cu")
+SOURCES = ("attention.cu", "fused_step.cu", "median.cu", "dtw.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 _lock = threading.Lock()
@@ -38,11 +39,15 @@ _I = ctypes.c_int
 SIGNATURES = {
     # dtype, q, k, v, out, batch*heads, T, head_dim, stream
     "encoder_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
-    # dtype, L, C, H, T_cap, t, Ta, x, out, k_new, v_new, self_k, self_v,
-    # cross_k, cross_v, weight pointer table (host), scratch, stream
+    # dtype, L, B, A, C, H, T_cap, t, Ta, x, out, k_new, v_new, self_k,
+    # self_v, cross_k, cross_v, weight pointer table (host), scratch, stream
     "fused_decoder_layers": [
-        _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ],
+    # x, out, rows, T, width, stream
+    "median_filter": [_P, _P, ctypes.c_longlong, _I, _I, _P],
+    # x, trace, batch, n, m, stream
+    "dtw_trace": [_P, _P, _I, _I, _I, _P],
 }
 
 
@@ -75,16 +80,34 @@ def build(verbose: bool = False) -> str:
     registers, shared memory and spills per kernel).  Raises on failure.
     """
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-o", tmp]
-    cmd += [os.path.join(CSRC_DIR, s) for s in SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objects = [os.path.join(BUILD_DIR, f"{s}.{tag}.o") for s in SOURCES]
+    compiles = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-c",
+             os.path.join(CSRC_DIR, s), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
-    os.replace(tmp, LIB_PATH)
-    return proc.stdout + proc.stderr
+        for s, obj in zip(SOURCES, objects)
+    ]
+    logs = [proc.communicate()[0] for proc in compiles]  # waits for every one
+    tmp = f"{LIB_PATH}.{tag}"
+    try:
+        for source, proc, log in zip(SOURCES, compiles, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {source} ({proc.returncode}):\n{log}")
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objects],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for path in objects + [tmp]:
+            if os.path.exists(path):
+                os.remove(path)
+    return "".join(logs)
 
 
 def lib() -> ctypes.CDLL:

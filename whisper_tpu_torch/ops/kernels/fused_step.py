@@ -1,19 +1,21 @@
-"""K2: all decoder layers of one greedy decode step as hand-written Hopper
-kernels.
+"""K2: all decoder layers of one decode step as hand-written Hopper kernels.
 
 Replaces ``whisper_tpu/ops/kernels/fused_step_pallas.py:fused_decoder_layers``
-in the variant the greedy single-file path runs: one audio, one row, no
-pending write block, unquantized weights.  The kernels are
+in the variants the single-file path runs: one audio, B = 1 row (greedy) or
+B = n_group rows (a beam or best-of group) sharing that audio's cross K/V,
+no pending write block, unquantized weights.  The kernels are
 ``whisper_tpu_torch/csrc/fused_step.cu`` (its header says what bounds them
 and how they are laid out); :func:`fused_decoder_layers_plain` is the same
 function in PyTorch, a loop over layers in ``decoder_step``'s op order.
 
 Contract (as the TPU kernel's): x (B, C) is the token + position
 embedding; returns (hidden (B, C) after the last layer, no final
-LayerNorm; k_new, v_new (L, B, C)).  Self-attention reads cache positions
-< t plus the new token; the caller writes the new K/V into column t.
+LayerNorm; k_new, v_new (L, B, C)).  Self-attention reads each row's cache
+positions < t plus its new token; the caller writes the new K/V into
+column t.
 """
 
+import collections
 import ctypes
 from typing import Dict, Tuple
 
@@ -25,6 +27,7 @@ from . import _lib
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64
+MAX_ROWS = 16  # csrc/fused_step.cu MAX_ROWS
 
 # the kernel's weight table order (csrc/fused_step.cu enum W)
 WEIGHTS = (
@@ -41,12 +44,14 @@ def fused_decoder_layers_plain(
     t: int,
     self_k: torch.Tensor,  # (L, B, H, D, T)
     self_v: torch.Tensor,
-    cross_k: torch.Tensor,  # (L, 1, H, D, Ta)
+    cross_k: torch.Tensor,  # (L, A, H, D, Ta), A = 1 (shared by the rows) or B
     cross_v: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The layers of ``decoder_step`` in PyTorch: the softmax runs over
     [cache positions < t | the new token], in f32, and the weights round to
-    the compute dtype before PV."""
+    the compute dtype before PV.  A shared cross K/V broadcasts over the
+    rows, which gives each row what whisper_tpu's group folding
+    (``_cross_step_attention``) gives it."""
     L = self_k.shape[0]
     n_ctx = self_k.shape[-1]
     pos_mask = torch.where(
@@ -85,14 +90,17 @@ def fused_decoder_layers_plain(
 def _check_args(blocks, n_head, x, t, self_k, self_v, cross_k, cross_v) -> None:
     B, C = x.shape
     L, _, H, D, T = self_k.shape
-    if B != 1:
-        raise ValueError(f"fused decode-step kernel: batch 1 only, got {B}")
-    if D != HEAD_DIM or H != n_head or C != H * D or (16 * C) > 48 * 1024:
+    if not 1 <= B <= MAX_ROWS:
+        raise ValueError(f"fused decode-step kernel: at most {MAX_ROWS} rows, got {B}")
+    if D != HEAD_DIM or H != n_head or C != H * D or C % 8:
         raise ValueError(f"fused decode-step kernel: C={C}, H={H}, D={D} unsupported")
-    if self_v.shape != self_k.shape or self_k.shape[1] != 1:
+    if self_v.shape != self_k.shape or self_k.shape[1] != B:
         raise ValueError(f"fused decode-step kernel: self cache {tuple(self_k.shape)}")
-    if cross_k.shape != cross_v.shape or cross_k.shape[:4] != (L, 1, H, D):
-        raise ValueError(f"fused decode-step kernel: cross cache {tuple(cross_k.shape)}")
+    A = cross_k.shape[1]
+    if cross_k.shape != cross_v.shape or A not in (1, B) or cross_k.shape[:4] != (L, A, H, D):
+        raise ValueError(
+            f"fused decode-step kernel: cross cache {tuple(cross_k.shape)} (audios 1 or {B})"
+        )
     if not 0 <= t <= T:
         raise ValueError(f"fused decode-step kernel: t={t} outside [0, {T}]")
     if x.dtype not in _DTYPES:
@@ -118,9 +126,10 @@ def fused_decoder_layers(
     cross_k: torch.Tensor,
     cross_v: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """All decoder layers of one step.  A CPU tensor takes
+    """All decoder layers of one step for B rows.  A CPU tensor takes
     :func:`fused_decoder_layers_plain`; a CUDA tensor launches the kernels
-    (batch 1, head_dim 64, bf16 or f32) or raises."""
+    (1 <= B <= 16 rows at one position t, cross K/V of one audio shared by
+    every row or one per row, head_dim 64, bf16 or f32) or raises."""
     if x.device.type == "cpu":
         return fused_decoder_layers_plain(
             blocks, n_head, x, t, self_k, self_v, cross_k, cross_v
@@ -128,15 +137,15 @@ def fused_decoder_layers(
     if x.device.type != "cuda":
         raise ValueError(f"fused decode-step kernel: unsupported device {x.device}")
     _check_args(blocks, n_head, x, t, self_k, self_v, cross_k, cross_v)
-    L, _, H, _, T = self_k.shape
+    L, B, H, _, T = self_k.shape
     C = x.shape[1]
     hidden = torch.empty_like(x)
-    k_new = torch.empty((L, 1, C), dtype=x.dtype, device=x.device)
+    k_new = torch.empty((L, B, C), dtype=x.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
-    scratch = torch.empty(6 * C, dtype=x.dtype, device=x.device)
+    scratch = torch.empty(6 * B * C, dtype=x.dtype, device=x.device)
     table = (ctypes.c_void_p * len(WEIGHTS))(*(blocks[n].data_ptr() for n in WEIGHTS))
     err = _lib.lib().fused_decoder_layers(
-        _DTYPES[x.dtype], L, C, H, T, t, cross_k.shape[-1],
+        _DTYPES[x.dtype], L, B, cross_k.shape[1], C, H, T, t, cross_k.shape[-1],
         x.data_ptr(), hidden.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         self_k.data_ptr(), self_v.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(),
         ctypes.cast(table, ctypes.c_void_p), scratch.data_ptr(),
@@ -144,7 +153,9 @@ def fused_decoder_layers(
     )
     _lib.check(err, "fused_decoder_layers")
     fused_decoder_layers.launches += 1
+    fused_decoder_layers.launches_by_rows[B] += 1
     return hidden, k_new, v_new
 
 
 fused_decoder_layers.launches = 0
+fused_decoder_layers.launches_by_rows = collections.Counter()  # B -> launches

@@ -5,11 +5,17 @@ target: reference ``whisper/transcribe.py:38-514``): the seek loop,
 clip_timestamps, prompt conditioning (condition_on_previous_text,
 carry_initial_prompt, prompt reset above T = 0.5), the temperature ladder
 gated on compression ratio / avg logprob / no-speech probability, and
-timestamp-token segmentation.  The loop is host-side (seek advances are
-data-dependent); the whole file's mel stays on the model's device and each
-window is sliced there.  Word timestamps wait for kernels K3 and K4.
+timestamp-token segmentation, word timestamps with the word-timing seek
+refinement and the hallucination-silence heuristics, and the command line
+(``cli``, ``python -m whisper_tpu_torch``).  The loop is host-side (seek
+advances are data-dependent); the whole file's mel stays on the model's
+device and each window is sliced there.
 """
 
+import argparse
+import os
+import traceback
+import warnings
 from typing import TYPE_CHECKING, List, Optional, Tuple, Union
 
 import numpy as np
@@ -25,8 +31,17 @@ from .audio import (
     log_mel_spectrogram,
 )
 from .decoding import DecodingOptions, DecodingResult
-from .tokenizer import LANGUAGES, get_tokenizer
-from .utils import exact_div, format_timestamp, make_safe
+from .tokenizer import LANGUAGES, TO_LANGUAGE_CODE, get_tokenizer
+from .utils import (
+    exact_div,
+    format_timestamp,
+    get_end,
+    make_safe,
+    optional_float,
+    optional_int,
+    str2bool,
+)
+from .utils.writers import get_writer
 
 if TYPE_CHECKING:
     from .models.whisper import Whisper
@@ -159,6 +174,117 @@ def needs_fallback(
     return fallback
 
 
+# punctuation set used by the hallucination heuristics (prepend+append defaults)
+_PUNCTUATION = "\"'“¿([{-\"'.。,，!！?？:：”)]}、"
+
+
+def _word_anomaly_score(word: dict) -> float:
+    """Score how implausible a word timing is (long/short/improbable)."""
+    probability = word.get("probability", 0.0)
+    duration = word["end"] - word["start"]
+    score = 0.0
+    if probability < 0.15:
+        score += 1.0
+    if duration < 0.133:
+        score += (0.133 - duration) * 15
+    if duration > 2.0:
+        score += duration - 2.0
+    return score
+
+
+def _is_segment_anomaly(segment: Optional[dict]) -> bool:
+    if segment is None or not segment["words"]:
+        return False
+    words = [w for w in segment["words"] if w["word"] not in _PUNCTUATION][:8]
+    score = sum(_word_anomaly_score(w) for w in words)
+    return score >= 3 or score + 0.01 >= len(words)
+
+
+def _first_segment_with_words(segments: List[dict]) -> Optional[dict]:
+    return next((s for s in segments if s["words"]), None)
+
+
+def _refine_seek_with_word_timings(
+    current_segments: List[dict],
+    *,
+    seek: int,
+    previous_seek: int,
+    segment_size: int,
+    single_timestamp_ending: bool,
+    time_offset: float,
+    window_end_time: float,
+    segment_duration: float,
+    content_frames: int,
+    content_duration: float,
+    last_speech_timestamp: float,
+    threshold: Optional[float],
+):
+    """Word-timing seek refinement + hallucination-silence skipping.
+
+    Semantics of reference transcribe.py:413-472.  Returns
+    (seek, restart_window) where restart_window means "re-decode from the new
+    seek, discarding this window's segments".
+    """
+    if not single_timestamp_ending:
+        last_word_end = get_end(current_segments)
+        if last_word_end is not None and last_word_end > time_offset:
+            seek = round(last_word_end * FRAMES_PER_SECOND)
+
+    if threshold is None:
+        return seek, False
+
+    # skip trailing silence when the window ends well past the last word
+    if not single_timestamp_ending:
+        last_word_end = get_end(current_segments)
+        if last_word_end is not None and last_word_end > time_offset:
+            remaining_duration = window_end_time - last_word_end
+            if remaining_duration > threshold:
+                seek = round(last_word_end * FRAMES_PER_SECOND)
+            else:
+                seek = previous_seek + segment_size
+
+    # a suspicious first segment after a gap: skip the leading silence
+    first_segment = _first_segment_with_words(current_segments)
+    if first_segment is not None and _is_segment_anomaly(first_segment):
+        gap = first_segment["start"] - time_offset
+        if gap > threshold:
+            return previous_seek + round(gap * FRAMES_PER_SECOND), True
+
+    # drop hallucination-like segments that are surrounded by silence (or by
+    # more hallucinations) and resume from the first one
+    hal_last_end = last_speech_timestamp
+    for si, segment in enumerate(current_segments):
+        if not segment["words"]:
+            continue
+        if _is_segment_anomaly(segment):
+            next_segment = _first_segment_with_words(current_segments[si + 1 :])
+            if next_segment is not None:
+                hal_next_start = next_segment["words"][0]["start"]
+            else:
+                hal_next_start = time_offset + segment_duration
+            silence_before = (
+                segment["start"] - hal_last_end > threshold
+                or segment["start"] < threshold
+                or segment["start"] - time_offset < 2.0
+            )
+            silence_after = (
+                hal_next_start - segment["end"] > threshold
+                or _is_segment_anomaly(next_segment)
+                or window_end_time - segment["end"] < 2.0
+            )
+            if silence_before and silence_after:
+                seek = round(
+                    max(time_offset + 1, segment["start"]) * FRAMES_PER_SECOND
+                )
+                if content_duration - segment["end"] < threshold:
+                    seek = content_frames
+                current_segments[si:] = []
+                break
+        hal_last_end = segment["end"]
+
+    return seek, False
+
+
 def transcribe(
     model: "Whisper",
     audio: Union[str, np.ndarray, torch.Tensor],
@@ -172,7 +298,10 @@ def transcribe(
     initial_prompt: Optional[str] = None,
     carry_initial_prompt: bool = False,
     word_timestamps: bool = False,
+    prepend_punctuations: str = "\"'“¿([{-",
+    append_punctuations: str = "\"'.。,，!！?？:：”)]}、",
     clip_timestamps: Union[str, List[float]] = "0",
+    hallucination_silence_threshold: Optional[float] = None,
     **decode_options,
 ):
     """Transcribe audio, returning {"text", "segments", "language"}.
@@ -180,15 +309,10 @@ def transcribe(
     Parameter semantics match reference transcribe.py:38-126; see that
     docstring for the meaning of each threshold.
     """
-    if word_timestamps:
-        raise NotImplementedError(
-            "word_timestamps: ROADMAP.md, Queue 1, 'Word timing and alignment' "
-            "(kernels K3 and K4)"
-        )
-
     # whole-file mel with 30 s of trailing silence for the final window
     mel = log_mel_spectrogram(audio, model.dims.n_mels, padding=N_SAMPLES, device=model.device)
     content_frames = mel.shape[-1] - N_FRAMES
+    content_duration = float(content_frames * HOP_LENGTH / SAMPLE_RATE)
 
     def slice_window(seek: int, size: int) -> torch.Tensor:
         """Window [seek : seek+size], zero-padded to 3000 frames, as
@@ -231,6 +355,12 @@ def transcribe(
         seek_points.append(content_frames)
     seek_clips: List[Tuple[int, int]] = list(zip(seek_points[::2], seek_points[1::2]))
 
+    if word_timestamps and task == "translate":
+        warnings.warn("Word-level timestamps on translations may not be reliable.")
+
+    # speculative draft model (a Whisper object, not a DecodingOptions field)
+    draft_model = decode_options.pop("draft_model", None)
+
     def decode_with_fallback(segment: torch.Tensor) -> DecodingResult:
         """Temperature ladder with quality gates (reference transcribe.py:184-224)."""
         temperatures = [temperature] if isinstance(temperature, (int, float)) else temperature
@@ -246,7 +376,7 @@ def transcribe(
                 kwargs.pop("best_of", None)
 
             options = DecodingOptions(**kwargs, temperature=t)
-            decode_result = model.decode(segment, options)
+            decode_result = model.decode(segment, options, draft_model=draft_model)
 
             if not needs_fallback(
                 decode_result,
@@ -276,6 +406,7 @@ def transcribe(
 
     # progress bar shown when not printing per-segment lines
     with tqdm.tqdm(total=content_frames, unit="frames", disable=verbose is not False) as pbar:
+        last_speech_timestamp = 0.0
         while clip_idx < len(seek_clips):
             seek_clip_start, seek_clip_end = seek_clips[clip_idx]
             if seek < seek_clip_start:
@@ -286,6 +417,7 @@ def transcribe(
                     seek = seek_clips[clip_idx][0]
                 continue
             time_offset = float(seek * HOP_LENGTH / SAMPLE_RATE)
+            window_end_time = float((seek + N_FRAMES) * HOP_LENGTH / SAMPLE_RATE)
             segment_size = min(N_FRAMES, content_frames - seek, seek_clip_end - seek)
             segment_duration = segment_size * HOP_LENGTH / SAMPLE_RATE
             mel_segment = slice_window(seek, segment_size)
@@ -309,7 +441,7 @@ def transcribe(
                     continue
 
             previous_seek = seek
-            current_segments, seek, _ = segment_window(
+            current_segments, seek, single_timestamp_ending = segment_window(
                 result=result,
                 tokenizer=tokenizer,
                 seek=seek,
@@ -319,6 +451,44 @@ def transcribe(
                 input_stride=input_stride,
                 time_precision=time_precision,
             )
+
+            if word_timestamps:
+                from .timing import add_word_timestamps
+
+                add_word_timestamps(
+                    segments=current_segments,
+                    model=model,
+                    tokenizer=tokenizer,
+                    mel=mel_segment,
+                    num_frames=segment_size,
+                    prepend_punctuations=prepend_punctuations,
+                    append_punctuations=append_punctuations,
+                    last_speech_timestamp=last_speech_timestamp,
+                    # the decode already encoded this window: skip the
+                    # alignment pass's encoder
+                    features=result.audio_features,
+                )
+
+                seek, restart = _refine_seek_with_word_timings(
+                    current_segments,
+                    seek=seek,
+                    previous_seek=previous_seek,
+                    segment_size=segment_size,
+                    single_timestamp_ending=single_timestamp_ending,
+                    time_offset=time_offset,
+                    window_end_time=window_end_time,
+                    segment_duration=segment_duration,
+                    content_frames=content_frames,
+                    content_duration=content_duration,
+                    last_speech_timestamp=last_speech_timestamp,
+                    threshold=hallucination_silence_threshold,
+                )
+                if restart:
+                    continue
+
+                last_word_end = get_end(current_segments)
+                if last_word_end is not None:
+                    last_speech_timestamp = last_word_end
 
             if verbose:
                 for segment in current_segments:
@@ -354,3 +524,162 @@ def transcribe(
         segments=all_segments,
         language=language,
     )
+
+
+def cli():
+    """``python -m whisper_tpu_torch``: whisper_tpu's command line (the same
+    flags and defaults) on a torch device, CUDA by default."""
+    from . import available_models, load_model
+
+    def valid_model_name(name):
+        if name in available_models() or os.path.exists(name):
+            return name
+        raise ValueError(
+            f"model should be one of {available_models()} or path to a model checkpoint"
+        )
+
+    # flag-set parity with whisper_tpu's CLI (reference transcribe.py:527-567),
+    # declared as a table: (name, kwargs)
+    flags = [
+        ("audio", dict(nargs="+", type=str, help="audio file(s) to process")),
+        ("--model", dict(default="turbo", type=valid_model_name,
+                         help="model name or checkpoint path (.pt, or whisper_tpu's .npz)")),
+        ("--model_dir", dict(type=str, default=None,
+                             help="checkpoint cache directory (default ~/.cache/whisper)")),
+        ("--device", dict(default="cuda",
+                          help="torch device to run on, e.g. 'cuda' or 'cpu'")),
+        (("--output_dir", "-o"), dict(type=str, default=".",
+                                      help="where to write transcripts")),
+        (("--output_format", "-f"), dict(type=str, default="all",
+                                         choices=["txt", "vtt", "srt", "tsv", "json", "all"],
+                                         help="transcript format ('all' writes every format)")),
+        ("--verbose", dict(type=str2bool, default=True,
+                           help="print segments as they are decoded")),
+        ("--task", dict(type=str, default="transcribe",
+                        choices=["transcribe", "translate"],
+                        help="same-language transcription, or translation to English")),
+        ("--language", dict(type=str, default=None,
+                            choices=sorted(LANGUAGES.keys())
+                            + sorted(k.title() for k in TO_LANGUAGE_CODE.keys()),
+                            help="spoken language (omit to auto-detect)")),
+        ("--temperature", dict(type=float, default=0, help="sampling temperature")),
+        ("--best_of", dict(type=optional_int, default=5,
+                           help="independent samples to draw when temperature > 0")),
+        ("--beam_size", dict(type=optional_int, default=5,
+                             help="beam width at temperature 0")),
+        ("--patience", dict(type=float, default=None,
+                            help="beam-search patience factor (arXiv:2204.05424; 1.0 = plain beam search)")),
+        ("--length_penalty", dict(type=float, default=None,
+                                  help="Google-NMT length-penalty alpha (arXiv:1609.08144); default is simple length normalization")),
+        ("--suppress_tokens", dict(type=str, default="-1",
+                                   help="token ids to forbid, comma-separated; '-1' blocks the standard non-speech set")),
+        ("--initial_prompt", dict(type=str, default=None,
+                                  help="text to condition the first window on")),
+        ("--carry_initial_prompt", dict(type=str2bool, default=False,
+                                        help="keep prepending initial_prompt to every window's prompt")),
+        ("--condition_on_previous_text", dict(type=str2bool, default=True,
+                                              help="feed each window's output as the next window's prompt")),
+        ("--fp16", dict(type=str2bool, default=True,
+                        help="accepted for reference-CLI compatibility; the dtype is set at model load (bfloat16 on CUDA)")),
+        ("--temperature_increment_on_fallback", dict(type=optional_float, default=0.2,
+                                                     help="temperature step for the quality-gated retry ladder")),
+        ("--compression_ratio_threshold", dict(type=optional_float, default=2.4,
+                                               help="retry when gzip compression ratio exceeds this (repetition)")),
+        ("--logprob_threshold", dict(type=optional_float, default=-1.0,
+                                     help="retry when mean token log-probability falls below this")),
+        ("--no_speech_threshold", dict(type=optional_float, default=0.6,
+                                       help="with a failed logprob gate, treat the window as silence above this <|nospeech|> probability")),
+        ("--word_timestamps", dict(type=str2bool, default=False,
+                                   help="attach per-word timings via cross-attention DTW")),
+        ("--prepend_punctuations", dict(type=str, default="\"'“¿([{-",
+                                        help="with word_timestamps, glue these onto the following word")),
+        ("--append_punctuations", dict(type=str, default="\"'.。,，!！?？:：”)]}、",
+                                       help="with word_timestamps, glue these onto the preceding word")),
+        ("--highlight_words", dict(type=str2bool, default=False,
+                                   help="karaoke-style <u>word</u> highlighting in srt/vtt (needs word_timestamps)")),
+        ("--max_line_width", dict(type=optional_int, default=None,
+                                  help="subtitle line length cap (needs word_timestamps)")),
+        ("--max_line_count", dict(type=optional_int, default=None,
+                                  help="subtitle line count cap (needs word_timestamps)")),
+        ("--max_words_per_line", dict(type=optional_int, default=None,
+                                      help="subtitle word cap per line (needs word_timestamps; ignored with max_line_width)")),
+        ("--threads", dict(type=optional_int, default=0,
+                           help="torch CPU threads (0 keeps torch's default)")),
+        ("--clip_timestamps", dict(type=str, default="0",
+                                   help="process only these start,end,... second ranges (last end defaults to EOF)")),
+        ("--hallucination_silence_threshold", dict(type=optional_float,
+                                                   help="with word_timestamps, skip silences longer than this around suspected hallucinations")),
+        # whisper_tpu's extensions; the port does not have them yet
+        ("--draft_model", dict(type=str, default=None,
+                               help="speculative decoding (not in this port yet: "
+                               "ROADMAP.md, Queue 1, 'Speculative decoding')")),
+        ("--chunked", dict(type=str2bool, default=False,
+                           help="parallel chunked long-form decoding (not in this port yet: "
+                           "ROADMAP.md, Queue 1, 'Batch and chunked')")),
+        ("--chunk_overlap", dict(type=float, default=5.0,
+                                 help="seconds of audio shared between consecutive chunks "
+                                 "in --chunked mode")),
+    ]
+    parser = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    for names, kwargs in flags:
+        names = (names,) if isinstance(names, str) else names
+        parser.add_argument(*names, **kwargs)
+
+    args = parser.parse_args().__dict__
+    model_name: str = args.pop("model")
+    model_dir: str = args.pop("model_dir")
+    output_dir: str = args.pop("output_dir")
+    output_format: str = args.pop("output_format")
+    device: str = args.pop("device")
+    if (threads := args.pop("threads")) and threads > 0:
+        torch.set_num_threads(threads)
+    if args.pop("chunked"):
+        raise NotImplementedError("--chunked: ROADMAP.md, Queue 1, 'Batch and chunked'")
+    args.pop("chunk_overlap")
+    if args.pop("draft_model") is not None:
+        raise NotImplementedError("--draft_model: ROADMAP.md, Queue 1, 'Speculative decoding'")
+    os.makedirs(output_dir, exist_ok=True)
+
+    if model_name.endswith(".en") and args["language"] not in {"en", "English"}:
+        if args["language"] is not None:
+            warnings.warn(
+                f"{model_name} is an English-only model but received "
+                f"'{args['language']}'; using English instead."
+            )
+        args["language"] = "en"
+
+    temperature = args.pop("temperature")
+    if (increment := args.pop("temperature_increment_on_fallback")) is not None:
+        temperature = tuple(np.arange(temperature, 1.0 + 1e-6, increment))
+    else:
+        temperature = [temperature]
+
+    model = load_model(model_name, device=device, download_root=model_dir)
+
+    writer = get_writer(output_format, output_dir)
+    word_options = [
+        "highlight_words",
+        "max_line_count",
+        "max_line_width",
+        "max_words_per_line",
+    ]
+    if not args["word_timestamps"]:
+        for option in word_options:
+            if args[option]:
+                parser.error(f"--{option} requires --word_timestamps True")
+    if args["max_line_count"] and not args["max_line_width"]:
+        warnings.warn("--max_line_count has no effect without --max_line_width")
+    if args["max_words_per_line"] and args["max_line_width"]:
+        warnings.warn("--max_words_per_line has no effect with --max_line_width")
+    writer_args = {arg: args.pop(arg) for arg in word_options}
+    for audio_path in args.pop("audio"):
+        try:
+            result = transcribe(model, audio_path, temperature=temperature, **args)
+            writer(result, audio_path, **writer_args)
+        except Exception as e:
+            traceback.print_exc()
+            print(f"Skipping {audio_path} due to {type(e).__name__}: {str(e)}")
+
+
+if __name__ == "__main__":
+    cli()
