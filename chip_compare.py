@@ -1,0 +1,169 @@
+#!/usr/bin/env python3
+"""Time one tree's single-file decode paths on one CUDA card, so that two
+versions of the port can be compared in one call, in turns.
+
+    python3 chip_compare.py TREE [--runs N]
+
+TREE is a checkout of this repository (``.`` for this one, or another
+version unpacked with ``git archive`` into a git-ignored directory such as
+``build/``).  The script imports that tree's ``whisper_tpu_torch`` and
+drives it through calls that every version since the greedy path has
+(``init_params``, ``transcribe``, ``DecodingTask``, the K2 wrapper with
+one shared position), on random large-v3-turbo weights (seed 0, bf16):
+
+  K2 at one row and at a group of five rows at t = 200 (L=4, C=1280,
+      T=256, Ta=1500), device time per step;
+  the pinned window: transcribe(jfk waveform) decoding a pinned 110-token
+      sequence (mel, encoder, prefill, 110 steps, segmentation);
+  the beam-5 window: DecodingTask(beam_size=5).run on jfk's encoder
+      features (random weights run all 224 steps);
+  the CLI default path: transcribe(jfk.flac) with beam 5, best-of 5 on
+      the 0.2-step ladder and word timestamps.
+
+Walls are medians of N runs after a warm-up.  The last line is one JSON
+object with the tree's numbers.  Run it for two trees in turns in one call
+(old, new, new, old): the card and the host are then the same for both.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def median_wall(fn, runs: int) -> float:
+    """Median wall in seconds of fn() over runs calls, after a warm-up."""
+    import torch
+
+    walls = []
+    for _ in range(runs + 1):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return sorted(walls[1:])[runs // 2]
+
+
+def k2_ms(device, B: int, iters: int = 50) -> float:
+    """K2's device time per step at turbo decoder shapes, B rows of one
+    audio at the shared position 200, bf16."""
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.fused_step import WEIGHTS, fused_decoder_layers
+
+    L, C, H, T, Ta = 4, 1280, 20, 256, 1500
+    gen = torch.Generator(device=device).manual_seed(B)
+
+    def randn(*shape, scale=0.02):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    shapes = {"fc1_w": (4 * C, C), "fc2_w": (C, 4 * C), "fc1_b": (4 * C,)}
+    blocks = {n: randn(L, *shapes.get(n, (C, C) if n.endswith("_w") else (C,))) for n in WEIGHTS}
+    for n in blocks:
+        if n.endswith("_g"):
+            blocks[n] += 1.0
+    args = (blocks, H, randn(B, C, scale=0.5), 200, randn(L, B, H, 64, T, scale=1.0),
+            randn(L, B, H, 64, T, scale=1.0), randn(L, 1, H, 64, Ta, scale=1.0),
+            randn(L, 1, H, 64, Ta, scale=1.0))
+    fused_decoder_layers(*args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fused_decoder_layers(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("tree", help="root of the checkout to time")
+    parser.add_argument("--runs", type=int, default=5, help="timed runs of each window")
+    args = parser.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_compare: no CUDA device", file=sys.stderr)
+        return 1
+    import whisper_tpu_torch
+    from whisper_tpu_torch import log_mel_spectrogram, pad_or_trim
+    from whisper_tpu_torch.decoding import DecodingOptions, DecodingTask
+    from whisper_tpu_torch.models import KNOWN_MODELS
+    from whisper_tpu_torch.models.whisper import init_params
+    from whisper_tpu_torch.ops.kernels import _lib
+    from whisper_tpu_torch.ops.kernels.fused_step import fused_decoder_layers
+    from whisper_tpu_torch.tokenizer import get_tokenizer
+
+    if not whisper_tpu_torch.__file__.startswith(tree):
+        raise RuntimeError(f"imported {whisper_tpu_torch.__file__}, not the tree {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log(f"tree {args.tree}: {card.splitlines()[0]}")
+    t0 = time.perf_counter()
+    _lib.lib()  # built from the tree's sources when missing or stale
+    log(f"kernel library ready: {time.perf_counter() - t0:.2f} s")
+
+    row = {"tree": args.tree, "k2_b1_ms": k2_ms(device, 1), "k2_b5_ms": k2_ms(device, 5)}
+    dims = KNOWN_MODELS["turbo"]
+    model = whisper_tpu_torch.Whisper(
+        dims, init_params(dims, torch.Generator(device=device).manual_seed(0), torch.bfloat16, device)
+    )
+    audio_path = os.path.join(tree, "tests", "jfk.flac")
+    audio = whisper_tpu_torch.load_audio(audio_path)
+
+    # the pinned window: timestamp, 107 text tokens, final timestamp, EOT
+    tok = get_tokenizer(model.is_multilingual, num_languages=model.num_languages,
+                        language="en", task="transcribe")
+    text = np.random.RandomState(0).randint(1000, 20000, size=107)
+    forced = [tok.timestamp_begin, *map(int, text), tok.timestamp_begin + 1500, tok.eot]
+    DecodingTask._forced_tokens = forced
+    try:
+        row["pinned_s"] = median_wall(
+            lambda: model.transcribe(audio, language="en", temperature=0.0), args.runs)
+    finally:
+        DecodingTask._forced_tokens = None
+    row["pinned_ms_per_token"] = 1e3 * row["pinned_s"] / len(forced)
+
+    mel = log_mel_spectrogram(pad_or_trim(audio), model.dims.n_mels, device=model.device)
+    features = model.embed_audio(mel[None])
+    task = DecodingTask(model, DecodingOptions(language="en", beam_size=5))
+    before = fused_decoder_layers.launches
+    task.run(features)
+    steps = fused_decoder_layers.launches - before
+    row["beam5_s"] = median_wall(lambda: task.run(features), args.runs)
+    row["beam5_ms_per_step"] = 1e3 * row["beam5_s"] / steps
+
+    def cli_path():
+        np.random.seed(0)  # the best-of rungs draw their seeds from numpy's RNG
+        return model.transcribe(
+            audio_path, verbose=None, temperature=tuple(np.arange(0.0, 1.0 + 1e-6, 0.2)),
+            word_timestamps=True, language=None, best_of=5, beam_size=5,
+            condition_on_previous_text=True, compression_ratio_threshold=2.4,
+            logprob_threshold=-1.0, no_speech_threshold=0.6,
+        )
+
+    row["cli_s"] = median_wall(cli_path, max(1, args.runs // 2))
+    log(f"K2 B=1 {row['k2_b1_ms']:.4f} ms, B=5 {row['k2_b5_ms']:.4f} ms; pinned window "
+        f"{row['pinned_s']:.4f} s ({row['pinned_ms_per_token']:.4f} ms per token); beam-5 window "
+        f"{row['beam5_s']:.4f} s ({steps} steps, {row['beam5_ms_per_step']:.4f} ms per step); "
+        f"CLI default path {row['cli_s']:.3f} s")
+    print(json.dumps(row))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

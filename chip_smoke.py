@@ -12,7 +12,9 @@ Phases, each of which must pass (any failure exits non-zero):
   4. K2, the fused decode step, against its plain version at
      large-v3-turbo decoder shapes (L=4, C=1280, H=20, T=256, Ta=1500) for
      one row (B=1, greedy) and a group of five (B=5, beam or best-of), bf16
-     and f32;
+     and f32; each kernel's line also gives its bound (bytes at 3.35 TB/s or
+     operations at the peak of their type, whichever takes longer) and,
+     where one PyTorch call computes the same function, that call's time;
   5. K3, the median filter, against its plain version at the word-timing
      shape (40 heads, 1, 256 tokens, 1500 frames) f32, width 7: bit-equal;
   6. K4, the DTW trace, against its plain version at n = 253, m = 1500:
@@ -32,15 +34,34 @@ Phases, each of which must pass (any failure exits non-zero):
      0.7 s that add_word_timestamps may move them past its edges);
   9. a beam-5 window (DecodingTask.run from jfk's encoder features; random
      weights run all 224 steps): wall and ms per step;
- 10. with --profile only: the pinned greedy window and the beam-5 window
-     under torch.profiler, and the greedy one under cProfile (device idle
-     share, host time per token step).
+ 10. K2 for several audios against its plain version, bf16 and f32:
+     sixteen audios of one row at sixteen positions, three and sixteen
+     audios of five rows (80 rows) at per-row positions, and five and four
+     audios of five rows at one shared position (the --chunked path's
+     layouts), with each case's bound (run before phase 7, with the other
+     kernel checks);
+ 11. DecodingTask.run_with_prompts on 16 windows with prompts of 0, 7, 64
+     and 223 tokens: wall, ms/step; then one more run with K2's positions
+     recorded, each step's equal to the rows' prompt-derived lengths + step
+     (sixteen rows, four positions);
+ 12. transcribe_batch on 20 files cut and tiled from jfk.flac (4-70 s),
+     batch_size 16, T = 0, prompts carried: well-formed results, K1 and the
+     multi-audio K2 launched, each round's prompt lengths;
+ 13. the --chunked CLI path at its defaults on jfk tiled to 110 s (five
+     chunks, beam 5 and best-of 5: 25 rows), word timestamps, every
+     writer: K2 at 5 x 5 rows, K3 and K4 launched, words in their segments;
+ 14. align(segments=...) of that result's text on the same audio (K3, K4);
+ 15. the per-row K/V column write at B=16 timed beside K2's step;
+ 16. with --profile only: the pinned greedy window, the beam-5 window and
+     the 16-window run_with_prompts under torch.profiler and cProfile
+     (device idle share, host time per token step).
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -63,6 +84,20 @@ AUDIO = os.path.join(REPO, "tests", "jfk.flac")
 K1_F32_ATOL = 1e-5
 K1_BF16_REL_RMS, K1_BF16_REL_MAX = 5e-3, 1e-2
 K2_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+# an H100 SXM's published peaks (NVIDIA's data sheet; dense, at 700 W), for
+# each kernel's bound: the larger of its bytes over the memory rate and its
+# operations over the peak rate of their type
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 outside them
+
+
+def bound(n_bytes: float, n_ops: float, dtype: str) -> dict:
+    """The least time the card could take for work that moves n_bytes and
+    does n_ops operations of dtype: {"bound_ms", "bound_by"}."""
+    by_bytes = 1e3 * n_bytes / PEAK_BYTES_PER_S
+    by_ops = 1e3 * n_ops / PEAK_OPS_PER_S[dtype]
+    return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
 def log(msg: str) -> None:
@@ -110,25 +145,48 @@ def check_k1(gen, device):
         err = diff.abs().max().item()
         rel_rms = diff.norm().item() / ref.norm().item()
         rel_max = err / ref.abs().max().item()
-        name = str(dtype).split(".")[-1]
         ms = time_ms(lambda: attention(q, k, v))
         plain_ms = time_ms(lambda: attention_plain(q, k, v))
+        # one PyTorch call of the same function: SDPA's default scale D^-0.5
+        # is the kernel's D^-0.25 on q and on k (the port never calls it)
+        library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+        B, H, T, D = q.shape
+        name = str(dtype).split(".")[-1]
+        # q, k, v read and the output written once; QK^T and PV
+        kb = bound(4 * q.numel() * q.element_size(), 4 * B * H * T * T * D, name)
         if dtype == torch.float32:
-            bound, ok = f"tol {K1_F32_ATOL:.0e}", err <= K1_F32_ATOL
+            tol, ok = f"tol {K1_F32_ATOL:.0e}", err <= K1_F32_ATOL
         else:
-            bound = f"tol {K1_BF16_REL_RMS:.0e} / {K1_BF16_REL_MAX:.0e}"
+            tol = f"tol {K1_BF16_REL_RMS:.0e} / {K1_BF16_REL_MAX:.0e}"
             ok = rel_rms <= K1_BF16_REL_RMS and rel_max <= K1_BF16_REL_MAX
         log(f"K1 encoder_attention {name}: max_abs_err {err:.3e}; relative errors "
-            f"rms/max {rel_rms:.3e}/{rel_max:.3e} ({bound}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            f"rms/max {rel_rms:.3e}/{rel_max:.3e} ({tol}) "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library (SDPA) {library_ms:.4f} ms "
+            f"bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}")
         if not ok:
             raise RuntimeError(f"K1 {name} disagrees with its plain version: "
                                f"{err}, {rel_rms}, {rel_max}")
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **kb)
     return rows
 
 
-def check_k2(gen, device, B: int):
+def k2_bound(blocks, dims: tuple, positions, dtype: str) -> dict:
+    """K2's bound for one step: every weight read once; each audio's cross
+    K/V read once; row b's self K/V at its min(t[b], T) positions read once;
+    x read and hidden, k_new, v_new written.  Operations: the GEMVs (two per
+    weight element per row) and the attention products."""
+    L, B, A, C, T, Ta = dims
+    n_ctx = sum(min(max(int(t), 0), T) for t in positions)
+    weights = sum(w.numel() for w in blocks.values())
+    elements = weights + 2 * L * A * C * Ta + 2 * L * C * n_ctx + 2 * B * C + 2 * L * B * C
+    gemv = 2 * B * sum(w.numel() for n, w in blocks.items() if n.endswith("_w"))
+    attention = 4 * L * C * (n_ctx + B) + 4 * L * B * C * Ta
+    return bound(elements * blocks["q_w"].element_size(), gemv + attention, dtype)
+
+
+def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = ""):
+    """K2 against its plain version at turbo decoder shapes for A audios of
+    G rows; t is one position for every row, or a list, one per row."""
     import torch
 
     from whisper_tpu_torch.ops.kernels.fused_step import (
@@ -137,8 +195,10 @@ def check_k2(gen, device, B: int):
         fused_decoder_layers_plain,
     )
 
-    L, C, H, T, Ta, t = 4, 1280, 20, 256, 1500, 200
+    L, C, H, T, Ta = 4, 1280, 20, 256, 1500
     D = C // H
+    B = A * G
+    positions = [t] * B if isinstance(t, int) else list(t)
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=device) * scale
@@ -157,13 +217,14 @@ def check_k2(gen, device, B: int):
             base[n] = randn(*shape, scale=0.02)
     x32 = randn(B, C, scale=0.5)
     sk32, sv32 = randn(L, B, H, D, T), randn(L, B, H, D, T)  # each row its own history
-    xk32, xv32 = randn(L, 1, H, D, Ta), randn(L, 1, H, D, Ta)  # one audio, shared
+    xk32, xv32 = randn(L, A, H, D, Ta), randn(L, A, H, D, Ta)  # one per audio, shared by its rows
+    pos = t if isinstance(t, int) else torch.tensor(positions, device=device)
 
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         blocks = {n: w.to(dtype).contiguous() for n, w in base.items()}
-        args = (blocks, H, x32.to(dtype), t, sk32.to(dtype), sv32.to(dtype),
+        args = (blocks, H, x32.to(dtype), pos, sk32.to(dtype), sv32.to(dtype),
                 xk32.to(dtype), xv32.to(dtype))
         out = fused_decoder_layers(*args)
         ref = fused_decoder_layers_plain(*args)
@@ -174,12 +235,15 @@ def check_k2(gen, device, B: int):
         ms = time_ms(lambda: fused_decoder_layers(*args))
         plain_ms = time_ms(lambda: fused_decoder_layers_plain(*args))
         err_abs = (out[0].float() - ref[0].float()).abs().max().item()
-        log(f"K2 fused_decoder_layers B={B} {name}: max_abs_err hidden {err_abs:.3e}; "
-            f"relative errors hidden/k_new/v_new {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
-            f"(tol {K2_REL_TOL[name]:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        kb = k2_bound(blocks, (L, B, A, C, T, Ta), positions, name)
+        where = f"t={t}" if isinstance(t, int) else f"{len(set(positions))} positions in [{min(positions)}, {max(positions)}]"
+        log(f"K2 fused_decoder_layers{label} A={A} G={G} B={B} {where} {name}: max_abs_err hidden "
+            f"{err_abs:.3e}; relative errors hidden/k_new/v_new {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
+            f"(tol {K2_REL_TOL[name]:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}")
         if not max(errs) <= K2_REL_TOL[name]:
-            raise RuntimeError(f"K2 B={B} {name} disagrees with its plain version: {errs}")
-        rows[name] = dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms)
+            raise RuntimeError(f"K2 A={A} G={G} {name} disagrees with its plain version: {errs}")
+        rows[name] = dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, library_ms=None, **kb)
     return rows
 
 
@@ -198,11 +262,22 @@ def check_k3(gen, device):
     err = (out - ref).abs().max().item()
     ms = time_ms(lambda: median_filter(x, 7))
     plain_ms = time_ms(lambda: median_filter_plain(x, 7), iters=5)
+
+    def library():  # one PyTorch call chain: reflect pad, windows, median
+        rows = torch.nn.functional.pad(x.reshape(-1, 1, x.shape[-1]), (3, 3), mode="reflect")
+        return torch.median(rows.unfold(-1, 7, 1), -1).values
+
+    library_ms = time_ms(library, iters=5)
+    # read once, written once; per output the 21 compare-exchanges (42
+    # min/max) of a 7-wide odd-even transposition sort, in f32
+    kb = bound(2 * x.numel() * 4, 42 * x.numel(), "float32")
     log(f"K3 median_filter (40,1,256,1500) f32 width 7: {mismatches} outputs differ in any bit "
-        f"(bound 0), max_abs_err {err:.3e}, kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        f"(bound 0), max_abs_err {err:.3e}, kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"library (torch.median of unfolded windows) {library_ms:.4f} ms "
+        f"bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}")
     if mismatches:
         raise RuntimeError(f"K3 disagrees with its plain version in {mismatches} outputs")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **kb)
 
 
 def check_k4(gen, device):
@@ -227,8 +302,13 @@ def check_k4(gen, device):
     x = rows["random"]
     ms = time_ms(lambda: dtw_trace(x, n, m))
     plain_ms = time_ms(lambda: dtw_trace_plain(x, n, m), iters=2)
-    log(f"K4 dtw_trace n={n} m={m}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+    # the cost matrix read once, the (n+m+1, n+1) int32 trace written once;
+    # three adds and two compares per cell
+    kb = bound(4 * n * m + 4 * (n + m + 1) * (n + 1), 5 * n * m, "float32")
+    log(f"K4 dtw_trace n={n} m={m}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"bound {kb['bound_ms']:.4f} ms by {kb['bound_by']} (the chain of {n + m + 1} "
+        f"dependent anti-diagonals: {1e3 * ms / (n + m + 1):.3f} us each)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **kb)
 
 
 def reset_launches():
@@ -236,9 +316,29 @@ def reset_launches():
 
     attention.attention.launches = 0
     fused_step.fused_decoder_layers.launches = 0
-    fused_step.fused_decoder_layers.launches_by_rows.clear()
+    fused_step.fused_decoder_layers.launches_by_layout.clear()
     median.median_filter.launches = 0
     dtw.dtw_trace.launches = 0
+
+
+@contextlib.contextmanager
+def k2_positions(record: list, keep: bool):
+    """Records the positions the engine gives each decode step, which
+    passes them to K2 as they are: the shared int, or for a (B,) tensor a
+    copy of it (keep) or None."""
+    from whisper_tpu_torch import engine
+
+    real = engine.decoder_step_fused
+
+    def spy(params, dims, tokens, t, cache):
+        record.append(t if isinstance(t, int) else (t.clone() if keep else None))
+        return real(params, dims, tokens, t, cache)
+
+    engine.decoder_step_fused = spy
+    try:
+        yield
+    finally:
+        engine.decoder_step_fused = real
 
 
 def end_to_end(device, name: str = "turbo"):
@@ -271,7 +371,7 @@ def end_to_end(device, name: str = "turbo"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"encoder_attention": attention.launches,
-                "fused_decoder_layers": fused_decoder_layers.launches_by_rows[1]}
+                "fused_decoder_layers": fused_decoder_layers.launches_by_layout[(1, 1)]}
     n_tokens = sum(len(s["tokens"]) for s in result["segments"])
     log(f"transcribe(jfk.flac, language=None): language {result['language']!r}, "
         f"{len(result['segments'])} segments, {n_tokens} tokens kept, "
@@ -357,9 +457,9 @@ def cli_default_path(model):
                               **CLI_DEFAULTS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    rows = dict(fused_step.fused_decoder_layers.launches_by_rows)
+    layout = dict(fused_step.fused_decoder_layers.launches_by_layout)
     launches = {"encoder_attention": attention.attention.launches,
-                "fused_decoder_layers_b5": rows.get(5, 0),
+                "fused_decoder_layers_b5": layout.get((1, 5), 0),
                 "median_filter": median.median_filter.launches,
                 "dtw_trace": dtw.dtw_trace.launches}
     with tempfile.TemporaryDirectory() as out_dir:
@@ -372,7 +472,7 @@ def cli_default_path(model):
         f"{[round(float(t), 1) for t in temperature]}, word_timestamps): language {result['language']!r}, "
         f"{len(segments)} segments, {len(words)} words, rungs kept "
         f"{sorted({float(s['temperature']) for s in segments})}, wall {wall:.3f} s, launches {launches}, "
-        f"K2 launches by rows {rows}, files {written}")
+        f"K2 launches by (audios, rows per audio) {layout}, files {written}")
     if min(launches.values()) <= 0:
         raise RuntimeError(f"a kernel of the CLI default path never launched: {launches}")
     if set(written) != {f"jfk.{e}" for e in ("txt", "vtt", "srt", "tsv", "json")} or not written["jfk.json"]:
@@ -410,6 +510,248 @@ def beam_window(model, audio):
     return features, options
 
 
+def prompts_window(model, audio):
+    """DecodingTask.run_with_prompts on 16 windows of jfk whose prompts have
+    four lengths, 0 and 223 tokens among them: every step of the loop must
+    run K2 once for the 16 rows, and in a last run (untimed) each step's
+    positions must be the rows' own, four different ones: the tensor the
+    engine passed to K2's step, read back after the run."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch import log_mel_spectrogram
+    from whisper_tpu_torch.batch import _slice_windows
+    from whisper_tpu_torch.decoding import DecodingOptions, DecodingTask
+    from whisper_tpu_torch.ops.kernels import fused_step
+
+    wave = np.tile(audio, 4)
+    store = log_mel_spectrogram(wave, model.dims.n_mels, padding=16000 * 30, device=model.device)[None]
+    seeks = torch.arange(16, device=model.device) * 100  # 16 windows 1 s apart
+    windows = _slice_windows(store, torch.zeros_like(seeks), seeks, torch.full_like(seeks, 3000))
+    text = np.random.RandomState(1).randint(1000, 20000, size=223)
+    lengths = [0, 7, 64, 223] * 4
+    prompts = [list(map(int, text[:n])) for n in lengths]
+    task = DecodingTask(model, DecodingOptions(language="en", temperature=0.0))
+    layer = fused_step.fused_decoder_layers
+    walls = []
+    for _ in range(3):  # the first is a warm-up
+        reset_launches()
+        t0 = time.perf_counter()
+        results = task.run_with_prompts(windows, prompts)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        steps = layer.launches
+        multi = layer.launches_by_layout[(16, 1)]
+    wall = min(walls[1:])
+    record = []
+    with k2_positions(record, keep=True):
+        task.run_with_prompts(windows, prompts)
+    # row i's initial tokens: [sot_prev] + prompt + the SOT sequence
+    begins = torch.tensor([task.sample_begin + (n + 1 if n else 0) for n in lengths])
+    per_row = sum(
+        1 for i, t in enumerate(record)
+        if not isinstance(t, int) and torch.equal(t.cpu(), begins + i) and len(set(t.tolist())) == 4
+    )
+    log(f"run_with_prompts: 16 windows, prompt lengths {sorted(set(lengths))}, greedy: "
+        f"{steps} K2 launches of 16 audios x 1 row; wall {wall:.4f} s (best of 2 after a warm-up), "
+        f"{1000 * wall / steps:.4f} ms per step; recorded run: {per_row} of {len(record)} steps at "
+        f"the rows' own positions (first step {begins.tolist()})")
+    if not steps or multi != steps or per_row != steps or len(record) != steps:
+        raise RuntimeError(f"the prompts window did not run every step on K2 at per-row positions: "
+                           f"{steps}, {multi}, {per_row} of {len(record)}")
+    if len(results) != 16 or any(not 0 <= t < model.dims.n_vocab for r in results for t in r.tokens):
+        raise RuntimeError("run_with_prompts gave malformed results")
+    return lambda: task.run_with_prompts(windows, prompts)
+
+
+def _well_formed(result, n_samples: int, n_vocab: int) -> bool:
+    frames = n_samples // 160
+    return isinstance(result["text"], str) and all(
+        0 <= s["start"] <= s["end"] and 0 <= s["seek"] <= frames
+        and all(0 <= t < n_vocab for t in s["tokens"])
+        for s in result["segments"]
+    )
+
+
+def batch_path(model, audio):
+    """transcribe_batch on 20 inputs cut and tiled from jfk (4-70 s, each
+    from its own offset), batch_size 16, T = 0, condition_on_previous_text:
+    files go in groups of 16, and each round of a group decodes the next
+    window of its unfinished files, each row after its own file's prompt,
+    so the rows of a later round sit at their own positions (different
+    ones when their files' prompts differ in length: random weights may
+    give every file the same)."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.decoding import DecodingTask
+    from whisper_tpu_torch.ops.kernels import attention, fused_step
+
+    seconds = [4, 70, 12, 45, 8, 33, 25, 60, 6, 40, 18, 52, 10, 28, 65, 15, 36, 22, 48, 30]
+    tiled = np.tile(audio, 8)
+    files = [tiled[int(0.37 * 16000 * i) :][: 16000 * n] for i, n in enumerate(seconds)]
+    calls = []  # the prompt lengths of each decode, as the engine saw them
+    positions = []  # what each K2 call was given: an int, or None for per-row positions
+    run = DecodingTask.run_with_prompts
+
+    def spy(self, mel, prompts):
+        calls.append([len(p) for p in prompts])
+        return run(self, mel, prompts)
+
+    DecodingTask.run_with_prompts = spy
+    reset_launches()
+    try:
+        with k2_positions(positions, keep=False):
+            t0 = time.perf_counter()
+            results = model.transcribe_batch(files, batch_size=16, temperature=0.0, language="en",
+                                             condition_on_previous_text=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        DecodingTask.run_with_prompts = run
+    layout = dict(fused_step.fused_decoder_layers.launches_by_layout)
+    multi = sum(n for (a, g), n in layout.items() if a > 1 and g == 1)
+    launches = {"encoder_attention": attention.attention.launches, "fused_decoder_layers_multi": multi}
+    per_row = sum(t is None for t in positions)
+    log(f"transcribe_batch: {len(files)} files, {sum(seconds)} s of audio, batch_size 16, T=0: "
+        f"wall {wall:.3f} s, {len(calls)} rounds of {[len(c) for c in calls]} rows, "
+        f"prompt lengths per round {[sorted(set(c)) for c in calls]}, "
+        f"{sum(len(r['segments']) for r in results)} segments, launches {launches}, "
+        f"K2 launches by (audios, rows per audio) {layout}, "
+        f"{per_row} of them at per-row positions")
+    if len(results) != len(files) or not all(
+        _well_formed(r, len(f), model.dims.n_vocab) for r, f in zip(results, files)
+    ):
+        raise RuntimeError("transcribe_batch gave a malformed result")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the batch path never launched: {launches}")
+    return launches
+
+
+def chunked_cli_path(model, audio):
+    """``python -m whisper_tpu_torch jfk110.wav --chunked True
+    --word_timestamps True --highlight_words True`` after load_model: jfk
+    tiled to 110 s in five 30 s chunks, beam 5 at T = 0 and best-of 5 on the
+    0.2-step ladder (25 rows of five audios), word timestamps, every
+    writer."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.chunked import transcribe_chunked
+    from whisper_tpu_torch.ops.kernels import dtw, fused_step, median
+    from whisper_tpu_torch.utils.writers import get_writer
+
+    wave = np.tile(audio, 11)[: 16000 * 110]
+    temperature = tuple(np.arange(0.0, 1.0 + 1e-6, 0.2))
+    args = {k: v for k, v in CLI_DEFAULTS.items() if k not in ("condition_on_previous_text", "clip_timestamps")}
+    np.random.seed(0)
+    reset_launches()
+    t0 = time.perf_counter()
+    result = transcribe_chunked(model, wave, chunk_overlap=5.0, verbose=None, temperature=temperature,
+                                word_timestamps=True, **args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    layout = dict(fused_step.fused_decoder_layers.launches_by_layout)
+    launches = {"fused_decoder_layers_groups": sum(n for (a, g), n in layout.items() if a > 1 < g),
+                "median_filter": median.median_filter.launches, "dtw_trace": dtw.dtw_trace.launches}
+    with tempfile.TemporaryDirectory() as out_dir:
+        get_writer("all", out_dir)(result, "jfk110.wav", highlight_words=True, max_line_count=None,
+                                   max_line_width=None, max_words_per_line=None)
+        written = {f: os.path.getsize(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))}
+    segments = result["segments"]
+    words = [w for s in segments for w in s["words"]]
+    log(f"--chunked CLI path (110 s, 5 chunks, beam 5, best_of 5, ladder, word_timestamps): "
+        f"language {result['language']!r}, {len(segments)} segments, {len(words)} words, "
+        f"wall {wall:.3f} s, launches {launches}, K2 launches by (audios, rows per audio) {layout}, "
+        f"files {written}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the chunked path never launched: {launches}")
+    if set(written) != {f"jfk110.{e}" for e in ("txt", "vtt", "srt", "tsv", "json")} or not written["jfk110.json"]:
+        raise RuntimeError(f"the writers did not write every format: {written}")
+    outside = [(s["start"], s["end"], w["start"], w["end"]) for s in segments
+               for i, w in enumerate(s["words"]) if not _word_inside(s, i)]
+    if not words or outside or not _well_formed(result, len(wave), model.dims.n_vocab):
+        raise RuntimeError(f"no words, words outside their segments, or a bad result: {outside[:5]}")
+    return launches, wave, result
+
+
+def align_path(model, wave, chunked):
+    """align(segments=...) of the chunked result's text on the same file."""
+    import torch
+
+    from whisper_tpu_torch.ops.kernels import dtw, median
+
+    # random weights may place a segment's timestamps past the audio's end
+    # (inside the last chunk's 30 s window): align takes those inside it
+    duration = len(wave) / 16000
+    segments = [dict(start=s["start"], end=s["end"], text=s["text"]) for s in chunked["segments"]
+                if s["text"].strip() and s["end"] - s["start"] <= 30.0 and s["end"] <= duration]
+    reset_launches()
+    t0 = time.perf_counter()
+    aligned = model.align(wave, segments=segments, language=chunked["language"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"median_filter": median.median_filter.launches, "dtw_trace": dtw.dtw_trace.launches}
+    words = [w for s in aligned["segments"] for w in s["words"]]
+    log(f"align(segments=...): {len(segments)} segments, {len(words)} words, wall {wall:.3f} s, "
+        f"launches {launches}")
+    if min(launches.values()) <= 0 or not words or any(
+        not s["start"] - 0.02 <= w["start"] <= w["end"] <= s["end"] + 0.02
+        for s in aligned["segments"] for w in s["words"]
+    ):
+        raise RuntimeError(f"align missed a kernel or gave no words in place: {launches}")
+    return launches
+
+
+def column_write(device):
+    """The per-row K/V column write at B=16 (turbo, T=448: the prompts
+    window's cache) beside K2's step at the same shapes: the condition for
+    porting the pending-block variant."""
+    import torch
+
+    from whisper_tpu_torch.models.whisper import KVCache, _write_kv_column
+    from whisper_tpu_torch.ops.kernels.fused_step import WEIGHTS, fused_decoder_layers
+
+    L, B, C, H, T, Ta = 4, 16, 1280, 20, 448, 1500
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def randn(*shape):
+        return (torch.randn(shape, generator=gen, device=device) * 0.02).to(torch.bfloat16)
+
+    cache = KVCache(randn(L, B, H, 64, T), randn(L, B, H, 64, T), randn(L, B, H, 64, Ta),
+                    randn(L, B, H, 64, Ta))
+    k_new, v_new = randn(L, B, C), randn(L, B, C)
+    pos = torch.arange(B, device=device) * 25 + 30  # 30 .. 405
+
+    def per_row():
+        _write_kv_column(cache, k_new, v_new, pos)
+
+    def uniform():
+        _write_kv_column(cache, k_new, v_new, 200)
+
+    def replayed(fn):
+        """fn's device time alone: its launches captured in a CUDA graph
+        and replayed, so the host's enqueue does not pace them."""
+        fn()  # warm-up outside the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return time_ms(graph.replay, iters=50)
+
+    eager = {name: time_ms(fn, iters=50) for name, fn in (("per_row", per_row), ("uniform", uniform))}
+    device_only = {name: replayed(fn) for name, fn in (("per_row", per_row), ("uniform", uniform))}
+    shapes = {"fc1_w": (4 * C, C), "fc2_w": (C, 4 * C), "fc1_b": (4 * C,)}
+    blocks = {n: randn(L, *shapes.get(n, (C, C) if n.endswith("_w") else (C,))) for n in WEIGHTS}
+    step_ms = time_ms(lambda: fused_decoder_layers(blocks, H, randn(B, C), pos, *cache), iters=50)
+    log(f"K/V column write at B=16, T=448, bf16: per-row positions {device_only['per_row']:.4f} ms "
+        f"of device time (graph replay; {eager['per_row']:.4f} ms eager, paced by the host's "
+        f"launches), one shared position {device_only['uniform']:.4f} ms ({eager['uniform']:.4f} ms "
+        f"eager), beside K2's step at the same shapes {step_ms:.4f} ms (per-row device time / "
+        f"step {device_only['per_row'] / step_ms:.3f})")
+    return dict(device_only, step_ms=step_ms)
+
+
 def host_split(fn, steps: int, label: str) -> None:
     """cProfile's host time per token step of one decode (which it slows:
     its shares, not its sums, carry over)."""
@@ -434,10 +776,11 @@ def host_split(fn, steps: int, label: str) -> None:
         f"{k} {ms / steps:.3f} ms ({calls} calls)" for k, (calls, ms) in sorted(per_step.items())))
 
 
-def profile_window(model, audio, forced, beam) -> None:
+def profile_window(model, audio, forced, beam, prompts) -> None:
     """--profile: wall, device busy time and idle share of the pinned window,
-    of its encoder and decode parts and of the beam-5 window, then the
-    host's time per token step of the two decodes.  Wall is the median of
+    of its encoder and decode parts, of the beam-5 window and of the
+    16-window run_with_prompts, then the host's time per token step of the
+    three decodes.  Wall is the median of
     three runs without a profiler; busy is the sum of kernel and copy time
     under torch.profiler (device activity only); idle share is
     1 - busy / wall."""
@@ -465,6 +808,7 @@ def profile_window(model, audio, forced, beam) -> None:
         ("encoder: embed_audio(mel)", lambda: model.embed_audio(mel[None]), True),
         (f"decode from features: prefill + {len(forced)} steps", greedy, True),
         ("beam-5 window from features: prefill + 224 steps of 5 rows", beam5, False),
+        ("run_with_prompts: 16 windows, encoder + prefill + 224 steps of 16 rows", prompts, False),
     ]
     try:
         for label, fn, pinned in parts:
@@ -490,6 +834,7 @@ def profile_window(model, audio, forced, beam) -> None:
         host_split(greedy, len(forced), "pinned greedy decode")
         DecodingTask._forced_tokens = None
         host_split(beam5, 224, "beam-5 decode")
+        host_split(prompts, 224, "16-window run_with_prompts")
     finally:
         DecodingTask._forced_tokens = None
 
@@ -497,8 +842,8 @@ def profile_window(model, audio, forced, beam) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="after the phases, profile the pinned window and the beam-5 window "
-                        "(device idle share, host time per step)")
+                        help="after the phases, profile the pinned window, the beam-5 window and "
+                        "the 16-window run_with_prompts (device idle share, host time per step)")
     args = parser.parse_args()
 
     import torch
@@ -523,15 +868,30 @@ def main() -> int:
 
     gen = torch.Generator(device=device).manual_seed(0)
     k1 = check_k1(gen, device)
-    k2 = check_k2(gen, device, B=1)
-    k2g = check_k2(gen, device, B=5)
+    k2 = check_k2(gen, device)
+    k2g = check_k2(gen, device, G=5)
+    # several audios at per-row positions: sixteen positions for sixteen
+    # audios; three and sixteen audios of five rows (80 rows: row tiles)
+    spread = [int(p) for p in torch.randperm(256, generator=torch.Generator().manual_seed(0))[:16]]
+    k2m = check_k2(gen, device, A=16, t=spread, label=" multi")
+    check_k2(gen, device, A=3, G=5, t=[3, 40, 255, 256, 0] * 3, label=" groups")
+    check_k2(gen, device, A=16, G=5, t=[(37 * i) % 257 for i in range(80)], label=" groups")
+    # the --chunked path's layouts: five chunks of five rows at one position
+    # (its chunks carry no prompt), four on a rung that re-decodes four
+    k2ag = check_k2(gen, device, A=5, G=5, label=" groups")
+    check_k2(gen, device, A=4, G=5, label=" groups")
     k3 = check_k3(gen, device)
     k4 = check_k4(gen, device)
     launches, model, audio, forced = end_to_end(device)
     cli_launches = cli_default_path(model)
     beam = beam_window(model, audio)
+    prompts = prompts_window(model, audio)
+    batch_launches = batch_path(model, audio)
+    chunked_launches, wave, chunked = chunked_cli_path(model, audio)
+    align_path(model, wave, chunked)
+    column_write(device)
     if args.profile:
-        profile_window(model, audio, forced, beam)
+        profile_window(model, audio, forced, beam, prompts)
 
     fused = dict(route="cuda", source="whisper_tpu_torch/csrc/fused_step.cu",
                  replaces="whisper_tpu/ops/kernels/fused_step_pallas.py:301")
@@ -545,6 +905,13 @@ def main() -> int:
              launches=launches["fused_decoder_layers"], **k2["bfloat16"]),
         dict(name="fused_decoder_layers_b5", **fused,
              launches=cli_launches["fused_decoder_layers_b5"], **k2g["bfloat16"]),
+        # several audios: one row each (transcribe_batch's count, timed at
+        # A=B=16) and groups of rows (the chunked path's count, timed at its
+        # 5 x 5)
+        dict(name="fused_decoder_layers_multi", **fused,
+             launches=batch_launches["fused_decoder_layers_multi"], **k2m["bfloat16"]),
+        dict(name="fused_decoder_layers_groups", **fused,
+             launches=chunked_launches["fused_decoder_layers_groups"], **k2ag["bfloat16"]),
         dict(name="median_filter", route="cuda", source="whisper_tpu_torch/csrc/median.cu",
              replaces="whisper_tpu/ops/kernels/median_pallas.py:36",
              launches=cli_launches["median_filter"], **k3),

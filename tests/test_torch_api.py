@@ -1,7 +1,8 @@
 """whisper_tpu_torch's public signatures against whisper_tpu's.
 
-``transcribe``, ``decode`` and ``load_model`` must take the same parameters
-(names, kinds and defaults, in order), ``DecodingOptions`` must have the same
+``transcribe``, ``decode``, ``load_model`` and the many-file entry points
+``transcribe_batch``, ``transcribe_chunked`` and ``align`` must take the
+same parameters (names, kinds and defaults, in order), ``DecodingOptions`` must have the same
 fields with the same defaults, and ``cli`` must declare the same flags with
 the same defaults.  A difference fails unless it is on the allow-list below,
 which names why it stands: a later slice of the port, or a deliberate
@@ -51,7 +52,9 @@ def _diff(where, ref, port):
     return bad
 
 
-@pytest.mark.parametrize("name", ["transcribe", "decode", "load_model"])
+@pytest.mark.parametrize(
+    "name", ["transcribe", "decode", "load_model", "transcribe_batch", "transcribe_chunked", "align"]
+)
 def test_function_signatures_match(name):
     ref, port = _params(getattr(whisper_tpu, name)), _params(getattr(whisper_tpu_torch, name))
     if name == "decode":  # the default options object is each package's own class
@@ -95,6 +98,12 @@ def test_cli_signature_and_flags_match(monkeypatch):
     ref, port = _cli_flags(jtranscribe, monkeypatch), _cli_flags(ttranscribe, monkeypatch)
     assert "--word_timestamps" in port and "--beam_size" in port
     assert _diff("cli", ref, port) == []
+
+
+def test_many_file_entry_points_are_model_methods():
+    for name in ("transcribe_batch", "transcribe_chunked", "align"):
+        assert getattr(whisper_tpu_torch.Whisper, name) is getattr(whisper_tpu_torch, name)
+        assert name in whisper_tpu_torch.__all__
 
 
 def test_transcribe_takes_the_word_timing_parameters():

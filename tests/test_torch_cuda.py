@@ -12,8 +12,10 @@ outputs of unit scale.  K1 bf16: relative to the plain output, RMS error
 2.3e-3 and 5.2e-3 at these shapes, while a kernel that stops masking the
 keys past T reads an RMS error of 1.45e-2 at T = 1500 and more at shorter
 T.  K2: max error relative to max |plain| (f32 1e-4, bf16 2e-2), at one
-row and at grouped rows.  K3 and K4 select: their outputs must equal the
-plain versions' bit for bit.
+row, at grouped rows (bf16 above one row on the tensor cores), and at
+per-row positions for A audios of G rows (A = B up to 16, 3 x 5 and 16 x 5
+= 80 rows).  K3 and K4 select: their outputs must equal the plain
+versions' bit for bit.
 """
 
 import numpy as np
@@ -112,6 +114,19 @@ def test_k2_kernel_over_input_chunks(cuda, B):
         assert rel <= K2_REL_TOL[torch.float32]
 
 
+@pytest.mark.parametrize("C", [1280, 1536])
+@pytest.mark.parametrize("B", [9, 16, 33])
+def test_k2_tensor_core_gemv_over_input_chunks(cuda, C, B):
+    """bf16 above one row takes the tensor-core GEMV: fc2's input comes in
+    chunks of 1280, and at width 1536 so do the LayerNorm GEMVs', whose
+    statistics then come from device memory first; 33 rows leave a
+    one-row tile."""
+    blocks, H, x, caches = _k2_inputs(cuda, torch.bfloat16, L=1, C=C, T=16, Ta=64, B=B)
+    out = k2.fused_decoder_layers(blocks, H, x, 5, *caches)
+    ref = k2.fused_decoder_layers_plain(blocks, H, x, 5, *caches)
+    assert max(_k2_rel_errors(out, ref)) <= K2_REL_TOL[torch.bfloat16]
+
+
 def test_k2_kernel_one_cross_cache_per_row(cuda):
     """A = B: each row reads its own audio's cross K/V (at one position)."""
     blocks, H, x, caches = _k2_inputs(cuda, torch.float32, B=3, A=3)
@@ -122,12 +137,38 @@ def test_k2_kernel_one_cross_cache_per_row(cuda):
         assert rel <= K2_REL_TOL[torch.float32]
 
 
+def _k2_rel_errors(out, ref):
+    errs = []
+    for a, b in zip(out, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        errs.append((a.float() - b.float()).abs().max().item() / b.float().abs().max().item())
+    return errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("A,G", [(2, 1), (8, 1), (16, 1), (3, 5), (4, 5), (5, 5), (16, 5)])
+def test_k2_kernel_at_per_row_positions_matches_plain(cuda, dtype, A, G):
+    """B = A * G rows, each at its own position in [0, T] (T: past the
+    cache for some), row b reading audio b // G's cross K/V; the launch is
+    counted under its (A, G) layout."""
+    B, T = A * G, 64
+    blocks, H, x, caches = _k2_inputs(cuda, dtype, T=T, B=B, A=A)
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    t = torch.randint(0, T + 1, (B,), generator=gen, device=cuda)
+    t[0], t[-1] = 0, T
+    layout = k2.fused_decoder_layers.launches_by_layout[(A, G)]
+    out = k2.fused_decoder_layers(blocks, H, x, t, *caches)
+    assert k2.fused_decoder_layers.launches_by_layout[(A, G)] == layout + 1
+    ref = k2.fused_decoder_layers_plain(blocks, H, x, t, *caches)
+    assert max(_k2_rel_errors(out, ref)) <= K2_REL_TOL[dtype]
+
+
 def test_k2_kernel_refuses_what_it_does_not_take(cuda):
-    blocks, H, x, caches = _k2_inputs(cuda, torch.float32, B=17)
-    with pytest.raises(ValueError, match="at most 16 rows"):
+    blocks, H, x, caches = _k2_inputs(cuda, torch.float32, L=1, T=8, Ta=16, B=k2.MAX_ROWS + 1)
+    with pytest.raises(ValueError, match=f"at most {k2.MAX_ROWS} rows"):
         k2.fused_decoder_layers(blocks, H, x, 3, *caches)
-    blocks, H, x, caches = _k2_inputs(cuda, torch.float32, B=4, A=2)
-    with pytest.raises(ValueError, match="audios 1 or 4"):
+    blocks, H, x, caches = _k2_inputs(cuda, torch.float32, B=4, A=3)
+    with pytest.raises(ValueError, match="audios must divide"):
         k2.fused_decoder_layers(blocks, H, x, 3, *caches)
     blocks, H, x, caches = _k2_inputs(cuda, torch.float32, B=2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -161,6 +202,19 @@ def test_k4_kernel_equals_plain(cuda, B, n, m, ties):
     assert torch.equal(out, k4.dtw_trace_plain(x, n, m))
 
 
+def test_slice_windows_on_the_card(cuda):
+    """The batch path's window slices out of a mel store on the card equal
+    their slices on the CPU."""
+    from whisper_tpu_torch.batch import _slice_windows
+
+    gen = torch.Generator().manual_seed(0)
+    store = torch.randn((3, 128, 7000), generator=gen)
+    rows, seeks, sizes = torch.tensor([[0, 2, 1, 2], [0, 123, 6000, 3999], [3000, 2000, 3000, 0]])
+    ref = _slice_windows(store, rows, seeks, sizes)
+    got = _slice_windows(store.to(cuda), rows.to(cuda), seeks.to(cuda), sizes.to(cuda))
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), ref)
+
+
 def test_greedy_path_runs_both_kernels(cuda):
     import whisper_tpu_torch
     from whisper_tpu_torch.decoding import DecodingOptions
@@ -189,13 +243,13 @@ def test_beam_and_word_timestamp_path_runs_the_kernels(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     model = whisper_tpu_torch.Whisper(dims, init_params(dims, gen, torch.bfloat16, cuda))
     audio = np.random.RandomState(0).randn(16000 * 4).astype(np.float32) * 0.1
-    k2.fused_decoder_layers.launches_by_rows.clear()
+    k2.fused_decoder_layers.launches_by_layout.clear()
     k3.median_filter.launches = 0
     k4.dtw_trace.launches = 0
     result = model.transcribe(audio, language="en", temperature=0.0, beam_size=5, sample_len=16,
                               word_timestamps=True, logprob_threshold=None,
                               compression_ratio_threshold=None, no_speech_threshold=None)
-    assert k2.fused_decoder_layers.launches_by_rows[5] > 0
+    assert k2.fused_decoder_layers.launches_by_layout[(1, 5)] > 0
     assert k3.median_filter.launches > 0 and k4.dtw_trace.launches > 0
     for segment in result["segments"]:
         for word in segment["words"]:

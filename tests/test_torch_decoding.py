@@ -210,8 +210,10 @@ def test_draft_model_and_word_timestamps_raise(models, mel):
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, whisper_tpu_torch, whisper_tpu_torch.ops.kernels.fused_step, chip_smoke, "
+        "chip_compare, "
         "whisper_tpu_torch.timing, whisper_tpu_torch.__main__, whisper_tpu_torch.ops.kernels.median, "
-        "whisper_tpu_torch.ops.kernels.dtw; "
+        "whisper_tpu_torch.ops.kernels.dtw, whisper_tpu_torch.batch, whisper_tpu_torch.chunked, "
+        "whisper_tpu_torch.align; "
         "from whisper_tpu_torch.transcribe import cli; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisper_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"

@@ -231,15 +231,16 @@ def test_cli_writes_the_files_of_whisper_tpu(npz_path, tmp_path, monkeypatch, ca
 
 
 def test_cli_refuses_what_the_port_lacks(npz_path, tmp_path, monkeypatch):
-    """As ``python -m whisper_tpu_torch``; the flags whisper_tpu has and
-    the port does not yet raise, naming their ROADMAP items."""
+    """As ``python -m whisper_tpu_torch``; the flag whisper_tpu has and the
+    port does not yet raises, naming its ROADMAP item (``--chunked`` runs:
+    tests/test_torch_chunked.py)."""
     proc = subprocess.run(
         [sys.executable, "-m", "whisper_tpu_torch", JFK, "--model", npz_path, "--device", "cpu",
-         "-o", str(tmp_path), "--chunked", "True"],
+         "-o", str(tmp_path), "--draft_model", "tiny"],
         cwd=REPO, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
-    assert "Batch and chunked" in proc.stderr
+    assert "Speculative decoding" in proc.stderr
     with pytest.raises(NotImplementedError, match="Speculative decoding"):
         _cli("whisper_tpu_torch.transcribe",
              [JFK, "--model", npz_path, "--device", "cpu", "-o", str(tmp_path),

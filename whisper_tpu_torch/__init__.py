@@ -4,10 +4,12 @@ NVIDIA H100.
 Public API parity target: ``whisper_tpu/__init__.py`` (reference
 ``whisper/__init__.py``): load_model / available_models / load_audio /
 log_mel_spectrogram / pad_or_trim / transcribe / decode / detect_language /
-DecodingOptions / DecodingResult / ModelDimensions / Whisper, and the
-command line (``python -m whisper_tpu_torch``).  It runs ``load_model`` ->
-``transcribe`` with greedy decoding, best-of sampling, beam search and word
-timestamps, with the encoder's self-attention (K1), the decode step (K2),
+DecodingOptions / DecodingResult / ModelDimensions / Whisper, whisper_tpu's
+many-file entry points transcribe_batch / transcribe_chunked / align, and
+the command line (``python -m whisper_tpu_torch``, with ``--chunked``).  It
+runs ``load_model`` -> ``transcribe`` with greedy decoding, best-of
+sampling, beam search and word timestamps, and batches of files at per-row
+positions, with the encoder's self-attention (K1), the decode step (K2),
 the median filter (K3) and the DTW trace (K4) as hand-written CUDA kernels.
 """
 
@@ -19,15 +21,22 @@ from typing import List, Optional, Union
 
 import torch
 
+from .align import align
 from .audio import load_audio, log_mel_spectrogram, pad_or_trim
+from .batch import transcribe_batch
+from .chunked import transcribe_chunked
 from .decoding import DecodingOptions, DecodingResult, decode, detect_language
 from .models import ModelDimensions, Whisper
 from .transcribe import transcribe
 
-# attach the high-level entry points as methods (reference model.py:343-345)
+# attach the high-level entry points as methods (reference model.py:343-345,
+# plus whisper_tpu's many-file ones)
 Whisper.decode = decode
 Whisper.detect_language = detect_language
 Whisper.transcribe = transcribe
+Whisper.transcribe_batch = transcribe_batch
+Whisper.transcribe_chunked = transcribe_chunked
+Whisper.align = align
 
 # official checkpoint registry (reference whisper/__init__.py:17-32); the
 # SHA256 is embedded in the URL path and verified after download
@@ -177,6 +186,7 @@ __all__ = [
     "DecodingResult",
     "ModelDimensions",
     "Whisper",
+    "align",
     "available_models",
     "decode",
     "detect_language",
@@ -185,4 +195,6 @@ __all__ = [
     "log_mel_spectrogram",
     "pad_or_trim",
     "transcribe",
+    "transcribe_batch",
+    "transcribe_chunked",
 ]

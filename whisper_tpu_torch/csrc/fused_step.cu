@@ -1,17 +1,22 @@
-// K2: one decode step through all L decoder layers, for B rows of one audio
-// (B = 1 greedy, B = n_group beam or best-of rows).
+// K2: one decode step through all L decoder layers, for B rows of A audios,
+// each row at its own position.
 //
 // Replaces whisper_tpu/ops/kernels/fused_step_pallas.py:fused_decoder_layers
-// in its A=1 variants without a pending block, unquantized: B rows with
-// their own self-KV caches and one uniform position t, all of them reading
-// the single audio's cross K/V.  (A = B, one audio per row at a shared t,
-// is accepted as well: then each row reads its own cross K/V.)  Same
+// in its variants without a pending block, unquantized, and the XLA step it
+// leaves beam and best-of groups of several audios to
+// (models/whisper.decoder_step(..., n_group=G)): B rows with their own
+// self-KV caches and positions t[b] (a device int32 vector, or one host
+// int shared by every row), A audios with
+// A | B, G = B / A rows per audio, group-major (row b reads audio b / G's
+// cross K/V).  B = 1 is greedy, A = 1 a beam or best-of group of one file,
+// A = B one row per file of a batch, A x G the groups of a batch.  Same
 // contract: input x (B, C) is the token + position embedding; outputs are
 // the hidden state after the last layer (no final LayerNorm) and each
 // layer's new K/V as (L, B, C); the KV-cache column write stays with the
-// caller.  Per layer: ln1 -> q, k, v -> self-attention over cache positions
-// < t plus the new token -> o + residual -> ln2 -> xq -> cross-attention
-// over Ta -> xo + residual -> ln3 -> fc1 + GELU -> fc2 + residual.
+// caller.  Per layer: ln1 -> q, k, v -> self-attention over the row's cache
+// positions < t[b] (all T of them for t[b] >= T) plus the new token -> o +
+// residual -> ln2 -> xq -> cross-attention over Ta -> xo + residual -> ln3
+// -> fc1 + GELU -> fc2 + residual.
 // LayerNorm statistics, softmax and every accumulation are f32; each
 // intermediate is rounded to the compute dtype where models.whisper's
 // decoder_step rounds it.
@@ -22,8 +27,11 @@
 // (large-v3-turbo, bf16: ~46 MB of weights and ~7.7 MB of cross K/V per
 // layer) and, at four layers, by the fixed cost of its launches.  The
 // grouped form keeps that byte count at any B <= 16: the rows share each
-// weight row's read (the point of the TPU kernel's grouped layout) and the
-// cross K/V read.
+// weight row's read (the point of the TPU kernel's grouped layout) and each
+// audio's cross K/V read.  Above 16 rows the GEMVs run in row tiles of 16
+// (a grid dimension), each tile reading the weights once, so the weight
+// bytes grow with ceil(B / 16) (the later tiles from L2: a weight block's
+// tiles run side by side); A audios read A cross K/Vs once each.
 //
 // Design: the TPU kernel is one pallas_call whose (layer, phase) grid
 // streams weight tiles through VMEM with the residual stream resident.
@@ -31,25 +39,33 @@
 // launches per layer, queued back to back on one stream by one host call
 // (no Python between them):
 //   gemv  (LayerNorm prologue, q|k|v in one launch of 3C rows)
-//   decode_attention (self: cache positions < t and the new token)
+//   decode_attention (self: cache positions < t[b] and the new token)
 //   gemv  (o, + residual in place)      gemv (LayerNorm prologue, xq)
 //   decode_attention (cross: Ta keys)
 //   gemv  (xo, + residual)              gemv (LayerNorm prologue, fc1, GELU)
 //   gemv  (fc2, + residual)
-// The GEMV keeps torch's (out, in) weight layout: one warp reads one output
-// row's weights with 16-byte loads and dots it against all B input rows,
-// which the block holds in shared memory.  B input rows of fc2 (4C = 5120
+// The GEMV keeps torch's (out, in) weight layout and holds the input rows
+// of its block's tile (all B, up to 16) in shared memory.  In f32, and for
+// one bf16 row, one warp reads one output row's weights with 16-byte loads
+// and dots it against the rows with FMAs on the CUDA cores.  For 2 to 16
+// bf16 rows that costs 16 FMAs and 4 shared-memory loads per weight at 16
+// rows, 8x the one-row time where the bytes are the same, so those run on
+// the tensor cores: mma.sync m16n8k16 with the tile's rows (zero-padded to
+// 16) as M and 8 or 16 output rows per block as N, the block's warps
+// splitting the inputs (gemv_tc_kernel).  B input rows of fc2 (4C = 5120
 // at turbo) do not fit in the 48 KB a launch gets without opting in (B = 5:
-// 100 KB in f32), so the block walks the input in chunks of at most 47 KB
-// (B x chunk floats, chunk a multiple of 256); each chunk is loaded (and
-// LayerNorm-ed: from the rows in shared memory when the input fits in one
-// chunk, else from per-row statistics computed first) by the whole block,
-// then the warps accumulate over it.  decode_attention gives each (row,
+// 100 KB in f32), so the block walks the input in chunks (at most 47 KB of
+// floats on the CUDA cores, 1280 bf16 per row on the tensor cores); each
+// chunk is loaded (and LayerNorm-ed: from the rows in shared memory when
+// the input fits in one chunk, else from per-row statistics computed
+// first) by the whole block, then the warps accumulate over it.  decode_attention gives each (row,
 // head) of self-attention a cluster of 8 blocks (a Hopper thread-block
-// cluster) that split the keys; for cross-attention one cluster per head
-// takes every row's query and reads each key and value once for all of
-// them, so the shared K/V leaves device memory once per step whatever B
-// is, instead of B times through the L2.  The blocks of a
+// cluster) that split the row's own t[b] keys (each row reads its
+// position from device memory, so rows of different prompt lengths share a
+// launch); for cross-attention one cluster per (audio, head) takes the
+// audio's G queries (up to 8 per cluster) and reads each key and value once
+// for all of them, so an audio's K/V leaves device memory once per step
+// whatever G is, instead of G times through the L2.  The blocks of a
 // cluster exchange their max, their sum and their partial outputs through
 // distributed shared memory, so the softmax is still the exact one (weights
 // normalised before they round) while 8x more SMs stream the cache.  One
@@ -60,6 +76,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -72,12 +89,19 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int ROWS_PER_BLOCK = WARPS;  // one output row per warp
 constexpr int CLUSTER = 8;             // blocks per (row, head) in decode_attention
-constexpr int MAX_ROWS = 16;           // B (and queries per cluster) at most
+constexpr int MAX_ROWS = 128;          // B at most
+constexpr int TILE_ROWS = 16;          // GEMV input rows per block (a row tile)
 // GEMV input rows per block: 47 KB, which leaves room for the kernel's
 // static shared memory inside the 48 KB a launch gets without opting in
 // (192 KB, fc2's whole input at B = 5, measured no faster)
 constexpr int SMEM_FLOATS = 12032;
 constexpr int CHUNK_ALIGN = 256;       // 32 lanes x 8 bf16 (or 2 x 4 f32)
+// the tensor-core GEMV (bf16, more than one row): a tile's 16 input rows in
+// chunks of at most TC_CHUNK bf16 each, rows TC_PAD apart beyond the chunk
+// (16 bytes, so that the 8 rows a warp's fragment load touches fall on
+// different banks); 16 x 1288 x 2 = 41 KB, inside the 48 KB without opt-in
+constexpr int TC_CHUNK = 1280;
+constexpr int TC_PAD = 8;
 constexpr float LN_EPS = 1e-5f;
 
 // Up to three weight segments of seg_rows output rows each: output row r
@@ -118,8 +142,9 @@ __device__ __forceinline__ void dot_rows(const T* __restrict__ w, const float* h
   }
 }
 
-// y[b, r] = epilogue(W[r, :] . h[b, :]) for r < rows and b < nb (<= NB),
-// h = x or LayerNorm(x) rowwise.  Epilogue, rounding as decoder_step does:
+// y[b, r] = epilogue(W[r, :] . h[b, :]) for r < rows and the rows b of this
+// block's tile: blockIdx.y * TILE_ROWS + [0, nb), nb <= NB, of the n_rows
+// rows; h = x or LayerNorm(x) rowwise.  Epilogue, rounding as decoder_step does:
 // y = round(acc); with a bias y = round(y + b); with GELU
 // y = round(gelu(y)); with RESID the output holds the residual and
 // y = round(out + y) is written back in place.
@@ -128,8 +153,14 @@ __device__ __forceinline__ void dot_rows(const T* __restrict__ w, const float* h
 // 64 (four blocks, as their 48 KB of input rows allow anyway) or 128.
 template <typename T, int NB, bool LN, bool GELU, bool RESID>
 __global__ void __launch_bounds__(THREADS, NB == 1 ? 8 : (NB <= 5 ? 4 : 2))
-gemv_kernel(const T* __restrict__ x, int nb, int n_in, int chunk, const T* __restrict__ ln_g,
+gemv_kernel(const T* __restrict__ x, int n_rows, int n_in, int chunk, const T* __restrict__ ln_g,
             const T* __restrict__ ln_b, Segments<T> seg, int seg_rows, int rows) {
+  // this block's row tile; only the 16-row instance has more than one, so
+  // the others need no tile arithmetic (one row then fits its 32 registers
+  // without spilling)
+  const int b0 = NB == TILE_ROWS ? blockIdx.y * TILE_ROWS : 0;
+  const int nb = NB == TILE_ROWS ? min(TILE_ROWS, n_rows - b0) : n_rows;
+  x += (size_t)b0 * n_in;
   extern __shared__ float4 hs4[];
   float* hs = reinterpret_cast<float*>(hs4);  // (nb, chunk)
   __shared__ float red[32];
@@ -223,7 +254,158 @@ gemv_kernel(const T* __restrict__ x, int nb, int n_in, int chunk, const T* __res
       float y = round_to<T>(mine);
       if (seg.b[s] != nullptr) y = round_to<T>(y + to_f(seg.b[s][rr]));
       if (GELU) y = round_to<T>(gelu_erf(y));
-      T* out = seg.out[s] + (size_t)lane * seg_rows + rr;
+      T* out = seg.out[s] + (size_t)(b0 + lane) * seg_rows + rr;
+      if (RESID) y = round_to<T>(to_f(*out) + y);
+      *out = from_f<T>(y);
+    }
+  }
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// mean and 1 / std of the n values at xb, by one warp: two passes, as
+// layer_norm takes them
+template <typename T>
+__device__ __forceinline__ void warp_ln_stats(const T* xb, int n, float& mean, float& rstd) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f;
+  for (int i = lane; i < n; i += 32) s += to_f(xb[i]);
+  mean = warp_sum(s) / n;
+  float s2 = 0.f;
+  for (int i = lane; i < n; i += 32) {
+    const float d = to_f(xb[i]) - mean;
+    s2 += d * d;
+  }
+  rstd = rsqrtf(warp_sum(s2) / n + LN_EPS);
+}
+
+// gemv_kernel's function for bf16 tiles of 16 input rows, on the tensor
+// cores: the tile's rows are the M = 16 side of mma.m16n8k16, the block's
+// 8 * NT output rows NT tiles of its N = 8, and the block's 8 warps split
+// the inputs (K) in slabs of 32, then add their partial sums in warp order.
+// A lane loads 8 consecutive weights of each of its NT output rows (16-byte
+// loads) and the same 8 inputs of two tile rows from shared memory; the K
+// order inside a slab is permuted alike on both sides, which a dot product
+// does not see.  Products of bf16 values are exact in f32, as on the CUDA
+// cores; only the order of the f32 sums differs.  The tile is loaded with
+// 16-byte copies, and each warp takes the LayerNorm statistics of its own
+// rows (no block-wide reduction).  Grid: (row tiles, output rows / (8 NT)),
+// the tiles of one weight block adjacent, so the later tiles read it from L2.
+template <int NT, bool LN, bool GELU, bool RESID>
+__global__ void __launch_bounds__(THREADS, 2)
+gemv_tc_kernel(const __nv_bfloat16* __restrict__ x, int n_rows, int n_in, int chunk,
+               const __nv_bfloat16* __restrict__ ln_g, const __nv_bfloat16* __restrict__ ln_b,
+               Segments<__nv_bfloat16> seg, int seg_rows) {
+  using T = __nv_bfloat16;
+  constexpr int OUT = 8 * NT;  // output rows per block
+  const int b0 = blockIdx.x * TILE_ROWS;
+  const int nb = min(TILE_ROWS, n_rows - b0);
+  x += (size_t)b0 * n_in;
+  const int stride = chunk + TC_PAD;
+  extern __shared__ float4 hs4[];
+  T* hs = reinterpret_cast<T*>(hs4);  // (TILE_ROWS, stride); then the partial sums
+  __shared__ float mean_s[TILE_ROWS], rstd_s[TILE_ROWS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  const bool whole = chunk >= n_in;
+  if (LN && !whole) {  // statistics first, from device memory, one row per warp
+    for (int b = warp; b < nb; b += WARPS) {
+      float mean, rstd;
+      warp_ln_stats(x + (size_t)b * n_in, n_in, mean, rstd);
+      if (lane == 0) {
+        mean_s[b] = mean;
+        rstd_s[b] = rstd;
+      }
+    }
+  }
+
+  const int g = lane >> 2, tig = lane & 3;  // the fragments' group and thread in group
+  const int r0 = blockIdx.y * OUT;
+  const int s = r0 / seg_rows;
+  const int rr0 = r0 - s * seg_rows;
+  const T* w = seg.w[s] + (size_t)(rr0 + g) * n_in + tig * 8;  // n tile j: + 8 j rows
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int c0 = 0; c0 < n_in; c0 += chunk) {
+    const int len = min(chunk, n_in - c0);
+    const int vecs = len / 8;  // 16-byte vectors per row
+    __syncthreads();  // the previous chunk is consumed; the statistics are visible
+    for (int v = threadIdx.x; v < TILE_ROWS * vecs; v += THREADS) {
+      const int b = v / vecs, i = (v - b * vecs) * 8;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);  // rows past the tile's last stay zero
+      if (b < nb) {
+        u = *reinterpret_cast<const uint4*>(x + (size_t)b * n_in + c0 + i);
+        if (LN && !whole) {
+          T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            e[j] = from_f<T>((to_f(e[j]) - mean_s[b]) * rstd_s[b] * to_f(ln_g[c0 + i + j]) +
+                             to_f(ln_b[c0 + i + j]));
+        }
+      }
+      *reinterpret_cast<uint4*>(hs + b * stride + i) = u;
+    }
+    if (LN && whole) {
+      __syncthreads();
+      for (int b = warp; b < nb; b += WARPS) {
+        T* hb = hs + b * stride;
+        float mean, rstd;
+        warp_ln_stats(hb, n_in, mean, rstd);
+        for (int i = lane; i < n_in; i += 32)
+          hb[i] = from_f<T>((to_f(hb[i]) - mean) * rstd * to_f(ln_g[i]) + to_f(ln_b[i]));
+      }
+    }
+    __syncthreads();
+    const T* h_lo = hs + g * stride + tig * 8;
+    const T* h_hi = h_lo + 8 * stride;
+#pragma unroll 2
+    for (int k = warp * 32; k < len; k += WARPS * 32) {
+      uint4 wv[NT];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        wv[j] = *reinterpret_cast<const uint4*>(w + (size_t)j * 8 * n_in + c0 + k);
+      const uint4 lo = *reinterpret_cast<const uint4*>(h_lo + k);
+      const uint4 hi = *reinterpret_cast<const uint4*>(h_hi + k);
+      const uint32_t a0[4] = {lo.x, hi.x, lo.y, hi.y}, a1[4] = {lo.z, hi.z, lo.w, hi.w};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const uint32_t p0[2] = {wv[j].x, wv[j].y}, p1[2] = {wv[j].z, wv[j].w};
+        mma_16816(acc[j], a0, p0);
+        mma_16816(acc[j], a1, p1);
+      }
+    }
+  }
+
+  // C fragments: tile rows g and g + 8, output columns 8 j + 2 tig + {0, 1}
+  __syncthreads();  // every warp is done with the tile: its memory takes the sums
+  float* part = reinterpret_cast<float*>(hs4) + warp * TILE_ROWS * OUT;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    part[g * OUT + 8 * j + 2 * tig] = acc[j][0];
+    part[g * OUT + 8 * j + 2 * tig + 1] = acc[j][1];
+    part[(g + 8) * OUT + 8 * j + 2 * tig] = acc[j][2];
+    part[(g + 8) * OUT + 8 * j + 2 * tig + 1] = acc[j][3];
+  }
+  __syncthreads();
+  if (threadIdx.x < TILE_ROWS * OUT) {
+    const int m = threadIdx.x / OUT, n = threadIdx.x - m * OUT;
+    if (m < nb) {
+      const float* all = reinterpret_cast<const float*>(hs4);
+      float sum = 0.f;
+      for (int v = 0; v < WARPS; ++v) sum += all[(v * TILE_ROWS + m) * OUT + n];
+      float y = round_to<T>(sum);
+      if (seg.b[s] != nullptr) y = round_to<T>(y + to_f(seg.b[s][rr0 + n]));
+      if (GELU) y = round_to<T>(gelu_erf(y));
+      T* out = seg.out[s] + (size_t)(b0 + m) * seg_rows + rr0 + n;
       if (RESID) y = round_to<T>(to_f(*out) + y);
       *out = from_f<T>(y);
     }
@@ -254,13 +436,16 @@ __device__ __forceinline__ void block_reduce_n(float* v, float* red) {
 
 // NQ queries (1, D) per head against keys/values stored time-last, (H, D,
 // t_cap) with the first n positions valid, plus optionally the new token's
-// own key/value (self-attention, NQ = 1).  As qkv_attention_kt /
-// decoder_step: q * D^-0.25 and k * D^-0.25 each rounded to T, f32 scores,
-// f32 softmax, weights rounded to T, f32 PV, output rounded to T.  Grid: a
-// cluster of CLUSTER blocks per (group g, head h), block `rank` taking keys
-// [rank * chunk, ...).  Group g reads K/V at k + g * kv_stride and the query
-// rows g * NQ + j, j < NQ (row stride C; output likewise), so each key and
-// value element is read once for all NQ queries.  Its scores live in its
+// own key/value (self-attention, NQ = 1).  n is n_max, or with `lens`
+// (self-attention: the rows' positions in device memory) lens[row]
+// clamped to [0, n_max].  As qkv_attention_kt / decoder_step: q * D^-0.25
+// and k * D^-0.25 each rounded to T, f32 scores, f32 softmax, weights
+// rounded to T, f32 PV, output rounded to T.  Grid: a cluster of CLUSTER
+// blocks per (query group g, head h), block `rank` taking keys [rank *
+// chunk, ...).  Group g takes the query rows g * NQ + j, j < NQ (row stride
+// C; output likewise) and reads the K/V of rows_per_kv consecutive rows at
+// k + (g * NQ / rows_per_kv) * kv_stride (NQ divides rows_per_kv), so each
+// key and value element is read once for all NQ queries.  Its scores live in its
 // shared memory (NQ x chunk floats), and the cluster combines maxima, sums
 // and partial outputs over distributed shared memory in rank order
 // (deterministic).
@@ -269,7 +454,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ k_new,
                         const T* __restrict__ v_new, T* __restrict__ out, int n_head, int C,
-                        size_t kv_stride, int n, int t_cap, float scale) {
+                        size_t kv_stride, int rows_per_kv, const int* __restrict__ lens,
+                        int n_max, int t_cap, float scale) {
   extern __shared__ float4 sc4[];
   float* sc = reinterpret_cast<float*>(sc4);  // (NQ, chunk)
   __shared__ float qs[NQ][HD];
@@ -281,11 +467,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rank = (int)cluster.block_rank();
   const int gh = blockIdx.x / CLUSTER;
   const int g = gh / n_head, h = gh - g * n_head;
+  const size_t row0 = (size_t)g * NQ;
+  const int n = lens != nullptr ? min(max(lens[row0], 0), n_max) : n_max;
   const int chunk = (n + CLUSTER - 1) / CLUSTER;
   const int t0 = rank * chunk, t1 = min(n, t0 + chunk);
-  const T* kh = k + g * kv_stride + (size_t)h * HD * t_cap;
-  const T* vh = v + g * kv_stride + (size_t)h * HD * t_cap;
-  const size_t row0 = (size_t)g * NQ;
+  const size_t kv = (row0 / rows_per_kv) * kv_stride + (size_t)h * HD * t_cap;
+  const T* kh = k + kv;
+  const T* vh = v + kv;
   for (int i = threadIdx.x; i < NQ * HD; i += THREADS) {
     const int j = i / HD, d = i - j * HD;
     qs[j][d] = round_to<T>(to_f(q[(row0 + j) * C + h * HD + d]) * scale);
@@ -415,44 +603,70 @@ enum W {
 };
 
 template <typename T, int NB, bool LN, bool GELU, bool RESID>
-void gemv_launch(const T* x, int nb, int n_in, const T* g, const T* b, Segments<T> seg,
+void gemv_launch(const T* x, int n_rows, int n_in, const T* g, const T* b, Segments<T> seg,
                  int seg_rows, int rows, cudaStream_t stream) {
-  // the input rows in chunks of at most SMEM_FLOATS floats in all
+  // a tile's input rows in chunks of at most SMEM_FLOATS floats in all
+  const int nb = min(n_rows, TILE_ROWS);
   const int whole = (n_in + CHUNK_ALIGN - 1) / CHUNK_ALIGN * CHUNK_ALIGN;
   const int chunk = min(whole, SMEM_FLOATS / nb / CHUNK_ALIGN * CHUNK_ALIGN);
-  const int blocks = (rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  gemv_kernel<T, NB, LN, GELU, RESID><<<blocks, THREADS, (size_t)nb * chunk * sizeof(float),
-                                        stream>>>(x, nb, n_in, chunk, g, b, seg, seg_rows, rows);
+  const dim3 grid((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK,
+                  (n_rows + TILE_ROWS - 1) / TILE_ROWS);
+  gemv_kernel<T, NB, LN, GELU, RESID><<<grid, THREADS, (size_t)nb * chunk * sizeof(float),
+                                        stream>>>(x, n_rows, n_in, chunk, g, b, seg, seg_rows,
+                                                  rows);
 }
 
-// the kernel instance for nb rows: the smallest of 1, 2, 4, 5, 8, 16 >= nb
+// the tensor-core GEMV over row tiles of 16: two n tiles per block where
+// that still leaves 200 or more blocks (q|k|v and fc1 at C = 1280: 240 and
+// 320), else one (the C-row projections: 160 blocks at C = 1280)
+template <bool LN, bool GELU, bool RESID>
+void gemv_tc_launch(const __nv_bfloat16* x, int n_rows, int n_in, const __nv_bfloat16* g,
+                    const __nv_bfloat16* b, Segments<__nv_bfloat16> seg, int seg_rows, int rows,
+                    cudaStream_t stream) {
+  const int chunk = min((n_in + CHUNK_ALIGN - 1) / CHUNK_ALIGN * CHUNK_ALIGN, TC_CHUNK);
+  const size_t smem = (size_t)TILE_ROWS * (chunk + TC_PAD) * sizeof(__nv_bfloat16);
+  const int tiles = (n_rows + TILE_ROWS - 1) / TILE_ROWS;
+  if (seg_rows % 16 == 0 && rows / 16 >= 200)
+    gemv_tc_kernel<2, LN, GELU, RESID><<<dim3(tiles, rows / 16), THREADS, smem, stream>>>(
+        x, n_rows, n_in, chunk, g, b, seg, seg_rows);
+  else
+    gemv_tc_kernel<1, LN, GELU, RESID><<<dim3(tiles, rows / 8), THREADS, smem, stream>>>(
+        x, n_rows, n_in, chunk, g, b, seg, seg_rows);
+}
+
+// the kernel for nb rows: in bf16 the CUDA-core instance for one row and
+// the tensor-core GEMV above it; in f32 the CUDA-core instance for the
+// smallest of 1, 2, 4, 5, 8, 16 >= nb (more than 16 rows as row tiles of 16)
 template <typename T, bool LN, bool GELU, bool RESID>
 void gemv(const T* x, int nb, int n_in, const T* g, const T* b, Segments<T> seg, int seg_rows,
           int rows, cudaStream_t stream) {
-  if (nb <= 1) gemv_launch<T, 1, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
-  else if (nb <= 2) gemv_launch<T, 2, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
-  else if (nb <= 4) gemv_launch<T, 4, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
-  else if (nb <= 5) gemv_launch<T, 5, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
-  else if (nb <= 8) gemv_launch<T, 8, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
-  else gemv_launch<T, 16, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (nb <= 1) gemv_launch<T, 1, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+    else gemv_tc_launch<LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+  } else {
+    if (nb <= 1) gemv_launch<T, 1, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+    else if (nb <= 2) gemv_launch<T, 2, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+    else if (nb <= 4) gemv_launch<T, 4, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+    else if (nb <= 5) gemv_launch<T, 5, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+    else if (nb <= 8) gemv_launch<T, 8, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+    else gemv_launch<T, 16, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+  }
 }
 
-// cross-attention launch for nq queries of one audio: the kernel instance
-// for the largest NQ <= 8 that divides nq, over nq / NQ query groups that
-// all read the same K/V (kv stride 0); or one row per audio (A = B: nq = 1,
-// B groups, stride one audio)
+// cross-attention launch for A audios of G rows each: the kernel instance
+// for the largest NQ <= 8 that divides G, over A * G / NQ query groups;
+// the G / NQ groups of an audio read its K/V (one audio's stride apart)
 template <typename T>
-void cross_attention(int nq, int groups, size_t stride, int n_head, int C, int ta,
+void cross_attention(int G, int A, size_t stride, int n_head, int C, int ta,
                      cudaStream_t stream, const T* q, const T* k, const T* v, T* out) {
   const float scale = (float)pow((double)HD, -0.25);
   int per = 8;
-  while (nq % per) --per;
+  while (G % per) --per;
   const size_t smem = (size_t)per * ((ta + CLUSTER - 1) / CLUSTER) * sizeof(float);
-  const int blocks = groups * (nq / per) * n_head * CLUSTER;
+  const int blocks = A * (G / per) * n_head * CLUSTER;
 #define CROSS(NQ)                                                                              \
-  decode_attention_kernel<T, NQ><<<blocks, THREADS, smem, stream>>>(q, k, v, nullptr, nullptr, \
-                                                                   out, n_head, C, stride, ta, \
-                                                                   ta, scale)
+  decode_attention_kernel<T, NQ><<<blocks, THREADS, smem, stream>>>(                           \
+      q, k, v, nullptr, nullptr, out, n_head, C, stride, G, nullptr, ta, ta, scale)
   switch (per) {
     case 1: CROSS(1); break;
     case 2: CROSS(2); break;
@@ -467,10 +681,10 @@ void cross_attention(int nq, int groups, size_t stride, int n_head, int C, int t
 }
 
 template <typename T>
-int run(int L, int B, int A, int C, int H, int t_cap, int t, int ta, const void* x_, void* out_,
-        void* k_new_, void* v_new_, const void* self_k_, const void* self_v_,
-        const void* cross_k_, const void* cross_v_, const void* const* table, void* scratch_,
-        cudaStream_t stream) {
+int run(int L, int B, int A, int C, int H, int t_cap, int t, int ta, const int* positions,
+        const void* x_, void* out_, void* k_new_, void* v_new_, const void* self_k_,
+        const void* self_v_, const void* cross_k_, const void* cross_v_,
+        const void* const* table, void* scratch_, cudaStream_t stream) {
   const T* x = static_cast<const T*>(x_);
   T* out = static_cast<T*>(out_);
   T* k_new = static_cast<T*>(k_new_);
@@ -486,12 +700,11 @@ int run(int L, int B, int A, int C, int H, int t_cap, int t, int ta, const void*
   const float scale = (float)pow((double)HD, -0.25);
   const size_t cc = (size_t)C * C;
   const size_t self_row = (size_t)H * HD * t_cap, cross_row = (size_t)H * HD * ta;
-  // cross-attention: clusters per head take all B queries of the one audio
-  // (A = 1), or one cluster per (row, head) reads that row's audio
-  const int x_groups = A == 1 ? 1 : B, x_nq = A == 1 ? B : 1;
-  const size_t x_stride = A == 1 ? 0 : cross_row;
-  // each block of a cluster holds its chunk of the scores for its queries
-  const size_t self_smem = (size_t)((t + CLUSTER - 1) / CLUSTER + 1) * sizeof(float);
+  // self-attention: every row at t, or row b at positions[b] clamped to
+  // [0, t_cap]; each block of a cluster holds its chunk of the scores,
+  // sized for the whole cache (at most 228 bytes at t_cap = 448)
+  const int n_max = positions != nullptr ? t_cap : t;
+  const size_t self_smem = (size_t)((t_cap + CLUSTER - 1) / CLUSTER + 1) * sizeof(float);
 
   cudaError_t e = cudaMemcpyAsync(out, x, (size_t)B * C * sizeof(T), cudaMemcpyDeviceToDevice, stream);
   if (e != cudaSuccess) return (int)e;
@@ -507,15 +720,15 @@ int run(int L, int B, int A, int C, int H, int t_cap, int t, int ta, const void*
                          {q, kn, vn}};
     gemv<T, true, false, false>(out, B, C, p(ATTN_LN_G, C), p(ATTN_LN_B, C), s_qkv, C, 3 * C, stream);
     decode_attention_kernel<T, 1><<<B * H * CLUSTER, THREADS, self_smem, stream>>>(
-        q, self_k + l * B * self_row, self_v + l * B * self_row, kn, vn, attn, H, C, self_row,
-        t, t_cap, scale);
+        q, self_k + l * B * self_row, self_v + l * B * self_row, kn, vn, attn, H, C, self_row, 1,
+        positions, n_max, t_cap, scale);
     Segments<T> s_o = {{p(O_W, cc)}, {p(O_B, C)}, {out}};
     gemv<T, false, false, true>(attn, B, C, nullptr, nullptr, s_o, C, C, stream);
 
     Segments<T> s_xq = {{p(XQ_W, cc)}, {p(XQ_B, C)}, {q}};
     gemv<T, true, false, false>(out, B, C, p(XATTN_LN_G, C), p(XATTN_LN_B, C), s_xq, C, C, stream);
-    cross_attention<T>(x_nq, x_groups, x_stride, H, C, ta, stream, q,
-                       cross_k + l * A * cross_row, cross_v + l * A * cross_row, attn);
+    cross_attention<T>(B / A, A, cross_row, H, C, ta, stream, q, cross_k + l * A * cross_row,
+                       cross_v + l * A * cross_row, attn);
     Segments<T> s_xo = {{p(XO_W, cc)}, {p(XO_B, C)}, {out}};
     gemv<T, false, false, true>(attn, B, C, nullptr, nullptr, s_xo, C, C, stream);
 
@@ -529,21 +742,25 @@ int run(int L, int B, int A, int C, int H, int t_cap, int t, int ta, const void*
 
 }  // namespace
 
+// positions: the rows' positions t[b], int32 in device memory, or null for
+// one position t (0 <= t <= t_cap) shared by every row
 extern "C" int fused_decoder_layers(int dtype, int L, int B, int A, int C, int H, int t_cap,
-                                    int t, int ta, const void* x, void* out, void* k_new,
-                                    void* v_new, const void* self_k, const void* self_v,
-                                    const void* cross_k, const void* cross_v,
-                                    const void* table, void* scratch, void* stream) {
-  if (C != H * HD || C % 8 != 0 || B < 1 || B > MAX_ROWS || (A != 1 && A != B) || t < 0 ||
-      t > t_cap || ta <= 0)
+                                    int t, int ta, const void* positions, const void* x,
+                                    void* out, void* k_new, void* v_new, const void* self_k,
+                                    const void* self_v, const void* cross_k,
+                                    const void* cross_v, const void* table, void* scratch,
+                                    void* stream) {
+  if (C != H * HD || C % 8 != 0 || B < 1 || B > MAX_ROWS || A < 1 || B % A != 0 ||
+      t < 0 || t > t_cap || ta <= 0)
     return (int)cudaErrorInvalidValue;
   const void* const* tab = static_cast<const void* const*>(table);
+  const int* pos = static_cast<const int*>(positions);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16)
-    return run<__nv_bfloat16>(L, B, A, C, H, t_cap, t, ta, x, out, k_new, v_new, self_k, self_v,
-                              cross_k, cross_v, tab, scratch, s);
+    return run<__nv_bfloat16>(L, B, A, C, H, t_cap, t, ta, pos, x, out, k_new, v_new, self_k,
+                              self_v, cross_k, cross_v, tab, scratch, s);
   if (dtype == DTYPE_F32)
-    return run<float>(L, B, A, C, H, t_cap, t, ta, x, out, k_new, v_new, self_k, self_v, cross_k,
-                      cross_v, tab, scratch, s);
+    return run<float>(L, B, A, C, H, t_cap, t, ta, pos, x, out, k_new, v_new, self_k, self_v,
+                      cross_k, cross_v, tab, scratch, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,8 @@ Counterpart of ``whisper_tpu/decoding.py`` (API parity target: reference
 per-token work is in :mod:`whisper_tpu_torch.engine`; this module builds
 the initial tokens and suppression masks and turns the engine's buffers
 into ``DecodingResult`` objects: greedy, best-of sampling and beam search,
-one audio at a time.
+for one audio or a batch, and for a batch whose windows carry prompts of
+their own (``run_with_prompts``, under ``transcribe_batch``).
 """
 
 from dataclasses import dataclass, field, replace
@@ -17,6 +18,7 @@ import torch
 
 from .audio import CHUNK_LENGTH
 from .engine import (
+    EngineResult,
     EngineSpec,
     FilterArgs,
     ctx_bucket,
@@ -300,18 +302,46 @@ class DecodingTask:
 
     # -- run ---------------------------------------------------------------
 
+    def _engine(self, spec: EngineSpec, mel, initial_rows: List[List[int]], sample_begin,
+                sot_index, features_given: bool) -> EngineResult:
+        """decode_engine on per-audio initial token rows, right-padded to
+        the spec's prefill block."""
+        initial_block = torch.zeros((len(initial_rows), spec.prefill_len), dtype=torch.int64)
+        for i, row in enumerate(initial_rows):
+            initial_block[i, : len(row)] = torch.tensor(row)
+        return decode_engine(
+            self.model.params,
+            self.model.dims,
+            spec,
+            mel,
+            initial_block.to(self.model.device),
+            sample_begin,
+            sot_index,
+            self.sample_len,
+            self.options.temperature,
+            FilterArgs(
+                suppress_mask=self._suppress_mask,
+                blank_mask=self._blank_mask,
+                sample_begin=sample_begin,
+                max_initial_ts_index=self._max_initial_ts_index,
+            ),
+            generator=self._generator(),
+            features_given=features_given,
+            forced_tokens=self._bench_forced(),
+        )
+
     def run(self, mel) -> List[DecodingResult]:
+        """Decode a batch of mels (n_audio, n_mels, 3000), or of encoder
+        features (n_audio, Ta, C): one result per audio, each with its own
+        detected language when ``options.language`` is None."""
         tokenizer = self.tokenizer
         mel = _as_mel(self.model, mel)
         n_audio = mel.shape[0]
-        if n_audio != 1:
-            raise NotImplementedError(
-                "batched decoding: ROADMAP.md, Queue 1, 'Batch and chunked'"
-            )
         features_given = _features_given(self.model, mel)
 
-        initial = list(self.initial_tokens)
-        languages = [self.options.language]
+        # per-audio initial tokens (language id may rewrite the lang slot)
+        initial = [list(self.initial_tokens) for _ in range(n_audio)]
+        languages = [self.options.language] * n_audio
         language_probs = None
         audio_features = None
 
@@ -328,14 +358,16 @@ class DecodingTask:
             language_probs = _language_probs(tokenizer, lang_probs)
             languages = [max(p, key=p.get) for p in language_probs]
             if self.options.language is None:
-                initial[self.sot_index + 1] = int(lang_tokens[0])
+                for row, token in zip(initial, lang_tokens.cpu().tolist()):
+                    row[self.sot_index + 1] = int(token)
 
         if self.options.task == "lang_id":
             return [
                 DecodingResult(
-                    audio_features=audio_features[0], language=languages[0],
-                    language_probs=language_probs[0],
+                    audio_features=audio_features[i], language=languages[i],
+                    language_probs=language_probs[i],
                 )
+                for i in range(n_audio)
             ]
 
         if audio_features is not None:
@@ -344,66 +376,97 @@ class DecodingTask:
             mel = audio_features
             features_given = True
 
-        initial_block = torch.zeros((1, self.spec.prefill_len), dtype=torch.int64)
-        initial_block[0, : self.sample_begin] = torch.tensor(initial)
-        fargs = FilterArgs(
-            suppress_mask=self._suppress_mask,
-            blank_mask=self._blank_mask,
-            sample_begin=self.sample_begin,
-            max_initial_ts_index=self._max_initial_ts_index,
-        )
-        result = decode_engine(
-            self.model.params,
-            self.model.dims,
-            self.spec,
-            mel,
-            initial_block.to(self.model.device),
-            self.sample_begin,
-            self.sot_index,
-            self.sample_len,
-            self.options.temperature,
-            fargs,
-            generator=self._generator(),
-            features_given=features_given,
-            forced_tokens=self._bench_forced(),
-        )
+        result = self._engine(self.spec, mel, initial, self.sample_begin, self.sot_index,
+                              features_given)
         return self._assemble(result, languages, language_probs)
+
+    def run_with_prompts(self, mel, prompts: List[List[int]]) -> List[DecodingResult]:
+        """Decode a batch where each row carries its own prompt tokens.
+
+        Per-row semantics are those of running decode() once per row with
+        ``DecodingOptions(prompt=prompts[i])``: the engine runs each row at
+        its own position, so rows with prompts of different lengths share
+        one decode (whisper_tpu/decoding.py:687-782).  This is what lets
+        transcribe_batch keep per-file condition_on_previous_text
+        conditioning.
+        """
+        if self.options.language is None:
+            raise ValueError("run_with_prompts requires a pinned language")
+        if self.options.prompt or self.options.prefix:
+            raise ValueError("options-level prompt/prefix conflict with per-row prompts")
+
+        tokenizer = self.tokenizer
+        mel = _as_mel(self.model, mel)
+        n_audio = mel.shape[0]
+        assert len(prompts) == n_audio
+
+        max_prompt = self.n_ctx // 2 - 1
+        rows: List[List[int]] = []
+        for prompt in prompts:
+            tokens = list(self.sot_sequence)
+            if prompt:
+                tokens = [tokenizer.sot_prev] + list(prompt)[-max_prompt:] + tokens
+            rows.append(tokens)
+        sample_begins = [len(r) for r in rows]
+        sot_indices = [r.index(tokenizer.sot) for r in rows]
+
+        P = prefill_bucket(max(sample_begins), self.n_ctx)
+        spec = replace(self.spec, prefill_len=P, ctx_len=ctx_bucket(P, self.sample_len, self.n_ctx))
+        result = self._engine(spec, mel, rows, sample_begins, sot_indices,
+                              _features_given(self.model, mel))
+        languages = [self.options.language] * n_audio
+        return self._assemble(result, languages, None, sample_begins=sample_begins)
 
     # -- host finalize (parity with decoding.py:384-404,712-789) ------------
 
-    def _assemble(self, result, languages, language_probs) -> List[DecodingResult]:
+    def _assemble(self, result, languages, language_probs,
+                  sample_begins=None) -> List[DecodingResult]:
+        """One result per audio (one language each) from the engine's
+        buffers of its G rows."""
         tokenizer = self.tokenizer
         eot = tokenizer.eot
         G = self.n_group
-        sb = self.sample_begin
-        tokens_buf = result.tokens.cpu().numpy()  # (G, n_ctx+1)
+        n_audio = len(languages)
+        if sample_begins is None:
+            sample_begins = [self.sample_begin] * n_audio
+        tokens_buf = result.tokens.cpu().numpy()  # (n_audio * G, n_ctx+1)
         seq_lens = np.minimum(result.seq_len.cpu().numpy(), tokens_buf.shape[1])
         sum_logprobs = result.sum_logprobs.cpu().numpy()
-        no_speech_prob = float(result.no_speech_probs[0])
+        no_speech_probs = result.no_speech_probs.float().cpu().numpy()
 
-        def trim(seq: List[int]) -> List[int]:
+        def trim(seq: List[int], sb: int) -> List[int]:
             """slice [sample_begin : first EOT] (decoding.py:749-752)"""
             seq = [int(t) for t in seq] + [eot]
             return seq[sb : seq.index(eot, sb)]
 
+        grouped_tokens: List[List[List[int]]] = []
+        grouped_scores: List[List[float]] = []
         if self.spec.beam_size:
             beam = self.spec.beam_size
-            fin_count = int(result.fin_count[0])
-            fin_tokens = result.fin_tokens[0, :fin_count].cpu().numpy()
-            # finished rows carry their own EOT; trim() stops there
-            seqs = [list(row) for row in fin_tokens]
-            scores = [float(x) for x in result.fin_scores[0, :fin_count].cpu().numpy()]
-            if len(seqs) < beam:
-                # top up with unfinished beams by score (decoding.py:384-395)
-                for j in list(np.argsort(sum_logprobs))[::-1]:
-                    seqs.append(list(tokens_buf[j, : seq_lens[j]]) + [eot])
-                    scores.append(float(sum_logprobs[j]))
-                    if len(seqs) >= beam:
-                        break
+            fin_tokens = result.fin_tokens.cpu().numpy()
+            fin_scores = result.fin_scores.cpu().numpy()
+            fin_count = result.fin_count.cpu().numpy()
+            for i in range(n_audio):
+                # finished rows carry their own EOT; trim() stops there
+                seqs = [list(row) for row in fin_tokens[i, : fin_count[i]]]
+                scores = [float(x) for x in fin_scores[i, : fin_count[i]]]
+                if len(seqs) < beam:
+                    # top up with unfinished beams by score (decoding.py:384-395)
+                    group_lp = sum_logprobs[i * G : (i + 1) * G]
+                    for j in list(np.argsort(group_lp))[::-1]:
+                        row = i * G + j
+                        seqs.append(list(tokens_buf[row, : seq_lens[row]]) + [eot])
+                        scores.append(float(group_lp[j]))
+                        if len(seqs) >= beam:
+                            break
+                grouped_tokens.append([trim(s, sample_begins[i]) for s in seqs])
+                grouped_scores.append(scores)
         else:
-            seqs = [tokens_buf[j, : seq_lens[j]] for j in range(G)]
-            scores = [float(sum_logprobs[j]) for j in range(G)]
-        seqs = [trim(s) for s in seqs]
+            for i in range(n_audio):
+                rows = range(i * G, (i + 1) * G)
+                grouped_tokens.append([trim(tokens_buf[r, : seq_lens[r]], sample_begins[i])
+                                       for r in rows])
+                grouped_scores.append([float(sum_logprobs[r]) for r in rows])
 
         # rank by sum_logprob with length penalty (decoding.py:190-213)
         alpha = self.options.length_penalty
@@ -412,22 +475,25 @@ class DecodingTask:
             penalty = length if alpha is None else ((5 + length) / 6) ** alpha
             return lp / penalty
 
-        ranked = int(np.argmax([score(lp, len(s)) for lp, s in zip(scores, seqs)]))
-        tokens, sum_logprob = seqs[ranked], scores[ranked]
-        text = tokenizer.decode(tokens).strip()
-        return [
-            DecodingResult(
-                audio_features=result.audio_features[0],
-                language=languages[0],
-                language_probs=language_probs[0] if language_probs else None,
-                tokens=tokens,
-                text=text,
-                avg_logprob=sum_logprob / (len(tokens) + 1),
-                no_speech_prob=no_speech_prob,
-                temperature=self.options.temperature,
-                compression_ratio=compression_ratio(text),
+        results = []
+        for i, (seqs, scores) in enumerate(zip(grouped_tokens, grouped_scores)):
+            ranked = int(np.argmax([score(lp, len(s)) for lp, s in zip(scores, seqs)]))
+            tokens, sum_logprob = seqs[ranked], scores[ranked]
+            text = tokenizer.decode(tokens).strip()
+            results.append(
+                DecodingResult(
+                    audio_features=result.audio_features[i],
+                    language=languages[i],
+                    language_probs=language_probs[i] if language_probs else None,
+                    tokens=tokens,
+                    text=text,
+                    avg_logprob=sum_logprob / (len(tokens) + 1),
+                    no_speech_prob=float(no_speech_probs[i]),
+                    temperature=self.options.temperature,
+                    compression_ratio=compression_ratio(text),
+                )
             )
-        ]
+        return results
 
 
 def decode(

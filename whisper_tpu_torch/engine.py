@@ -7,13 +7,15 @@ is a Python loop that queues each step's work (logit filters, selection,
 the decode step through kernel K2, the logits) on the device and reads the
 stop flag back once per step.  The filters are vectorised masks recomputed
 from the token buffer every step, as there, so beam reordering carries no
-extra state.  A beam or best-of group of one audio is n_group rows that
-share its cross K/V.  The deferred write block and the speculative engine
-are later slices.
+extra state.  A batch holds n_audio audios of n_group rows each (a beam or
+best-of group, or one greedy row), group-major, sharing their audio's cross
+K/V; each audio's window carries its own prompt length, so every row runs
+at its own position, held on the device.  The deferred write block and the
+speculative engine are later slices.
 """
 
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -70,7 +72,9 @@ class FilterArgs(NamedTuple):
 
     suppress_mask: torch.Tensor  # (V,) bool — SuppressTokens set
     blank_mask: torch.Tensor  # (V,) bool — " " + EOT, applied at sample start
-    sample_begin: int  # initial token length
+    # initial token length: shared, one per audio (decode_engine's input),
+    # or a (B,) tensor per row (what the filters see)
+    sample_begin: Union[int, Sequence[int], torch.Tensor]
     max_initial_ts_index: int  # -1 if unlimited
 
 
@@ -103,15 +107,22 @@ class _LoopState(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
+def _column(x: Union[int, torch.Tensor]) -> Union[int, torch.Tensor]:
+    """A per-row (B,) tensor as (B, 1), to broadcast over a row's columns;
+    an int as it is."""
+    return x[:, None] if isinstance(x, torch.Tensor) else x
+
+
 def _latest_timestamp(
-    tokens: torch.Tensor, t: torch.Tensor, sample_begin: int, ts_begin: int
+    tokens: torch.Tensor, t: torch.Tensor, sample_begin: Union[int, torch.Tensor], ts_begin: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Most recent timestamp token in the sampled region [sample_begin, t).
 
+    t and sample_begin are per row ((B,); sample_begin may be one int).
     Returns (has_any (B,) bool, value (B,) int64).
     """
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    mask = (positions >= sample_begin) & (positions < t[:, None]) & (tokens >= ts_begin)
+    mask = (positions >= _column(sample_begin)) & (positions < t[:, None]) & (tokens >= ts_begin)
     last_pos = torch.where(mask, positions, -1).amax(dim=1)
     has_any = last_pos >= 0
     value = tokens.gather(1, last_pos.clamp(min=0)[:, None])[:, 0]
@@ -126,7 +137,8 @@ def apply_logit_filters(
     f: FilterArgs,
 ) -> torch.Tensor:
     """SuppressBlank, SuppressTokens and ApplyTimestampRules as one mask
-    applied in one pass (the rules of ``whisper_tpu.engine``)."""
+    applied in one pass (the rules of ``whisper_tpu.engine``), per row:
+    ``f.sample_begin`` is one int or a (B,) tensor."""
     V = logits.shape[1]
     vocab = torch.arange(V, device=logits.device)
     at_start = (t == f.sample_begin)[:, None]
@@ -140,8 +152,12 @@ def apply_logit_filters(
     # <|notimestamps|> is never sampled when rules are active
     suppress = suppress | (vocab[None, :] == spec.no_timestamps)
 
-    prev = tokens.gather(1, (t - 1).clamp(min=0)[:, None])[:, 0]
-    penult = tokens.gather(1, (t - 2).clamp(min=0)[:, None])[:, 0]
+    # a row past the buffer (capped, frozen while other rows run) reads its
+    # last column; whisper_tpu's gather reads a fill value there, and either
+    # way the row's filtered logits choose nothing that is kept
+    last = tokens.shape[1] - 1
+    prev = tokens.gather(1, (t - 1).clamp(0, last)[:, None])[:, 0]
+    penult = tokens.gather(1, (t - 2).clamp(0, last)[:, None])[:, 0]
     sampled_len = t - f.sample_begin
     last_was_ts = (sampled_len >= 1) & (prev >= ts_begin)
     # fewer than two sampled tokens counts as "penultimate was timestamp"
@@ -211,7 +227,7 @@ def _greedy_update(
     # selected-token logprob: log_softmax(x)[i] == x[i] - logsumexp(x)
     lse = torch.logsumexp(logits, dim=-1)
     current = logits.gather(1, next_tokens[:, None])[:, 0] - lse
-    prev = tokens.gather(1, (t - 1).clamp(min=0)[:, None])[:, 0]
+    prev = tokens.gather(1, (t - 1).clamp(0, n_ctx1 - 1)[:, None])[:, 0]
     capped = t >= n_ctx1
     not_finished = (prev != spec.eot) & ~capped
     sum_logprobs = state.sum_logprobs + current * not_finished
@@ -351,15 +367,19 @@ def _beam_update(spec: EngineSpec, state: _LoopState, logits: torch.Tensor) -> _
 # ---------------------------------------------------------------------------
 
 
+def _per_audio(x: Union[int, Sequence[int]], n_audio: int) -> List[int]:
+    return [int(x)] * n_audio if isinstance(x, int) else [int(v) for v in x]
+
+
 @torch.inference_mode()
 def decode_engine(
     params,
     dims: ModelDimensions,
     spec: EngineSpec,
-    mel_or_features: torch.Tensor,  # (1, n_mels, 3000) or (1, Ta, C)
-    initial_tokens: torch.Tensor,  # (1, prefill_len) int64, right-padded
-    initial_len: int,
-    sot_index: int,
+    mel_or_features: torch.Tensor,  # (n_audio, n_mels, 3000) or (n_audio, Ta, C)
+    initial_tokens: torch.Tensor,  # (n_audio, prefill_len) int64, right-padded
+    initial_len: Union[int, Sequence[int]],  # shared, or one per audio
+    sot_index: Union[int, Sequence[int]],  # shared, or one per audio
     sample_len: int,
     temperature: float,
     filter_args: FilterArgs,
@@ -367,25 +387,39 @@ def decode_engine(
     features_given: bool = False,
     forced_tokens: Optional[List[int]] = None,
 ) -> EngineResult:
-    """Decode one 30-second segment of one audio: greedy or sampled (T > 0)
-    rows, n_group of them for best-of, or a beam search of n_group beams.
+    """Decode one batch of 30-second segments: greedy or sampled (T > 0)
+    rows, n_group of them per audio for best-of, or a beam search of
+    n_group beams per audio.
 
-    The prompt is prefilled once and its K/V, tokens and first logits are
-    tiled to the group's rows, which share the audio's cross K/V.  The token
-    loop reads ``completed`` back to the host once per step, after queueing
-    that step's decode step, so the host's launches overlap the device's
-    work on the step before.  Its last decode step is computed and never
-    used, as in the JAX engine.
+    Audios may have prompts of different lengths: ``initial_len``,
+    ``sot_index`` and ``filter_args.sample_begin`` are host values, one int
+    for every audio or one per audio, as whisper_tpu's per-row vectors
+    (``whisper_tpu/engine.py:497-591``).  Each prompt is prefilled once and
+    its K/V, tokens and first logits (at its own ``initial_len - 1``) are
+    tiled to its group's rows, which share the audio's cross K/V.  Each step
+    runs every row at its own position ``t - 1``, a device tensor that
+    kernel K2 reads there; when every prompt has the same length (every
+    single-file decode) the rows share one position, a host int, and the
+    step needs no per-row gather or scatter.  The token loop reads
+    ``completed`` back to the host once per step, after queueing that
+    step's decode step, so the host's launches overlap the device's work on
+    the step before.  Its last decode step is computed and never used, as in
+    the JAX engine.
     """
     n_audio = mel_or_features.shape[0]
-    if n_audio != 1:
-        raise NotImplementedError("batched decoding: ROADMAP.md, Queue 1, 'Batch and chunked'")
     G = spec.n_group
     B = n_audio * G
     n_ctx = spec.ctx_len or dims.n_text_ctx  # token-loop time capacity
     P = spec.prefill_len
     compute_dtype = params["decoder"]["tok_emb"].dtype
     device = mel_or_features.device
+    lens = _per_audio(initial_len, n_audio)
+    begins = _per_audio(filter_args.sample_begin, n_audio)
+    # one host-to-device copy for the per-audio values
+    lens_dev, sots_dev, begins_dev = torch.tensor(
+        [lens, _per_audio(sot_index, n_audio), begins], dtype=torch.int64
+    ).to(device)
+    audios = torch.arange(n_audio, device=device)
 
     # 1) encoder (or passthrough of precomputed features)
     if features_given:
@@ -393,30 +427,36 @@ def decode_engine(
     else:
         audio_features = encoder_apply(params, dims, mel_or_features)
 
-    # 2) cross K/V once per audio, then prefill the prompt block
+    # 2) cross K/V once per audio, then prefill the prompt blocks
     xk, xv = compute_cross_kv(params, dims, audio_features)
     hidden, pk, pv = decoder_prefill(params, dims, initial_tokens, xk, xv)
 
-    # no-speech probability from the unfiltered logits at the SOT position
+    # no-speech probability from the unfiltered logits at each row's SOT
     if spec.no_speech >= 0:
-        sot_probs = torch.softmax(project_logits(params, hidden[:, sot_index]), dim=-1)
+        sot_probs = torch.softmax(project_logits(params, hidden[audios, sots_dev]), dim=-1)
         no_speech_probs = sot_probs[:, spec.no_speech]
     else:
         no_speech_probs = torch.full((n_audio,), float("nan"), device=device)
 
     # 3) tile to n_audio * n_group rows; cross K/V stay at one per audio
-    cur_logits = project_logits(params, hidden[:, initial_len - 1]).repeat_interleave(G, 0)
+    cur_logits = project_logits(params, hidden[audios, lens_dev - 1]).repeat_interleave(G, 0)
+    uniform = min(lens) == max(lens)  # every row at lens[0] + step
+    if min(begins) != max(begins):
+        filter_args = filter_args._replace(sample_begin=begins_dev.repeat_interleave(G))
+    else:
+        filter_args = filter_args._replace(sample_begin=begins[0])
     cache = init_kv_cache(dims, B, xk, xv, compute_dtype, ctx=n_ctx)
-    # prefill K/V arrive (L, 1, H, P, D); the cache stores time-last
-    cache.self_k[..., :P] = pk.transpose(-1, -2)
-    cache.self_v[..., :P] = pv.transpose(-1, -2)
+    # prefill K/V arrive (L, n_audio, H, P, D); the cache stores time-last
+    L, _, H, D, _ = cache.self_k.shape
+    for buf, pre in ((cache.self_k, pk), (cache.self_v, pv)):
+        buf.view(L, n_audio, G, H, D, n_ctx)[..., :P] = pre.transpose(-1, -2)[:, :, None]
 
     tokens = torch.zeros((B, n_ctx + 1), dtype=torch.int64, device=device)
-    tokens[:, :P] = initial_tokens
+    tokens[:, :P] = initial_tokens.repeat_interleave(G, 0)
     n_fin = max(spec.max_candidates, 1)
     state = _LoopState(
         tokens=tokens,
-        t=torch.full((B,), initial_len, dtype=torch.int64, device=device),
+        t=lens_dev.repeat_interleave(G),
         step=0,
         sum_logprobs=torch.zeros(B, dtype=torch.float32, device=device),
         completed=torch.zeros((), dtype=torch.bool, device=device),
@@ -433,11 +473,14 @@ def decode_engine(
             state = _beam_update(spec, state, filtered)
         else:
             state = _greedy_update(spec, state, filtered, temperature, generator, forced_tokens)
-        # the step for the tokens just chosen, at their (uniform) position
-        pos = initial_len + state.step - 1
-        h, cache = decoder_step_fused(
-            params, dims, state.tokens[:, min(pos, n_ctx)], pos, state.cache
-        )
+        # the step for the tokens just chosen, each row at its own position
+        if uniform:
+            pos = lens[0] + state.step - 1
+            prev = state.tokens[:, min(pos, n_ctx)]
+        else:
+            pos = state.t - 1
+            prev = state.tokens.gather(1, pos.clamp(0, n_ctx)[:, None])[:, 0]
+        h, cache = decoder_step_fused(params, dims, prev, pos, state.cache)
         state = state._replace(cache=cache)
         cur_logits = project_logits(params, h)
         if bool(state.completed):  # the loop's one host sync per step

@@ -80,7 +80,8 @@ class KVCache(NamedTuple):
 
     self_k/self_v: (L, B, H, D, T) — autoregressive self-attention, written
     in place one column per step.  cross_k/cross_v: (L, A, H, D, Ta) —
-    computed once per segment (A = 1 audio in this slice).
+    computed once per segment, one copy per audio; the B = A * G rows are
+    group-major (row = audio * G + g).
     """
 
     self_k: torch.Tensor
@@ -225,31 +226,44 @@ def decoder_prefill(
     return x, torch.stack(ks), torch.stack(vs)
 
 
-def _embed_step(params: Params, dims: ModelDimensions, tokens: torch.Tensor, t: int) -> torch.Tensor:
+Position = Union[int, torch.Tensor]  # one position for every row, or (B,) per row
+
+
+def _embed_step(params: Params, dims: ModelDimensions, tokens: torch.Tensor, t: Position) -> torch.Tensor:
     dec = params["decoder"]
-    return dec["tok_emb"][tokens] + dec["pos_emb"][min(max(t, 0), dims.n_text_ctx - 1)]
+    if isinstance(t, int):
+        return dec["tok_emb"][tokens] + dec["pos_emb"][min(max(t, 0), dims.n_text_ctx - 1)]
+    return dec["tok_emb"][tokens] + dec["pos_emb"][t.clamp(0, dims.n_text_ctx - 1)]
 
 
-def _write_kv_column(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor, t: int) -> None:
-    """Write one step's K/V, (L, B, C), into cache column t, in place.
+def _write_kv_column(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor, t: Position) -> None:
+    """Write one step's K/V, (L, B, C), into cache column t, in place: the
+    same column for every row, or row b's own column t[b].
 
     The JAX package rewrites the whole cache through a mask because XLA
-    cannot update it in place cheaply; here the column is written directly.
-    A position past the cache's capacity is dropped, as there.
+    cannot update it in place cheaply; here the column is written directly
+    (per row: a scatter).  A position past the cache's capacity is dropped,
+    as there: that row's column keeps what it held.
     """
     L, B, H, D, n_ctx = cache.self_k.shape
-    if 0 <= t < n_ctx:
-        cache.self_k[..., t] = k_new.view(L, B, H, D)
-        cache.self_v[..., t] = v_new.view(L, B, H, D)
+    if isinstance(t, int):
+        if 0 <= t < n_ctx:
+            cache.self_k[..., t] = k_new.view(L, B, H, D)
+            cache.self_v[..., t] = v_new.view(L, B, H, D)
+        return
+    keep = ((t >= 0) & (t < n_ctx)).view(1, B, 1, 1, 1)
+    col = t.clamp(0, n_ctx - 1).view(1, B, 1, 1, 1).expand(L, B, H, D, 1)
+    for buf, new in ((cache.self_k, k_new), (cache.self_v, v_new)):
+        buf.scatter_(-1, col, torch.where(keep, new.view(L, B, H, D, 1), buf.gather(-1, col)))
 
 
 def _step(
-    layers, params: Params, dims: ModelDimensions, tokens: torch.Tensor, t: int, cache: KVCache
+    layers, params: Params, dims: ModelDimensions, tokens: torch.Tensor, t: Position, cache: KVCache
 ) -> Tuple[torch.Tensor, KVCache]:
     dec = params["decoder"]
     x = _embed_step(params, dims, tokens, t)
     hidden, k_new, v_new = layers(
-        dec["blocks"], dims.n_text_head, x, min(t, cache.self_k.shape[-1]),
+        dec["blocks"], dims.n_text_head, x, t,
         cache.self_k, cache.self_v, cache.cross_k, cache.cross_v,
     )
     _write_kv_column(cache, k_new, v_new, t)
@@ -260,16 +274,19 @@ def decoder_step(
     params: Params,
     dims: ModelDimensions,
     tokens: torch.Tensor,  # (B,) — the tokens at position t
-    t: int,  # position of this step, shared by the rows
+    t: Position,  # position of this step: shared by the rows, or (B,) per row
     cache: KVCache,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One autoregressive decode step at position t, the plain reference.
 
-    Attends over cache positions < t plus the new token, writes this step's
-    K/V into column t of the cache, and returns the hidden state (B, C)
-    after the final LayerNorm.  A position past the cache's capacity
-    attends the whole cache and its write is dropped, as in the JAX step.
-    The layers run through the plain version of kernel K2 on any device.
+    Row b attends over its cache positions < t[b] plus its new token,
+    writes this step's K/V into its column t[b], and returns the hidden
+    state (B, C) after the final LayerNorm.  A position past the cache's
+    capacity attends the whole cache and its write is dropped, as in the JAX
+    step.  Rows are group-major (row = audio * G + g) and ``cache.cross_k``
+    holds one copy per audio, A = B // G of them, as ``decoder_step(...,
+    n_group=G)`` of the JAX package.  The layers run through the plain
+    version of kernel K2 on any device.
     """
     from ..ops.kernels.fused_step import fused_decoder_layers_plain
 
@@ -280,7 +297,7 @@ def decoder_step_fused(
     params: Params,
     dims: ModelDimensions,
     tokens: torch.Tensor,  # (B,)
-    t: int,
+    t: Position,
     cache: KVCache,
 ) -> Tuple[torch.Tensor, KVCache]:
     """:func:`decoder_step` with the layers through kernel K2

@@ -39,10 +39,12 @@ _I = ctypes.c_int
 SIGNATURES = {
     # dtype, q, k, v, out, batch*heads, T, head_dim, stream
     "encoder_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
-    # dtype, L, B, A, C, H, T_cap, t, Ta, x, out, k_new, v_new, self_k,
-    # self_v, cross_k, cross_v, weight pointer table (host), scratch, stream
+    # dtype, L, B, A, C, H, T_cap, t (shared), Ta, positions (B,) int32 or
+    # null (every row at t), x, out,
+    # k_new, v_new, self_k, self_v, cross_k, cross_v, weight pointer table
+    # (host), scratch, stream
     "fused_decoder_layers": [
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ],
     # x, out, rows, T, width, stream
     "median_filter": [_P, _P, ctypes.c_longlong, _I, _I, _P],

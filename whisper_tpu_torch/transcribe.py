@@ -7,7 +7,8 @@ carry_initial_prompt, prompt reset above T = 0.5), the temperature ladder
 gated on compression ratio / avg logprob / no-speech probability, and
 timestamp-token segmentation, word timestamps with the word-timing seek
 refinement and the hallucination-silence heuristics, and the command line
-(``cli``, ``python -m whisper_tpu_torch``).  The loop is host-side (seek
+(``cli``, ``python -m whisper_tpu_torch``, whose ``--chunked`` runs
+:func:`whisper_tpu_torch.chunked.transcribe_chunked`).  The loop is host-side (seek
 advances are data-dependent); the whole file's mel stays on the model's
 device and each window is sliced there.
 """
@@ -614,8 +615,9 @@ def cli():
                                help="speculative decoding (not in this port yet: "
                                "ROADMAP.md, Queue 1, 'Speculative decoding')")),
         ("--chunked", dict(type=str2bool, default=False,
-                           help="parallel chunked long-form decoding (not in this port yet: "
-                           "ROADMAP.md, Queue 1, 'Batch and chunked')")),
+                           help="decode fixed overlapping 30s chunks of each file as one "
+                           "batch instead of walking windows sequentially (faster on long "
+                           "files; disables cross-window prompt conditioning)")),
         ("--chunk_overlap", dict(type=float, default=5.0,
                                  help="seconds of audio shared between consecutive chunks "
                                  "in --chunked mode")),
@@ -633,9 +635,6 @@ def cli():
     device: str = args.pop("device")
     if (threads := args.pop("threads")) and threads > 0:
         torch.set_num_threads(threads)
-    if args.pop("chunked"):
-        raise NotImplementedError("--chunked: ROADMAP.md, Queue 1, 'Batch and chunked'")
-    args.pop("chunk_overlap")
     if args.pop("draft_model") is not None:
         raise NotImplementedError("--draft_model: ROADMAP.md, Queue 1, 'Speculative decoding'")
     os.makedirs(output_dir, exist_ok=True)
@@ -672,9 +671,22 @@ def cli():
     if args["max_words_per_line"] and args["max_line_width"]:
         warnings.warn("--max_words_per_line has no effect with --max_line_width")
     writer_args = {arg: args.pop(arg) for arg in word_options}
+    chunked = args.pop("chunked")
+    chunk_overlap = args.pop("chunk_overlap")
+    if chunked:
+        from .chunked import transcribe_chunked
+
+        # chunked mode decodes chunks independently; drop the options it
+        # rejects (the default True would otherwise always raise)
+        args.pop("condition_on_previous_text", None)
+        args.pop("clip_timestamps", None)
     for audio_path in args.pop("audio"):
         try:
-            result = transcribe(model, audio_path, temperature=temperature, **args)
+            if chunked:
+                result = transcribe_chunked(model, audio_path, chunk_overlap=chunk_overlap,
+                                            temperature=temperature, **args)
+            else:
+                result = transcribe(model, audio_path, temperature=temperature, **args)
             writer(result, audio_path, **writer_args)
         except Exception as e:
             traceback.print_exc()
