@@ -6,7 +6,7 @@
 Phases, each of which must pass (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from whisper_tpu_torch/csrc (nvcc, sm_90a, one
-     process per source);
+     process per source), with ptxas's registers and spills in short;
   3. K1, encoder self-attention, against its plain PyTorch version at
      large-v3-turbo encoder shapes (1, 20, 1500, 64), bf16 and f32;
   4. K2, the fused decode step, against its plain version at
@@ -52,9 +52,27 @@ Phases, each of which must pass (any failure exits non-zero):
      writer: K2 at 5 x 5 rows, K3 and K4 launched, words in their segments;
  14. align(segments=...) of that result's text on the same audio (K3, K4);
  15. the per-row K/V column write at B=16 timed beside K2's step;
- 16. with --profile only: the pinned greedy window, the beam-5 window and
-     the 16-window run_with_prompts under torch.profiler and cProfile
-     (device idle share, host time per token step).
+ 16. K2's int8 instances against the plain version on the same int8 values,
+     bf16 and f32, in two forms (int8 weights with the cross K/V in the
+     compute dtype; int8 weights and int8 cross K/V): B=1, one group of 5,
+     16 audios x 1 at per-row positions, 5 x 5, and 16 x 5 at per-row
+     positions; each case's bound counts every tensor at its own element
+     size;
+ 17. K5 (K2's MLP stage on its own) at C=1280 for B = 1, 5 and 16 rows,
+     bf16 and int8 weights; the int8 logits (51866 x 1280) against the
+     dequantised matmul, beside one bf16 torch.mm of the same rows;
+ 18. the int8 configuration end to end at full depth: the random turbo
+     weights quantized "int8+logits" on the card (the model's bytes, bf16
+     and int8), kv_cache_dtype="int8": the greedy transcribe(jfk.flac) with
+     its launches of K1, K2's int8 instance, K5's stage and the int8
+     logits; the pinned window in turns with bf16; the beam-5 window, the
+     16-window run_with_prompts and transcribe_batch on the 20 files, each
+     beside phase 9's, 11's and 12's bf16 number; int8_divergence_proxy on
+     three windows; the --chunked CLI path (K2 int8 at 5 x 5 and 4 x 5);
+ 19. with --profile only: the pinned greedy window, the beam-5 window and
+     the 16-window run_with_prompts, bf16 and int8, under torch.profiler
+     (device idle share), and the bf16 ones under cProfile (host time per
+     token step).
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -84,6 +102,10 @@ AUDIO = os.path.join(REPO, "tests", "jfk.flac")
 K1_F32_ATOL = 1e-5
 K1_BF16_REL_RMS, K1_BF16_REL_MAX = 5e-3, 1e-2
 K2_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# K2's int8 instances and K5 are held to K2's bounds.  The int8 logits: max
+# error relative to max |plain|; both sum exact products in f32, only the
+# order differs.
+INT8_LOGITS_REL_TOL = 1e-5
 
 # an H100 SXM's published peaks (NVIDIA's data sheet; dense, at 700 W), for
 # each kernel's bound: the larger of its bytes over the memory rate and its
@@ -118,6 +140,49 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_summary(log: str) -> list:
+    """ptxas -v's report, short: the kernel count, the highest register
+    count, the B=1 GEMVs' registers, and every kernel that spills (named
+    by c++filt where the machine has it)."""
+    import re
+    import shutil
+
+    kernels, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = [0, 0]
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            kernels[name][0] = int(m.group(1))
+        elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
+            kernels[name][1] = int(m.group(1))
+    out = [f"{len(kernels)} kernels, at most {max(r for r, _ in kernels.values())} registers"]
+    gemv1 = sorted({r for n, (r, _) in kernels.items() if "gemv_kernel" in n and "Li1ELb" in n})
+    out.append(f"one-row GEMVs (gemv_kernel<..., 1, ...>): registers {gemv1}")
+    spills = [(n, s) for n, (_, s) in kernels.items() if s]
+    if spills and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _ in spills), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+        spills = [(re.sub(r"\(anonymous namespace\)::|\(.*", "", d), s) for d, (_, s) in zip(names, spills)]
+    return out + [f"spills {s} bytes: {n}" for n, s in spills]
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """fn's device time alone: its launches captured once in a CUDA graph
+    and replayed, so that the host's enqueue does not pace them (time_ms's
+    back-to-back launches are host-paced where a call's device work is
+    shorter than its enqueue)."""
+    import torch
+
+    fn()  # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, iters=iters)
 
 
 def card_line() -> str:
@@ -170,30 +235,48 @@ def check_k1(gen, device):
     return rows
 
 
-def k2_bound(blocks, dims: tuple, positions, dtype: str) -> dict:
+def nbytes(leaf) -> int:
+    """A tensor's bytes, or an int8 leaf's: its int8 values and f32 scales."""
+    from whisper_tpu_torch.quantize import Int8Weight
+
+    if isinstance(leaf, Int8Weight):
+        return leaf.q.numel() + 4 * leaf.s.numel()
+    return leaf.numel() * leaf.element_size()
+
+
+def k2_bound(blocks, dims: tuple, positions, dtype: str, cross_k, cross_v) -> dict:
     """K2's bound for one step: every weight read once; each audio's cross
     K/V read once; row b's self K/V at its min(t[b], T) positions read once;
-    x read and hidden, k_new, v_new written.  Operations: the GEMVs (two per
-    weight element per row) and the attention products."""
+    x read and hidden, k_new, v_new written; each tensor at its own element
+    size (int8 weights and K/V with their f32 scales).  Operations: the
+    GEMVs (two per weight element per row) and the attention products."""
+    from whisper_tpu_torch.quantize import Int8Weight
+
     L, B, A, C, T, Ta = dims
     n_ctx = sum(min(max(int(t), 0), T) for t in positions)
-    weights = sum(w.numel() for w in blocks.values())
-    elements = weights + 2 * L * A * C * Ta + 2 * L * C * n_ctx + 2 * B * C + 2 * L * B * C
-    gemv = 2 * B * sum(w.numel() for n, w in blocks.items() if n.endswith("_w"))
+    act = blocks["attn_ln_g"].element_size()  # the compute dtype's
+    moved = (sum(nbytes(w) for w in blocks.values()) + nbytes(cross_k) + nbytes(cross_v)
+             + act * (2 * L * C * n_ctx + 2 * B * C + 2 * L * B * C))
+    gemv = 2 * B * sum((w.q if isinstance(w, Int8Weight) else w).numel()
+                       for n, w in blocks.items() if n.endswith("_w"))
     attention = 4 * L * C * (n_ctx + B) + 4 * L * B * C * Ta
-    return bound(elements * blocks["q_w"].element_size(), gemv + attention, dtype)
+    return bound(moved, gemv + attention, dtype)
 
 
-def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = ""):
+def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = "", form: str = ""):
     """K2 against its plain version at turbo decoder shapes for A audios of
-    G rows; t is one position for every row, or a list, one per row."""
+    G rows; t is one position for every row, or a list, one per row.  form
+    "int8": the eight projections int8 (quantize_weight of the same random
+    weights); "int8+kv_int8": the cross K/V int8 too (quantize_kv)."""
     import torch
 
     from whisper_tpu_torch.ops.kernels.fused_step import (
+        PROJECTIONS,
         WEIGHTS,
         fused_decoder_layers,
         fused_decoder_layers_plain,
     )
+    from whisper_tpu_torch.quantize import quantize_kv, quantize_weight
 
     L, C, H, T, Ta = 4, 1280, 20, 256, 1500
     D = C // H
@@ -224,8 +307,12 @@ def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = ""):
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         blocks = {n: w.to(dtype).contiguous() for n, w in base.items()}
-        args = (blocks, H, x32.to(dtype), pos, sk32.to(dtype), sv32.to(dtype),
-                xk32.to(dtype), xv32.to(dtype))
+        xk, xv = xk32.to(dtype), xv32.to(dtype)
+        if form:
+            blocks.update({n: quantize_weight(blocks[n]) for n in PROJECTIONS})
+        if "kv_int8" in form:
+            xk, xv = quantize_kv(xk), quantize_kv(xv)
+        args = (blocks, H, x32.to(dtype), pos, sk32.to(dtype), sv32.to(dtype), xk, xv)
         out = fused_decoder_layers(*args)
         ref = fused_decoder_layers_plain(*args)
         torch.cuda.synchronize()
@@ -233,14 +320,16 @@ def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = ""):
         for a, b in zip(out, ref):
             errs.append((a.float() - b.float()).abs().max().item() / b.float().abs().max().item())
         ms = time_ms(lambda: fused_decoder_layers(*args))
+        device_ms = graph_ms(lambda: fused_decoder_layers(*args))
         plain_ms = time_ms(lambda: fused_decoder_layers_plain(*args))
         err_abs = (out[0].float() - ref[0].float()).abs().max().item()
-        kb = k2_bound(blocks, (L, B, A, C, T, Ta), positions, name)
+        kb = k2_bound(blocks, (L, B, A, C, T, Ta), positions, name, xk, xv)
         where = f"t={t}" if isinstance(t, int) else f"{len(set(positions))} positions in [{min(positions)}, {max(positions)}]"
-        log(f"K2 fused_decoder_layers{label} A={A} G={G} B={B} {where} {name}: max_abs_err hidden "
+        log(f"K2 fused_decoder_layers{label} A={A} G={G} B={B} {where} {name}"
+            f"{' ' + form if form else ''}: max_abs_err hidden "
             f"{err_abs:.3e}; relative errors hidden/k_new/v_new {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
-            f"(tol {K2_REL_TOL[name]:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}")
+            f"(tol {K2_REL_TOL[name]:.0e}) kernel {ms:.4f} ms ({device_ms:.4f} ms replayed from a "
+            f"CUDA graph) plain {plain_ms:.4f} ms bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}")
         if not max(errs) <= K2_REL_TOL[name]:
             raise RuntimeError(f"K2 A={A} G={G} {name} disagrees with its plain version: {errs}")
         rows[name] = dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, library_ms=None, **kb)
@@ -311,12 +400,91 @@ def check_k4(gen, device):
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **kb)
 
 
+def check_k5(gen, device):
+    """K5 against its plain version at turbo's width (C = 1280, F = 5120)
+    for B = 1, 5 and 16 rows, bf16 weights and int8 weights (bf16 compute)."""
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.mlp import mlp_fused, mlp_fused_plain
+    from whisper_tpu_torch.quantize import quantize_weight
+
+    C, F = 1280, 5120
+    rows = {}
+    for B in (1, 5, 16):
+        for weights in ("bfloat16", "int8"):
+            def randn(*shape, scale=1.0):
+                return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+            x, g, b = randn(B, C, scale=0.5), 1.0 + randn(C, scale=0.1), randn(C, scale=0.02)
+            w1, b1, w2, b2 = randn(F, C, scale=0.02), randn(F, scale=0.02), randn(C, F, scale=0.02), randn(C, scale=0.02)
+            if weights == "int8":
+                w1, w2 = quantize_weight(w1), quantize_weight(w2)
+            args = (x, g, b, w1, b1, w2, b2)
+            out, ref = mlp_fused(*args), mlp_fused_plain(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            ms = time_ms(lambda: mlp_fused(*args))
+            device_ms = graph_ms(lambda: mlp_fused(*args))
+            plain_ms = time_ms(lambda: mlp_fused_plain(*args))
+            # weights (and scales) read once, x read, out written; two GEMVs
+            kb = bound(nbytes(w1) + nbytes(w2) + 2 * (2 * F + 3 * C) + 2 * 2 * B * C,
+                       2 * B * 2 * F * C, "bfloat16")
+            log(f"K5 mlp_fused C={C} F={F} B={B} bf16, {weights} weights: max_abs_err {err:.3e}, "
+                f"relative {rel:.3e} (tol {K2_REL_TOL['bfloat16']:.0e}) kernel {ms:.4f} ms "
+                f"({device_ms:.4f} ms replayed from a CUDA graph) plain {plain_ms:.4f} ms "
+                f"bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}")
+            if not rel <= K2_REL_TOL["bfloat16"]:
+                raise RuntimeError(f"K5 B={B} {weights} disagrees with its plain version: {rel}")
+            rows[(B, weights)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **kb)
+    return rows
+
+
+def check_int8_logits(gen, device):
+    """The int8 logits (K2's GEMV, f32 epilogue) against the dequantised
+    matmul at turbo's vocabulary (51866 x 1280) for 1, 5 and 16 rows; beside
+    them one bf16 torch.mm of the same rows with the bf16 embedding, f32
+    out (the unquantized path's call)."""
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.fused_step import int8_logits, int8_logits_plain
+    from whisper_tpu_torch.quantize import quantize_weight
+
+    V, C = 51866, 1280
+    emb = (torch.randn((V, C), generator=gen, device=device) * 0.02).to(torch.bfloat16)
+    w = quantize_weight(emb)
+    rows = {}
+    for B in (1, 5, 16):
+        hidden = torch.randn((B, C), generator=gen, device=device).to(torch.bfloat16)
+        out, ref = int8_logits(hidden, w), int8_logits_plain(hidden, w)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        ms = time_ms(lambda: int8_logits(hidden, w))
+        device_ms = graph_ms(lambda: int8_logits(hidden, w))
+        plain_ms = time_ms(lambda: int8_logits_plain(hidden, w))
+        library_ms = time_ms(lambda: torch.mm(hidden, emb.t(), out_dtype=torch.float32))
+        library_device_ms = graph_ms(lambda: torch.mm(hidden, emb.t(), out_dtype=torch.float32))
+        kb = bound(nbytes(w) + 2 * B * C + 4 * B * V, 2 * B * V * C, "bfloat16")
+        log(f"int8 logits V={V} C={C} B={B} bf16: max_abs_err {err:.3e}, relative {rel:.3e} "
+            f"(tol {INT8_LOGITS_REL_TOL:.0e}) kernel {ms:.4f} ms ({device_ms:.4f} ms replayed from a "
+            f"CUDA graph) plain (dequantised matmul) {plain_ms:.4f} ms, bf16 torch.mm logits "
+            f"{library_ms:.4f} ms ({library_device_ms:.4f} ms replayed), bound {kb['bound_ms']:.4f} ms "
+            f"by {kb['bound_by']}")
+        if not rel <= INT8_LOGITS_REL_TOL:
+            raise RuntimeError(f"the int8 logits B={B} disagree with their plain version: {rel}")
+        rows[B] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **kb)
+    return rows
+
+
 def reset_launches():
-    from whisper_tpu_torch.ops.kernels import attention, dtw, fused_step, median
+    from whisper_tpu_torch.ops.kernels import attention, dtw, fused_step, median, mlp
 
     attention.attention.launches = 0
     fused_step.fused_decoder_layers.launches = 0
     fused_step.fused_decoder_layers.launches_by_layout.clear()
+    fused_step.int8_logits.launches = 0
+    mlp.mlp_fused.launches = 0
     median.median_filter.launches = 0
     dtw.dtw_trace.launches = 0
 
@@ -346,7 +514,6 @@ def end_to_end(device, name: str = "turbo"):
     import torch
 
     import whisper_tpu_torch
-    from whisper_tpu_torch.decoding import DecodingTask
     from whisper_tpu_torch.models import KNOWN_MODELS
     from whisper_tpu_torch.models.whisper import init_params
     from whisper_tpu_torch.ops.kernels.attention import attention
@@ -391,19 +558,7 @@ def end_to_end(device, name: str = "turbo"):
                         language="en", task="transcribe")
     text = np.random.RandomState(0).randint(1000, 20000, size=107)
     forced = [tok.timestamp_begin, *map(int, text), tok.timestamp_begin + 1500, tok.eot]
-    DecodingTask._forced_tokens = forced
-    try:
-        walls = []
-        for _ in range(4):  # from the decoded waveform; the first run is cold
-            t0 = time.perf_counter()
-            pinned = model.transcribe(audio, language="en", temperature=0.0)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-    finally:
-        DecodingTask._forced_tokens = None
-    got = [t for s in pinned["segments"] for t in s["tokens"]]
-    if got != forced[:-1]:
-        raise RuntimeError("the pinned window did not decode the pinned sequence once")
+    walls = pinned_walls(model, audio, forced, runs=4)  # the first run is cold
     warm = sorted(walls[1:])[1]
     log(f"pinned window (mel, encoder, prefill, {len(forced)} steps, segmentation): "
         f"audio {audio_s:.3f} s, wall {walls[0]:.4f} s cold, {warm:.4f} s warm "
@@ -411,6 +566,28 @@ def end_to_end(device, name: str = "turbo"):
         f"{1000 * warm / len(forced):.4f} ms per token (window wall / tokens)")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     return launches, model, audio, forced
+
+
+def pinned_walls(model, audio, forced, runs: int, **options) -> list:
+    """The walls of runs transcribe(waveform) calls that decode the pinned
+    sequence (DecodingTask._forced_tokens), each checked."""
+    import torch
+
+    from whisper_tpu_torch.decoding import DecodingTask
+
+    DecodingTask._forced_tokens = forced
+    walls = []
+    try:
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            pinned = model.transcribe(audio, language="en", temperature=0.0, **options)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if [t for s in pinned["segments"] for t in s["tokens"]] != forced[:-1]:
+                raise RuntimeError("the pinned window did not decode the pinned sequence once")
+    finally:
+        DecodingTask._forced_tokens = None
+    return walls
 
 
 # the CLI's defaults (whisper_tpu_torch.transcribe.cli) as transcribe
@@ -484,9 +661,10 @@ def cli_default_path(model):
     return launches
 
 
-def beam_window(model, audio):
+def beam_window(model, audio, label: str = "", **options):
     """DecodingTask(beam_size=5).run on jfk's encoder features: the wall of
-    one beam-5 window (median of 3 after a warm-up) and its ms per step."""
+    one beam-5 window (median of 3 after a warm-up) and its ms per step.
+    Returns (features, options, ms per step)."""
     import torch
 
     from whisper_tpu_torch import log_mel_spectrogram, pad_or_trim
@@ -495,7 +673,7 @@ def beam_window(model, audio):
 
     mel = log_mel_spectrogram(pad_or_trim(audio), model.dims.n_mels, device=model.device)
     features = model.embed_audio(mel[None])
-    options = DecodingOptions(language="en", beam_size=5)
+    options = DecodingOptions(language="en", beam_size=5, **options)
     walls = []
     for _ in range(4):  # the first is a warm-up
         before = fused_decoder_layers.launches
@@ -505,17 +683,19 @@ def beam_window(model, audio):
         walls.append(time.perf_counter() - t0)
         steps = fused_decoder_layers.launches - before
     wall = sorted(walls[1:])[1]
-    log(f"beam-5 window (DecodingTask.run from features: prefill + {steps} steps of 5 rows): "
+    log(f"beam-5 window{label} (DecodingTask.run from features: prefill + {steps} steps of 5 rows): "
         f"wall {wall:.4f} s (median of 3 after a warm-up), {1000 * wall / steps:.4f} ms per step")
-    return features, options
+    return features, options, 1000 * wall / steps
 
 
-def prompts_window(model, audio):
+def prompts_window(model, audio, tag: str = "", **options):
     """DecodingTask.run_with_prompts on 16 windows of jfk whose prompts have
     four lengths, 0 and 223 tokens among them: every step of the loop must
-    run K2 once for the 16 rows, and in a last run (untimed) each step's
-    positions must be the rows' own, four different ones: the tensor the
-    engine passed to K2's step, read back after the run."""
+    run K2 once for the 16 rows (under its layout (16, 1), with the tag of
+    an int8 form), and in a last run (untimed) each step's positions must be
+    the rows' own, four different ones: the tensor the engine passed to K2's
+    step, read back after the run.  Returns (a function that runs it once,
+    ms per step)."""
     import numpy as np
     import torch
 
@@ -531,7 +711,7 @@ def prompts_window(model, audio):
     text = np.random.RandomState(1).randint(1000, 20000, size=223)
     lengths = [0, 7, 64, 223] * 4
     prompts = [list(map(int, text[:n])) for n in lengths]
-    task = DecodingTask(model, DecodingOptions(language="en", temperature=0.0))
+    task = DecodingTask(model, DecodingOptions(language="en", temperature=0.0, **options))
     layer = fused_step.fused_decoder_layers
     walls = []
     for _ in range(3):  # the first is a warm-up
@@ -541,7 +721,7 @@ def prompts_window(model, audio):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         steps = layer.launches
-        multi = layer.launches_by_layout[(16, 1)]
+        multi = layer.launches_by_layout[(16, 1, tag) if tag else (16, 1)]
     wall = min(walls[1:])
     record = []
     with k2_positions(record, keep=True):
@@ -552,7 +732,7 @@ def prompts_window(model, audio):
         1 for i, t in enumerate(record)
         if not isinstance(t, int) and torch.equal(t.cpu(), begins + i) and len(set(t.tolist())) == 4
     )
-    log(f"run_with_prompts: 16 windows, prompt lengths {sorted(set(lengths))}, greedy: "
+    log(f"run_with_prompts{' ' + tag if tag else ''}: 16 windows, prompt lengths {sorted(set(lengths))}, greedy: "
         f"{steps} K2 launches of 16 audios x 1 row; wall {wall:.4f} s (best of 2 after a warm-up), "
         f"{1000 * wall / steps:.4f} ms per step; recorded run: {per_row} of {len(record)} steps at "
         f"the rows' own positions (first step {begins.tolist()})")
@@ -561,7 +741,7 @@ def prompts_window(model, audio):
                            f"{steps}, {multi}, {per_row} of {len(record)}")
     if len(results) != 16 or any(not 0 <= t < model.dims.n_vocab for r in results for t in r.tokens):
         raise RuntimeError("run_with_prompts gave malformed results")
-    return lambda: task.run_with_prompts(windows, prompts)
+    return (lambda: task.run_with_prompts(windows, prompts)), 1000 * wall / steps
 
 
 def _well_formed(result, n_samples: int, n_vocab: int) -> bool:
@@ -573,7 +753,7 @@ def _well_formed(result, n_samples: int, n_vocab: int) -> bool:
     )
 
 
-def batch_path(model, audio):
+def batch_path(model, audio, tag: str = "", **options):
     """transcribe_batch on 20 inputs cut and tiled from jfk (4-70 s, each
     from its own offset), batch_size 16, T = 0, condition_on_previous_text:
     files go in groups of 16, and each round of a group decodes the next
@@ -604,16 +784,16 @@ def batch_path(model, audio):
         with k2_positions(positions, keep=False):
             t0 = time.perf_counter()
             results = model.transcribe_batch(files, batch_size=16, temperature=0.0, language="en",
-                                             condition_on_previous_text=True)
+                                             condition_on_previous_text=True, **options)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
         DecodingTask.run_with_prompts = run
     layout = dict(fused_step.fused_decoder_layers.launches_by_layout)
-    multi = sum(n for (a, g), n in layout.items() if a > 1 and g == 1)
+    multi = sum(n for key, n in layout.items() if key[0] > 1 and key[1] == 1 and key[2:] == ((tag,) if tag else ()))
     launches = {"encoder_attention": attention.attention.launches, "fused_decoder_layers_multi": multi}
     per_row = sum(t is None for t in positions)
-    log(f"transcribe_batch: {len(files)} files, {sum(seconds)} s of audio, batch_size 16, T=0: "
+    log(f"transcribe_batch{' ' + tag if tag else ''}: {len(files)} files, {sum(seconds)} s of audio, batch_size 16, T=0: "
         f"wall {wall:.3f} s, {len(calls)} rounds of {[len(c) for c in calls]} rows, "
         f"prompt lengths per round {[sorted(set(c)) for c in calls]}, "
         f"{sum(len(r['segments']) for r in results)} segments, launches {launches}, "
@@ -625,15 +805,15 @@ def batch_path(model, audio):
         raise RuntimeError("transcribe_batch gave a malformed result")
     if min(launches.values()) <= 0:
         raise RuntimeError(f"a kernel of the batch path never launched: {launches}")
-    return launches
+    return launches, wall
 
 
-def chunked_cli_path(model, audio):
+def chunked_cli_path(model, audio, tag: str = "", **options):
     """``python -m whisper_tpu_torch jfk110.wav --chunked True
     --word_timestamps True --highlight_words True`` after load_model: jfk
     tiled to 110 s in five 30 s chunks, beam 5 at T = 0 and best-of 5 on the
     0.2-step ladder (25 rows of five audios), word timestamps, every
-    writer."""
+    writer.  K2's groups are counted under the tag of an int8 form."""
     import numpy as np
     import torch
 
@@ -648,11 +828,12 @@ def chunked_cli_path(model, audio):
     reset_launches()
     t0 = time.perf_counter()
     result = transcribe_chunked(model, wave, chunk_overlap=5.0, verbose=None, temperature=temperature,
-                                word_timestamps=True, **args)
+                                word_timestamps=True, **args, **options)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     layout = dict(fused_step.fused_decoder_layers.launches_by_layout)
-    launches = {"fused_decoder_layers_groups": sum(n for (a, g), n in layout.items() if a > 1 < g),
+    launches = {"fused_decoder_layers_groups": sum(
+                    n for key, n in layout.items() if key[0] > 1 < key[1] and key[2:] == ((tag,) if tag else ())),
                 "median_filter": median.median_filter.launches, "dtw_trace": dtw.dtw_trace.launches}
     with tempfile.TemporaryDirectory() as out_dir:
         get_writer("all", out_dir)(result, "jfk110.wav", highlight_words=True, max_line_count=None,
@@ -660,7 +841,7 @@ def chunked_cli_path(model, audio):
         written = {f: os.path.getsize(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))}
     segments = result["segments"]
     words = [w for s in segments for w in s["words"]]
-    log(f"--chunked CLI path (110 s, 5 chunks, beam 5, best_of 5, ladder, word_timestamps): "
+    log(f"--chunked CLI path{' ' + tag if tag else ''} (110 s, 5 chunks, beam 5, best_of 5, ladder, word_timestamps): "
         f"language {result['language']!r}, {len(segments)} segments, {len(words)} words, "
         f"wall {wall:.3f} s, launches {launches}, K2 launches by (audios, rows per audio) {layout}, "
         f"files {written}")
@@ -703,6 +884,101 @@ def align_path(model, wave, chunked):
     return launches
 
 
+def tree_bytes(node) -> int:
+    """The bytes of a parameter tree's leaves (int8 leaves with their scales)."""
+    if isinstance(node, dict):
+        return sum(tree_bytes(v) for v in node.values())
+    return nbytes(node)
+
+
+def int8_path(model, audio, forced, bf16: dict):
+    """The int8 configuration end to end, at full depth: the random turbo
+    weights quantized "int8+logits" (quantize_params, as load_model(...,
+    quantize="int8+logits") does on the card) and decoded with
+    kv_cache_dtype="int8".  The model's bytes; the greedy transcribe(jfk)
+    with its kernels' launches; the pinned window, the beam-5 window, the
+    16-window run_with_prompts and transcribe_batch, each beside the same
+    run's bf16 number (the pinned window in turns); int8_divergence_proxy
+    on three windows; the --chunked CLI path (groups of rows of several
+    audios).  Returns the int8 kernels' launch counts, and the
+    int8 model with its beam-5 window and run_with_prompts (for
+    --profile)."""
+    import numpy as np
+    import torch
+
+    import whisper_tpu_torch
+    from whisper_tpu_torch import log_mel_spectrogram, pad_or_trim
+    from whisper_tpu_torch.evaluation import int8_divergence_proxy
+    from whisper_tpu_torch.ops.kernels import attention, fused_step, mlp
+    from whisper_tpu_torch.quantize import quantize_params
+    from whisper_tpu_torch.tokenizer import LANGUAGES
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params = quantize_params(model.params, logits=True)
+    torch.cuda.synchronize()
+    added = torch.cuda.memory_allocated() - before
+    qmodel = whisper_tpu_torch.Whisper(model.dims, params)
+    sizes = {name: (tree_bytes(m.params), tree_bytes(m.params["decoder"]["blocks"]))
+             for name, m in (("bf16", model), ("int8", qmodel))}
+    log(f"model bytes on the card: bf16 {sizes['bf16'][0]} (decoder layers {sizes['bf16'][1]}), "
+        f"int8+logits {sizes['int8'][0]} (decoder layers {sizes['int8'][1]}, logits copy "
+        f"{nbytes(params['decoder']['logits_w'])}); memory_allocated grew {added} bytes across "
+        f"quantize_params (the int8 leaves beside the bf16 ones they replace)")
+    if not sizes["int8"][0] < sizes["bf16"][0] or not sizes["int8"][1] < sizes["bf16"][1]:
+        raise RuntimeError(f"the int8 model is not smaller: {sizes}")
+
+    opts, tag = dict(kv_cache_dtype="int8"), "int8+kv_int8"
+    reset_launches()
+    t0 = time.perf_counter()
+    result = qmodel.transcribe(AUDIO, language=None, seed=0, **opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    layout = fused_step.fused_decoder_layers.launches_by_layout
+    launches = {"encoder_attention": attention.attention.launches,
+                "fused_decoder_layers_int8": layout[(1, 1, tag)],
+                "mlp_fused": mlp.mlp_fused.launches,
+                "int8_logits": fused_step.int8_logits.launches}
+    log(f"int8 transcribe(jfk.flac, language=None, kv_cache_dtype='int8'): language "
+        f"{result['language']!r}, {len(result['segments'])} segments, wall {wall:.3f} s, "
+        f"launches {launches}, K2 launches by layout {dict(layout)}")
+    if result["language"] not in LANGUAGES or not result["segments"] or any(
+        not 0 <= t < qmodel.dims.n_vocab for s in result["segments"] for t in s["tokens"]
+    ):
+        raise RuntimeError("the int8 transcribe gave a malformed result")
+    if min(launches.values()) <= 0 or set(layout) != {(1, 1, tag)}:
+        raise RuntimeError(f"the int8 path missed a kernel or ran another K2 form: {launches}, {dict(layout)}")
+
+    walls = {"bf16": [], "int8": []}
+    for m, name in ((model, "bf16"), (qmodel, "int8"), (qmodel, "int8"), (model, "bf16")) * 2:
+        walls[name] += pinned_walls(m, audio, forced, runs=1, **(opts if name == "int8" else {}))
+    pinned = {name: 1000 * float(np.median(w)) / len(forced) for name, w in walls.items()}
+    log(f"pinned window, in turns (bf16, int8, int8, bf16, twice): ms per token int8 "
+        f"{pinned['int8']:.4f}, bf16 {pinned['bf16']:.4f} (medians of 4)")
+
+    reset_launches()
+    beam = beam_window(qmodel, audio, label=" int8", **opts)
+    launches["fused_decoder_layers_b5_int8"] = layout[(1, 5, tag)]
+    prompts_fn, prompts = prompts_window(qmodel, audio, tag=tag, **opts)
+    batch_launches, batch_wall = batch_path(qmodel, audio, tag=tag, **opts)
+    launches["fused_decoder_layers_multi_int8"] = batch_launches["fused_decoder_layers_multi"]
+    launches["fused_decoder_layers_groups_int8"] = chunked_cli_path(
+        qmodel, audio, tag=tag, **opts)[0]["fused_decoder_layers_groups"]
+    log(f"int8 against bf16: beam-5 window {beam[2]:.4f} / {bf16['beam']:.4f} ms per step; "
+        f"run_with_prompts 16 windows {prompts:.4f} / {bf16['prompts']:.4f} ms per step; "
+        f"transcribe_batch 20 files {batch_wall:.3f} / {bf16['batch']:.3f} s")
+
+    waves = [audio, audio[3 * 16000:], np.tile(audio, 3)[5 * 16000:]]
+    mels = torch.stack([log_mel_spectrogram(pad_or_trim(w), model.dims.n_mels) for w in waves]).numpy()
+    proxy = int8_divergence_proxy(model, qmodel, mels, sample_len=32, batch_size=3,
+                                  int8_decode_options=opts)
+    log(f"int8_divergence_proxy (bf16 against int8+logits with kv_cache_dtype='int8', 3 windows, "
+        f"32 tokens, random weights): {json.dumps(proxy)}")
+    if launches["fused_decoder_layers_b5_int8"] <= 0:
+        raise RuntimeError(f"the int8 beam window did not run K2's int8 instance: {launches}")
+    return launches, (qmodel, beam, prompts_fn)
+
+
 def column_write(device):
     """The per-row K/V column write at B=16 (turbo, T=448: the prompts
     window's cache) beside K2's step at the same shapes: the condition for
@@ -729,18 +1005,8 @@ def column_write(device):
     def uniform():
         _write_kv_column(cache, k_new, v_new, 200)
 
-    def replayed(fn):
-        """fn's device time alone: its launches captured in a CUDA graph
-        and replayed, so the host's enqueue does not pace them."""
-        fn()  # warm-up outside the capture
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            fn()
-        return time_ms(graph.replay, iters=50)
-
     eager = {name: time_ms(fn, iters=50) for name, fn in (("per_row", per_row), ("uniform", uniform))}
-    device_only = {name: replayed(fn) for name, fn in (("per_row", per_row), ("uniform", uniform))}
+    device_only = {name: graph_ms(fn) for name, fn in (("per_row", per_row), ("uniform", uniform))}
     shapes = {"fc1_w": (4 * C, C), "fc2_w": (C, 4 * C), "fc1_b": (4 * C,)}
     blocks = {n: randn(L, *shapes.get(n, (C, C) if n.endswith("_w") else (C,))) for n in WEIGHTS}
     step_ms = time_ms(lambda: fused_decoder_layers(blocks, H, randn(B, C), pos, *cache), iters=50)
@@ -776,11 +1042,13 @@ def host_split(fn, steps: int, label: str) -> None:
         f"{k} {ms / steps:.3f} ms ({calls} calls)" for k, (calls, ms) in sorted(per_step.items())))
 
 
-def profile_window(model, audio, forced, beam, prompts) -> None:
+def profile_window(model, audio, forced, beam, prompts, int8) -> None:
     """--profile: wall, device busy time and idle share of the pinned window,
     of its encoder and decode parts, of the beam-5 window and of the
-    16-window run_with_prompts, then the host's time per token step of the
-    three decodes.  Wall is the median of
+    16-window run_with_prompts, the three decodes again on the int8
+    configuration (int8 = (model, beam-5 window, run_with_prompts) from
+    int8_path), then the host's time per token step of the bf16 decodes.
+    Wall is the median of
     three runs without a profiler; busy is the sum of kernel and copy time
     under torch.profiler (device activity only); idle share is
     1 - busy / wall."""
@@ -793,13 +1061,16 @@ def profile_window(model, audio, forced, beam, prompts) -> None:
     mel = log_mel_spectrogram(pad_or_trim(audio), model.dims.n_mels, device=model.device)
     features = model.embed_audio(mel[None])
     options = DecodingOptions(language="en", temperature=0.0)
-    beam_features, beam_options = beam
+    beam_features, beam_options, _ = beam
 
     def greedy():
         return DecodingTask(model, options).run(features)
 
     def beam5():
         return DecodingTask(model, beam_options).run(beam_features)
+
+    qmodel, (qfeatures, qbeam_options, _), qprompts = int8
+    qoptions = DecodingOptions(language="en", temperature=0.0, kv_cache_dtype="int8")
 
     # (label, fn, pinned): the pinned sequence is greedy-only
     parts = [
@@ -809,6 +1080,11 @@ def profile_window(model, audio, forced, beam, prompts) -> None:
         (f"decode from features: prefill + {len(forced)} steps", greedy, True),
         ("beam-5 window from features: prefill + 224 steps of 5 rows", beam5, False),
         ("run_with_prompts: 16 windows, encoder + prefill + 224 steps of 16 rows", prompts, False),
+        (f"int8 decode from features: prefill + {len(forced)} steps",
+         lambda: DecodingTask(qmodel, qoptions).run(qfeatures), True),
+        ("int8 beam-5 window from features: prefill + 224 steps of 5 rows",
+         lambda: DecodingTask(qmodel, qbeam_options).run(qfeatures), False),
+        ("int8 run_with_prompts: 16 windows, encoder + prefill + 224 steps of 16 rows", qprompts, False),
     ]
     try:
         for label, fn, pinned in parts:
@@ -862,9 +1138,8 @@ def main() -> int:
     t0 = time.perf_counter()
     ptxas = build(verbose=True)
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(ptxas):
+        log(f"  ptxas: {line}")
 
     gen = torch.Generator(device=device).manual_seed(0)
     k1 = check_k1(gen, device)
@@ -885,13 +1160,28 @@ def main() -> int:
     launches, model, audio, forced = end_to_end(device)
     cli_launches = cli_default_path(model)
     beam = beam_window(model, audio)
-    prompts = prompts_window(model, audio)
-    batch_launches = batch_path(model, audio)
+    prompts, prompts_ms = prompts_window(model, audio)
+    batch_launches, batch_wall = batch_path(model, audio)
     chunked_launches, wave, chunked = chunked_cli_path(model, audio)
     align_path(model, wave, chunked)
     column_write(device)
+    # int8: K2's int8 instances (int8 weights with the cross K/V in bf16, and
+    # both int8) at the layouts of the int8 paths, both compute dtypes; K5;
+    # the int8 logits; then the int8 configuration end to end
+    k2q = {}
+    for form in ("int8", "int8+kv_int8"):
+        k2q[form, 1] = check_k2(gen, device, form=form)
+        k2q[form, 5] = check_k2(gen, device, G=5, form=form)
+        k2q[form, 16] = check_k2(gen, device, A=16, t=spread, label=" multi", form=form)
+        k2q[form, 25] = check_k2(gen, device, A=5, G=5, label=" groups", form=form)
+        check_k2(gen, device, A=16, G=5, t=[(37 * i) % 257 for i in range(80)], label=" groups",
+                 form=form)
+    k5 = check_k5(gen, device)
+    logits = check_int8_logits(gen, device)
+    int8_launches, int8 = int8_path(model, audio, forced,
+                                    dict(beam=beam[2], prompts=prompts_ms, batch=batch_wall))
     if args.profile:
-        profile_window(model, audio, forced, beam, prompts)
+        profile_window(model, audio, forced, beam, prompts, int8)
 
     fused = dict(route="cuda", source="whisper_tpu_torch/csrc/fused_step.cu",
                  replaces="whisper_tpu/ops/kernels/fused_step_pallas.py:301")
@@ -918,6 +1208,26 @@ def main() -> int:
         dict(name="dtw_trace", route="cuda", source="whisper_tpu_torch/csrc/dtw.cu",
              replaces="whisper_tpu/ops/kernels/dtw_pallas.py:80",
              launches=cli_launches["dtw_trace"], **k4),
+        # the int8 configuration (int8 weights and cross K/V): B=1 and the
+        # MLP stage (K5's code, timed alone at B=1, int8) and the int8
+        # logits, the greedy transcribe's counts; B=5 the int8 beam window's;
+        # 16 x 1 the int8 transcribe_batch's; 5 x 5 the int8 --chunked path's
+        dict(name="fused_decoder_layers_int8", **fused,
+             launches=int8_launches["fused_decoder_layers_int8"], **k2q["int8+kv_int8", 1]["bfloat16"]),
+        dict(name="fused_decoder_layers_b5_int8", **fused,
+             launches=int8_launches["fused_decoder_layers_b5_int8"], **k2q["int8+kv_int8", 5]["bfloat16"]),
+        dict(name="fused_decoder_layers_multi_int8", **fused,
+             launches=int8_launches["fused_decoder_layers_multi_int8"],
+             **k2q["int8+kv_int8", 16]["bfloat16"]),
+        dict(name="fused_decoder_layers_groups_int8", **fused,
+             launches=int8_launches["fused_decoder_layers_groups_int8"],
+             **k2q["int8+kv_int8", 25]["bfloat16"]),
+        dict(name="mlp_fused", route="cuda", source="whisper_tpu_torch/csrc/fused_step.cu",
+             replaces="whisper_tpu/ops/kernels/mlp_pallas.py:128",
+             launches=int8_launches["mlp_fused"], **k5[1, "int8"]),
+        dict(name="int8_logits", route="cuda", source="whisper_tpu_torch/csrc/fused_step.cu",
+             replaces="whisper_tpu/models/whisper.py:869",
+             launches=int8_launches["int8_logits"], **logits[1]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,6 @@ ttranscribe = importlib.import_module("whisper_tpu_torch.transcribe")
 ALLOWED = {
     ("DecodingOptions", "draft_len"): "speculative decoding: ROADMAP Queue 1 item 16",
     ("DecodingOptions", "fused_step"): "K2 always runs on the card; the XLA/Pallas switch has no port",
-    ("load_model", "quantize"): "int8: ROADMAP Queue 1 item 14",
     # the port never picks a device by itself: CUDA unless told otherwise
     ("load_model", "device"): "default 'cuda' (whisper_tpu: None, JAX's default backend)",
     ("cli", "--device"): "default 'cuda' (whisper_tpu: None, JAX's default backend)",

@@ -14,8 +14,12 @@ keys past T reads an RMS error of 1.45e-2 at T = 1500 and more at shorter
 T.  K2: max error relative to max |plain| (f32 1e-4, bf16 2e-2), at one
 row, at grouped rows (bf16 above one row on the tensor cores), and at
 per-row positions for A audios of G rows (A = B up to 16, 3 x 5 and 16 x 5
-= 80 rows).  K3 and K4 select: their outputs must equal the plain
-versions' bit for bit.
+= 80 rows).  K2 with int8 weights and/or int8 cross K/V, and K5 (its MLP
+stage on its own, bf16/f32 or int8): the same bounds as K2, against their
+plain versions on the same int8 values.  The int8 logits: max error 1e-5
+of max |plain| (both sum exact products in f32; only the order differs).
+K3 and K4 select: their outputs must equal the plain versions' bit for
+bit.
 """
 
 import numpy as np
@@ -26,12 +30,15 @@ from whisper_tpu_torch.ops.kernels import attention as k1
 from whisper_tpu_torch.ops.kernels import dtw as k4
 from whisper_tpu_torch.ops.kernels import fused_step as k2
 from whisper_tpu_torch.ops.kernels import median as k3
+from whisper_tpu_torch.ops.kernels import mlp as k5
+from whisper_tpu_torch.quantize import Int8Weight, quantize_kv, quantize_weight
 
 pytestmark = pytest.mark.cuda
 
 K1_F32_ATOL = 1e-5
 K1_BF16_REL_RMS, K1_BF16_REL_MAX = 5e-3, 1e-2
 K2_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LOGITS_REL_TOL = 1e-5
 
 
 @pytest.fixture
@@ -175,6 +182,103 @@ def test_k2_kernel_refuses_what_it_does_not_take(cuda):
         k2.fused_decoder_layers(blocks, H, x.to(torch.bfloat16), 3, *caches)
 
 
+def _int8_form(blocks, caches, form):
+    """blocks and caches with the projections (form "int8"), the cross K/V
+    ("kv_int8") or both ("int8+kv_int8") quantized."""
+    blocks = dict(blocks)
+    if "int8" in form.split("+"):
+        for n in k2.PROJECTIONS:
+            blocks[n] = quantize_weight(blocks[n])
+    if "kv_int8" in form:
+        caches = caches[:2] + [quantize_kv(c) for c in caches[2:]]
+    return blocks, caches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["int8", "kv_int8", "int8+kv_int8"])
+@pytest.mark.parametrize("A,G,per_row", [(1, 1, False), (1, 5, False), (16, 1, True), (3, 5, True),
+                                         (5, 5, False), (16, 5, True)])
+def test_k2_int8_matches_plain(cuda, dtype, form, A, G, per_row):
+    """K2's int8 instances against the plain version on the same int8
+    values, counted under their (A, G, form) layout."""
+    B, T = A * G, 64
+    blocks, H, x, caches = _k2_inputs(cuda, dtype, L=2, T=T, B=B, A=A)
+    blocks, caches = _int8_form(blocks, caches, form)
+    t = 9
+    if per_row:
+        t = torch.randint(0, T + 1, (B,), generator=torch.Generator(device=cuda).manual_seed(B),
+                          device=cuda)
+    key = (A, G, form)
+    layout = k2.fused_decoder_layers.launches_by_layout[key]
+    out = k2.fused_decoder_layers(blocks, H, x, t, *caches)
+    assert k2.fused_decoder_layers.launches_by_layout[key] == layout + 1
+    ref = k2.fused_decoder_layers_plain(blocks, H, x, t, *caches)
+    assert max(_k2_rel_errors(out, ref)) <= K2_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 5, 16, 33])
+def test_k2_int8_at_width_1280(cuda, dtype, B):
+    """int8 weights at turbo's width: fc2's 5120 inputs in chunks, the
+    tensor-core GEMV's int8 loads over 1280-wide chunks, 33 rows a ragged
+    tile; int8 cross K/V."""
+    blocks, H, x, caches = _k2_inputs(cuda, dtype, L=1, C=1280, T=16, Ta=64, B=B)
+    blocks, caches = _int8_form(blocks, caches, "int8+kv_int8")
+    out = k2.fused_decoder_layers(blocks, H, x, 5, *caches)
+    ref = k2.fused_decoder_layers_plain(blocks, H, x, 5, *caches)
+    assert max(_k2_rel_errors(out, ref)) <= K2_REL_TOL[dtype]
+
+
+def test_k2_refuses_a_mixed_int8_form(cuda):
+    blocks, H, x, caches = _k2_inputs(cuda, torch.bfloat16, L=1, T=8, Ta=16, B=2)
+    blocks["q_w"] = quantize_weight(blocks["q_w"])
+    with pytest.raises(ValueError, match="int8, or none"):
+        k2.fused_decoder_layers(blocks, H, x, 3, *caches)
+    blocks, H, x, caches = _k2_inputs(cuda, torch.bfloat16, L=1, T=8, Ta=16, B=2)
+    caches[2] = quantize_kv(caches[2])
+    with pytest.raises(ValueError, match="int8, or none"):
+        k2.fused_decoder_layers(blocks, H, x, 3, *caches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 5, 16, 33])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("C", [256, 1280])
+def test_k5_matches_plain(cuda, dtype, B, int8, C):
+    gen = torch.Generator(device=cuda).manual_seed(B)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=cuda) * scale).to(dtype)
+
+    x, g, b = randn(B, C, scale=0.5), 1.0 + randn(C, scale=0.1), randn(C, scale=0.1)
+    w1, b1, w2, b2 = randn(4 * C, C, scale=0.05), randn(4 * C, scale=0.1), randn(C, 4 * C, scale=0.05), randn(C, scale=0.1)
+    if int8:
+        w1, w2 = quantize_weight(w1), quantize_weight(w2)
+    launches = k5.mlp_fused.launches
+    out = k5.mlp_fused(x, g, b, w1, b1, w2, b2)
+    assert k5.mlp_fused.launches == launches + 1
+    ref = k5.mlp_fused_plain(x, g, b, w1, b1, w2, b2)
+    assert max(_k2_rel_errors([out], [ref])) <= K2_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [(1,), (5,), (3, 13)])
+def test_int8_logits_match_plain(cuda, dtype, rows):
+    """The vocabulary (51865) is no multiple of 8: the last block's rows
+    past it write nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(len(rows))
+    emb = torch.randn((51865, 128), generator=gen, device=cuda) * 0.02
+    w = quantize_weight(emb)
+    hidden = torch.randn((*rows, 128), generator=gen, device=cuda).to(dtype)
+    launches = k2.int8_logits.launches
+    out = k2.int8_logits(hidden, w)
+    assert k2.int8_logits.launches == launches + 1
+    ref = k2.int8_logits_plain(hidden, w)
+    assert out.shape == ref.shape == (*rows, 51865) and out.dtype == torch.float32
+    rel = (out - ref).abs().max().item() / ref.abs().max().item()
+    assert rel <= LOGITS_REL_TOL
+
+
 @pytest.mark.parametrize("width", [3, 5, 7, 13])
 @pytest.mark.parametrize("shape", [(40, 1, 37, 1500), (3, 7), (2, 5, 345)])
 def test_k3_kernel_equals_plain(cuda, width, shape):
@@ -254,3 +358,33 @@ def test_beam_and_word_timestamp_path_runs_the_kernels(cuda):
     for segment in result["segments"]:
         for word in segment["words"]:
             assert word["start"] <= word["end"]
+
+
+def test_int8_path_runs_the_int8_kernels(cuda):
+    """A tiny model quantized "int8+logits" decodes with kv_cache_dtype
+    "int8" through K2's int8 instances (weights and K/V int8 on the card),
+    K5's code and the int8 logits; beam 5 too."""
+    import whisper_tpu_torch
+    from whisper_tpu_torch.decoding import DecodingOptions
+    from whisper_tpu_torch.models import KNOWN_MODELS
+    from whisper_tpu_torch.models.whisper import init_params
+    from whisper_tpu_torch.quantize import quantize_params
+
+    dims = KNOWN_MODELS["tiny"]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = quantize_params(init_params(dims, gen, torch.bfloat16, cuda), logits=True)
+    assert isinstance(params["decoder"]["blocks"]["fc1_w"], Int8Weight)
+    assert params["decoder"]["blocks"]["fc1_w"].q.dtype == torch.int8
+    model = whisper_tpu_torch.Whisper(dims, params)
+    mel = torch.from_numpy(np.random.RandomState(0).randn(80, 3000).astype(np.float32))
+    k2.fused_decoder_layers.launches_by_layout.clear()
+    k2.int8_logits.launches = k5.mlp_fused.launches = 0
+    for beam in (None, 5):
+        result = model.decode(mel, DecodingOptions(language="en", sample_len=8, beam_size=beam,
+                                                   kv_cache_dtype="int8"))
+        assert all(0 <= t < model.dims.n_vocab for t in result.tokens)
+    layout = k2.fused_decoder_layers.launches_by_layout
+    assert layout[(1, 1, "int8+kv_int8")] > 0 and layout[(1, 5, "int8+kv_int8")] > 0
+    assert set(layout) == {(1, 1, "int8+kv_int8"), (1, 5, "int8+kv_int8")}
+    assert k2.int8_logits.launches > 0
+    assert k5.mlp_fused.launches == dims.n_text_layer * sum(layout.values())

@@ -4,12 +4,16 @@ Float32 at tests/_reference.py's TINY_DIMS, the same weights in both
 packages (whisper_tpu's init_params written with save_npz and read with the
 port's load_npz), temperature 0: DecodingTask.run and transcribe must give
 the same tokens, segments and language.  Plus the port's own contracts: no
-JAX in its import graph, no silent move to the CPU, and NotImplementedError
-for what later slices bring (beam search, best-of and word timestamps have
-their own tests: tests/test_torch_beam.py, tests/test_torch_timing.py).
+JAX in its import graph and nothing read from whisper_tpu's tree, no
+silent move to the CPU, and NotImplementedError for what later slices bring
+(beam search, best-of and word timestamps have their own tests:
+tests/test_torch_beam.py, tests/test_torch_timing.py; int8 has
+tests/test_torch_quantize.py).
 """
 
+import ast
 import os
+import shutil
 import subprocess
 import sys
 
@@ -190,13 +194,6 @@ def test_sampling_is_reproducible_from_its_seed(models, mel):
     assert a.tokens == b.tokens and a.temperature == 0.8
 
 
-@pytest.mark.parametrize("kw", [dict(kv_cache_dtype="int8")], ids=["int8_kv"])
-def test_later_slices_raise_not_implemented(models, kw):
-    _, tmodel = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodingTask(tmodel, DecodingOptions(language="en", **kw))
-
-
 def test_draft_model_and_word_timestamps_raise(models, mel):
     """A draft model raises, from decode and from transcribe (which passes
     it on as whisper_tpu's does); word timestamps now run."""
@@ -210,7 +207,8 @@ def test_draft_model_and_word_timestamps_raise(models, mel):
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, whisper_tpu_torch, whisper_tpu_torch.ops.kernels.fused_step, chip_smoke, "
-        "chip_compare, "
+        "chip_compare, whisper_tpu_torch.quantize, whisper_tpu_torch.evaluation, "
+        "whisper_tpu_torch.ops.kernels.mlp, "
         "whisper_tpu_torch.timing, whisper_tpu_torch.__main__, whisper_tpu_torch.ops.kernels.median, "
         "whisper_tpu_torch.ops.kernels.dtw, whisper_tpu_torch.batch, whisper_tpu_torch.chunked, "
         "whisper_tpu_torch.align; "
@@ -222,6 +220,57 @@ def test_import_pulls_in_no_jax():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _port_sources():
+    pkg = os.path.join(REPO, "whisper_tpu_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_compare.py")]
+    for root, _, files in os.walk(pkg):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return paths
+
+
+def test_port_reads_no_path_under_whisper_tpu():
+    """No module of the port, nor chip_smoke.py or chip_compare.py, imports
+    whisper_tpu or builds a path into its tree: no "whisper_tpu" path
+    component, no "whisper_tpu/..." string in code.  Docstrings that cite a
+    counterpart, and chip_smoke's ``replaces=`` (which names the TPU kernel
+    a CUDA kernel replaces and is never opened), are not paths."""
+    bad = []
+    for path in _port_sources():
+        tree = ast.parse(open(path).read())
+        cited = {
+            id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)
+        }
+        cited |= {id(k.value) for k in ast.walk(tree) if isinstance(k, ast.keyword) and k.arg == "replaces"}
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = [a.name for a in node.names] if isinstance(node, ast.Import) else [node.module or ""]
+                bad += [(path, n) for n in names if n.split(".")[0] == "whisper_tpu"]
+            elif isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in cited:
+                if node.value == "whisper_tpu" or node.value.startswith("whisper_tpu/") or "/whisper_tpu/" in node.value:
+                    bad.append((os.path.relpath(path, REPO), node.value[:60]))
+    assert bad == []
+
+
+def test_port_runs_from_a_tree_without_whisper_tpu(tmp_path):
+    """The port's package alone, copied beside tests/jfk.flac, builds its
+    native library, decodes audio, makes a mel and tokenizes."""
+    shutil.copytree(os.path.join(REPO, "whisper_tpu_torch"), tmp_path / "whisper_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    code = (
+        "import sys, whisper_tpu_torch as w; from whisper_tpu_torch.tokenizer import get_tokenizer; "
+        "a = w.load_audio(sys.argv[1]); m = w.log_mel_spectrogram(a[:16000], 128); "
+        "print(len(a), tuple(m.shape), get_tokenizer(True).encode(' hello world'), "
+        "'whisper_tpu' in sys.modules)"
+    )
+    proc = subprocess.run([sys.executable, "-c", code, JFK], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["176000", "(128,", "100)", "[7751,", "1002]", "False"]
 
 
 def test_load_model_never_falls_back_to_the_cpu():

@@ -10,7 +10,10 @@ the command line (``python -m whisper_tpu_torch``, with ``--chunked``).  It
 runs ``load_model`` -> ``transcribe`` with greedy decoding, best-of
 sampling, beam search and word timestamps, and batches of files at per-row
 positions, with the encoder's self-attention (K1), the decode step (K2),
-the median filter (K3) and the DTW trace (K4) as hand-written CUDA kernels.
+the median filter (K3), the DTW trace (K4) and the decoder MLP (K5) as
+hand-written CUDA kernels; with int8 weights (``load_model(...,
+quantize="int8" | "int8+logits")``) and int8 cross K/V
+(``kv_cache_dtype="int8"``) too.
 """
 
 import hashlib
@@ -131,6 +134,7 @@ def load_model(
     download_root: Optional[str] = None,
     in_memory: bool = False,
     dtype: Optional[torch.dtype] = None,
+    quantize: Optional[str] = None,
 ) -> Whisper:
     """Load a Whisper ASR model onto a torch device.
 
@@ -143,13 +147,21 @@ def load_model(
     download_root : checkpoint cache dir (default ``$XDG_CACHE_HOME/whisper``)
     in_memory : preload checkpoint bytes into host memory
     dtype : parameter dtype; bfloat16 on CUDA and float32 on the CPU by default
+    quantize : "int8" for weight-only int8 (per output channel, see
+        :mod:`whisper_tpu_torch.quantize`), quantized on the model's device
+        after loading; "int8+logits" also projects the logits through an
+        int8 copy of the token embedding (argmax ties can flip); None keeps
+        the weights in ``dtype``
 
     Random weights at a model's published dimensions, without a checkpoint:
     ``Whisper(dims, init_params(dims, generator, dtype, device))`` with
     ``dims = models.KNOWN_MODELS[name]`` and ``models.whisper.init_params``.
     """
     from .models.load import load_npz, load_torch_checkpoint
+    from .quantize import quantize_params
 
+    if quantize not in (None, "int8", "int8+logits"):
+        raise ValueError(f"Unsupported quantize mode: {quantize!r}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -175,6 +187,8 @@ def load_model(
         params, dims = load_npz(checkpoint, dtype, device)
     else:
         params, dims = load_torch_checkpoint(checkpoint, dtype, device)
+    if quantize is not None:
+        params = quantize_params(params, logits=quantize == "int8+logits")
     model = Whisper(dims, params)
     if name in _ALIGNMENT_HEADS:
         model.set_alignment_heads(_ALIGNMENT_HEADS[name])

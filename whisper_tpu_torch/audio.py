@@ -1,7 +1,7 @@
 """Audio front-end: decode -> 16 kHz mono PCM -> log-Mel spectrogram.
 
-Counterpart of ``whisper_tpu/audio.py:27-310``.  Decoding uses the JAX
-package's native C++ WAV/FLAC decoder (built by path, see
+Counterpart of ``whisper_tpu/audio.py:27-310``.  Decoding uses the port's
+copy of the JAX package's native C++ WAV/FLAC decoder (see
 :mod:`whisper_tpu_torch.native`) with the ffmpeg CLI for other containers.
 The spectrogram is ``torch.stft`` on the tensor's own device; its numerics
 follow ``_log_mel_jax`` (periodic Hann window, reflect-padded centred

@@ -1,7 +1,8 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
 // Element types: the kernels are templated on the storage type T, float or
-// __nv_bfloat16, and compute in float.  to_f / from_f convert with
+// __nv_bfloat16 (int8_t for quantized weights and K/V), and compute in
+// float.  to_f / from_f convert with
 // round-to-nearest-even, the rounding torch and XLA use, so "round to the
 // compute dtype" in a kernel is from_f then to_f.
 #pragma once
@@ -9,10 +10,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 enum DType : int { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }  // int8 storage: exact
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);

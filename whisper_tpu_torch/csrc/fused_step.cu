@@ -1,8 +1,8 @@
 // K2: one decode step through all L decoder layers, for B rows of A audios,
-// each row at its own position.
+// each row at its own position; and K5, its MLP stage on its own.
 //
 // Replaces whisper_tpu/ops/kernels/fused_step_pallas.py:fused_decoder_layers
-// in its variants without a pending block, unquantized, and the XLA step it
+// in its variants without a pending block, unquantized and int8, and the XLA step it
 // leaves beam and best-of groups of several audios to
 // (models/whisper.decoder_step(..., n_group=G)): B rows with their own
 // self-KV caches and positions t[b] (a device int32 vector, or one host
@@ -71,6 +71,29 @@
 // normalised before they round) while 8x more SMs stream the cache.  One
 // persistent kernel over all layers and TMA weight streaming are later
 // work.
+//
+// int8 (whisper_tpu's quantize.py; int8 leaves of fused_step_pallas.py's
+// weight pack and of its cross K/V): the eight projections may be int8
+// (out, in) with f32 scales per output row, and the cross K/V int8 with f32
+// scales per (audio, head, channel); either, both or neither.  The int8
+// bytes are what leaves device memory: the CUDA-core GEMV takes 16 weights
+// per 16-byte load and converts them to f32, the tensor-core GEMV 8 per
+// 8-byte load converted to bf16 in registers (both exact for |q| <= 127),
+// and the epilogue is round(acc * s[r]), then the bias, GELU and residual
+// as before (models.whisper._linear's order).  Cross-attention on int8 K/V
+// folds D^-0.5 and the audio's K scales into the query (rounded once), takes
+// the keys unscaled, and scales the PV sum by the V scales before it rounds
+// (models.whisper._cross_step_attention's int8 branch).  The halved bytes
+// bound the step only where it is byte-bound (many rows; one row is bound by
+// its launches at this width).
+//
+// K5 (replaces whisper_tpu/ops/kernels/mlp_pallas.py:mlp_fused_pallas):
+// x + fc2(gelu(fc1(LayerNorm(x)))) for 1-128 rows, each weight read once
+// per row tile, int8 converted in the GEMV.  It is the host function that
+// queues K2's MLP stage (mlp_stage: the LayerNorm-prologue fc1 + GELU GEMV,
+// then the fc2 + residual GEMV), so one implementation serves both.  The
+// int8 logits projection is the same GEMV with an unrounded f32 epilogue
+// acc * s[v] (int8_logits).
 
 #include <cooperative_groups.h>
 
@@ -105,38 +128,104 @@ constexpr int TC_PAD = 8;
 constexpr float LN_EPS = 1e-5f;
 
 // Up to three weight segments of seg_rows output rows each: output row r
-// uses segment r / seg_rows (q|k|v share one launch).  A null bias is none.
-// Input row b of output segment s is written at out[s] + b * seg_rows.
-template <typename T>
+// uses segment r / seg_rows (q|k|v share one launch).  Weights of type WT
+// (T, or int8_t with f32 scales s[seg][row]; a null s is none).  A null
+// bias is none.  Input row b of output segment s is written at out[s] + b *
+// seg_rows, as T (or, for the unrounded f32 epilogue, as float).
+template <typename T, typename WT>
 struct Segments {
-  const T* w[3];
+  const WT* w[3];
+  const float* s[3];
   const T* b[3];
-  T* out[3];
+  void* out[3];
 };
+
+// a[s], s in [0, 3), by selects: the array stays in the kernel's parameter
+// bank, where a dynamic index would copy the segments to local memory
+template <typename P>
+__device__ __forceinline__ P seg_at(P const (&a)[3], int s) {
+  return s == 0 ? a[0] : (s == 1 ? a[1] : a[2]);
+}
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
 }
 
+// The GEMVs' epilogue for input row b and output row rr of segment s,
+// rounding as decoder_step does: y = round(acc * scale) (int8 weights) or
+// round(acc); with a bias y = round(y + b); with GELU y = round(gelu(y));
+// with RESID the output holds the residual and y = round(out + y) is
+// written back in place.  F32OUT: acc * scale stored as float, unrounded
+// (the int8 logits).
+template <typename T, typename WT, bool GELU, bool RESID, bool F32OUT>
+__device__ __forceinline__ void epilogue(Segments<T, WT> seg, int s, int rr, size_t b,
+                                         int seg_rows, float acc) {
+  const float* sc = seg_at(seg.s, s);
+  if (sc != nullptr) acc *= sc[rr];
+  if constexpr (F32OUT) {
+    static_cast<float*>(seg_at(seg.out, s))[b * seg_rows + rr] = acc;
+  } else {
+    float y = round_to<T>(acc);
+    const T* bias = seg_at(seg.b, s);
+    if (bias != nullptr) y = round_to<T>(y + to_f(bias[rr]));
+    if (GELU) y = round_to<T>(gelu_erf(y));
+    T* out = static_cast<T*>(seg_at(seg.out, s)) + b * seg_rows + rr;
+    if (RESID) y = round_to<T>(to_f(*out) + y);
+    *out = from_f<T>(y);
+  }
+}
+
+// The int8 value in byte k (0-3) of a word as a float, exactly, without
+// the conversion unit (a quarter of the FMA rate): `biased` is the word ^
+// 0x80808080, its bytes x + 128 in [0, 255]; one byte permute puts byte k
+// under the exponent of 2^23, and subtracting 2^23 + 128 leaves x.
+__device__ __forceinline__ float i8_at(uint32_t biased, int k) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 | k)) - 8388736.f;
+}
+
 // acc[b] += W[r, i : i + V] . h[b, i : i + V] for the NB (>= nb) rows held
-// in shared memory at hs + b * chunk
-template <typename T, int NB>
-__device__ __forceinline__ void dot_rows(const T* __restrict__ w, const float* hs, int chunk,
+// in shared memory at hs + b * chunk; one 16-byte load of weights (V = 4
+// f32, 8 bf16 or 16 int8 values)
+template <typename WT, int NB>
+__device__ __forceinline__ void dot_rows(const WT* __restrict__ w, const float* hs, int chunk,
                                          int nb, int i, float* acc) {
-  constexpr int V = Vec16<T>::N;
-  float wv[V];
-  load16(w + i, wv);
+  if constexpr (std::is_same<WT, int8_t>::value) {
+    // converted four at a time, as each float4 of inputs is consumed, so
+    // that the 16 weights do not take 16 registers
+    const uint4 u = *reinterpret_cast<const uint4*>(w + i);
+    const uint32_t words[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u, u.z ^ 0x80808080u,
+                               u.w ^ 0x80808080u};
 #pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    if (b < nb) {
-      const float4* h4 = reinterpret_cast<const float4*>(hs + b * chunk + i);
+    for (int u4 = 0; u4 < 4; ++u4) {
+      const float w0 = i8_at(words[u4], 0), w1 = i8_at(words[u4], 1);
+      const float w2 = i8_at(words[u4], 2), w3 = i8_at(words[u4], 3);
 #pragma unroll
-      for (int u4 = 0; u4 < V / 4; ++u4) {
-        const float4 h = h4[u4];
-        acc[b] = fmaf(wv[4 * u4 + 0], h.x, acc[b]);
-        acc[b] = fmaf(wv[4 * u4 + 1], h.y, acc[b]);
-        acc[b] = fmaf(wv[4 * u4 + 2], h.z, acc[b]);
-        acc[b] = fmaf(wv[4 * u4 + 3], h.w, acc[b]);
+      for (int b = 0; b < NB; ++b) {
+        if (b < nb) {
+          const float4 h = reinterpret_cast<const float4*>(hs + b * chunk + i)[u4];
+          acc[b] = fmaf(w0, h.x, acc[b]);
+          acc[b] = fmaf(w1, h.y, acc[b]);
+          acc[b] = fmaf(w2, h.z, acc[b]);
+          acc[b] = fmaf(w3, h.w, acc[b]);
+        }
+      }
+    }
+  } else {
+    constexpr int V = Vec16<WT>::N;
+    float wv[V];
+    load16(w + i, wv);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (b < nb) {
+        const float4* h4 = reinterpret_cast<const float4*>(hs + b * chunk + i);
+#pragma unroll
+        for (int u4 = 0; u4 < V / 4; ++u4) {
+          const float4 h = h4[u4];
+          acc[b] = fmaf(wv[4 * u4 + 0], h.x, acc[b]);
+          acc[b] = fmaf(wv[4 * u4 + 1], h.y, acc[b]);
+          acc[b] = fmaf(wv[4 * u4 + 2], h.z, acc[b]);
+          acc[b] = fmaf(wv[4 * u4 + 3], h.w, acc[b]);
+        }
       }
     }
   }
@@ -144,17 +233,14 @@ __device__ __forceinline__ void dot_rows(const T* __restrict__ w, const float* h
 
 // y[b, r] = epilogue(W[r, :] . h[b, :]) for r < rows and the rows b of this
 // block's tile: blockIdx.y * TILE_ROWS + [0, nb), nb <= NB, of the n_rows
-// rows; h = x or LayerNorm(x) rowwise.  Epilogue, rounding as decoder_step does:
-// y = round(acc); with a bias y = round(y + b); with GELU
-// y = round(gelu(y)); with RESID the output holds the residual and
-// y = round(out + y) is written back in place.
+// rows; h = x or LayerNorm(x) rowwise.
 // Occupancy: one row (NB = 1) keeps to 32 registers, so that eight blocks
 // fit on an SM and fc1's 640 blocks run in one wave; more rows get up to
 // 64 (four blocks, as their 48 KB of input rows allow anyway) or 128.
-template <typename T, int NB, bool LN, bool GELU, bool RESID>
+template <typename T, typename WT, int NB, bool LN, bool GELU, bool RESID, bool F32OUT>
 __global__ void __launch_bounds__(THREADS, NB == 1 ? 8 : (NB <= 5 ? 4 : 2))
 gemv_kernel(const T* __restrict__ x, int n_rows, int n_in, int chunk, const T* __restrict__ ln_g,
-            const T* __restrict__ ln_b, Segments<T> seg, int seg_rows, int rows) {
+            const T* __restrict__ ln_b, Segments<T, WT> seg, int seg_rows, int rows) {
   // this block's row tile; only the 16-row instance has more than one, so
   // the others need no tile arithmetic (one row then fits its 32 registers
   // without spilling)
@@ -188,13 +274,13 @@ gemv_kernel(const T* __restrict__ x, int n_rows, int n_in, int chunk, const T* _
     }
   }
 
-  constexpr int V = Vec16<T>::N;
+  constexpr int V = Vec16<WT>::N;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.x * ROWS_PER_BLOCK + warp;
   const bool active = r < rows;
   const int s = active ? r / seg_rows : 0;
   const int rr = r - s * seg_rows;
-  const T* w = active ? seg.w[s] + (size_t)rr * n_in : nullptr;
+  const WT* w = active ? seg_at(seg.w, s) + (size_t)rr * n_in : nullptr;
   float acc[NB];
 #pragma unroll
   for (int b = 0; b < NB; ++b) acc[b] = 0.f;
@@ -233,10 +319,10 @@ gemv_kernel(const T* __restrict__ x, int n_rows, int n_in, int chunk, const T* _
       // unrolled so that several 16-byte weight loads are in flight
       if constexpr (NB == 1) {
 #pragma unroll 4
-        for (int i = lane * V; i < len; i += 32 * V) dot_rows<T, NB>(w + c0, hs, chunk, nb, i, acc);
+        for (int i = lane * V; i < len; i += 32 * V) dot_rows<WT, NB>(w + c0, hs, chunk, nb, i, acc);
       } else {
 #pragma unroll 2
-        for (int i = lane * V; i < len; i += 32 * V) dot_rows<T, NB>(w + c0, hs, chunk, nb, i, acc);
+        for (int i = lane * V; i < len; i += 32 * V) dot_rows<WT, NB>(w + c0, hs, chunk, nb, i, acc);
       }
     }
   }
@@ -250,14 +336,8 @@ gemv_kernel(const T* __restrict__ x, int n_rows, int n_in, int chunk, const T* _
         if (lane == b) mine = sum;
       }
     }
-    if (lane < nb) {
-      float y = round_to<T>(mine);
-      if (seg.b[s] != nullptr) y = round_to<T>(y + to_f(seg.b[s][rr]));
-      if (GELU) y = round_to<T>(gelu_erf(y));
-      T* out = seg.out[s] + (size_t)(b0 + lane) * seg_rows + rr;
-      if (RESID) y = round_to<T>(to_f(*out) + y);
-      *out = from_f<T>(y);
-    }
+    if (lane < nb)
+      epilogue<T, WT, GELU, RESID, F32OUT>(seg, s, rr, (size_t)(b0 + lane), seg_rows, mine);
   }
 }
 
@@ -268,6 +348,21 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, const uin
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two int8 values (bytes lo and lo + 1 of a biased word, see i8_at) as a
+// bf16 pair: an integer of at most 8 bits is exact in f32 with its low 16
+// bits zero, so its bf16 is the top half of its f32
+__device__ __forceinline__ uint32_t bf16x2_of_i8(uint32_t biased, int lo) {
+  return __byte_perm(__float_as_uint(i8_at(biased, lo)), __float_as_uint(i8_at(biased, lo + 1)),
+                     0x7632);
+}
+
+// eight int8 values as eight bf16, in order (element 0 in the low half of .x)
+__device__ __forceinline__ uint4 bf16x8_of_i8x8(uint2 u) {
+  const uint32_t x = u.x ^ 0x80808080u, y = u.y ^ 0x80808080u;
+  return make_uint4(bf16x2_of_i8(x, 0), bf16x2_of_i8(x, 2), bf16x2_of_i8(y, 0),
+                    bf16x2_of_i8(y, 2));
 }
 
 // mean and 1 / std of the n values at xb, by one warp: two passes, as
@@ -298,11 +393,16 @@ __device__ __forceinline__ void warp_ln_stats(const T* xb, int n, float& mean, f
 // 16-byte copies, and each warp takes the LayerNorm statistics of its own
 // rows (no block-wide reduction).  Grid: (row tiles, output rows / (8 NT)),
 // the tiles of one weight block adjacent, so the later tiles read it from L2.
-template <int NT, bool LN, bool GELU, bool RESID>
+// int8 weights: a lane loads its 8 weights of a row with one 8-byte load and
+// converts them to bf16 in registers (exact), so the same mma runs.  One n
+// tile (NT = 1) also takes a segment whose rows are not a multiple of 8 (the
+// logits' vocabulary): the last block's rows past it read the segment's last
+// row and write nothing.
+template <typename WT, int NT, bool LN, bool GELU, bool RESID, bool F32OUT>
 __global__ void __launch_bounds__(THREADS, 2)
 gemv_tc_kernel(const __nv_bfloat16* __restrict__ x, int n_rows, int n_in, int chunk,
                const __nv_bfloat16* __restrict__ ln_g, const __nv_bfloat16* __restrict__ ln_b,
-               Segments<__nv_bfloat16> seg, int seg_rows) {
+               Segments<__nv_bfloat16, WT> seg, int seg_rows) {
   using T = __nv_bfloat16;
   constexpr int OUT = 8 * NT;  // output rows per block
   const int b0 = blockIdx.x * TILE_ROWS;
@@ -330,7 +430,8 @@ gemv_tc_kernel(const __nv_bfloat16* __restrict__ x, int n_rows, int n_in, int ch
   const int r0 = blockIdx.y * OUT;
   const int s = r0 / seg_rows;
   const int rr0 = r0 - s * seg_rows;
-  const T* w = seg.w[s] + (size_t)(rr0 + g) * n_in + tig * 8;  // n tile j: + 8 j rows
+  // n tile j: + 8 j rows (NT = 2 only where seg_rows is a multiple of 16)
+  const WT* w = seg_at(seg.w, s) + (size_t)min(rr0 + g, seg_rows - 1) * n_in + tig * 8;
   float acc[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -371,8 +472,12 @@ gemv_tc_kernel(const __nv_bfloat16* __restrict__ x, int n_rows, int n_in, int ch
     for (int k = warp * 32; k < len; k += WARPS * 32) {
       uint4 wv[NT];
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-        wv[j] = *reinterpret_cast<const uint4*>(w + (size_t)j * 8 * n_in + c0 + k);
+      for (int j = 0; j < NT; ++j) {
+        if constexpr (std::is_same<WT, int8_t>::value)
+          wv[j] = bf16x8_of_i8x8(*reinterpret_cast<const uint2*>(w + (size_t)j * 8 * n_in + c0 + k));
+        else
+          wv[j] = *reinterpret_cast<const uint4*>(w + (size_t)j * 8 * n_in + c0 + k);
+      }
       const uint4 lo = *reinterpret_cast<const uint4*>(h_lo + k);
       const uint4 hi = *reinterpret_cast<const uint4*>(h_hi + k);
       const uint32_t a0[4] = {lo.x, hi.x, lo.y, hi.y}, a1[4] = {lo.z, hi.z, lo.w, hi.w};
@@ -398,16 +503,11 @@ gemv_tc_kernel(const __nv_bfloat16* __restrict__ x, int n_rows, int n_in, int ch
   __syncthreads();
   if (threadIdx.x < TILE_ROWS * OUT) {
     const int m = threadIdx.x / OUT, n = threadIdx.x - m * OUT;
-    if (m < nb) {
+    if (m < nb && rr0 + n < seg_rows) {
       const float* all = reinterpret_cast<const float*>(hs4);
       float sum = 0.f;
       for (int v = 0; v < WARPS; ++v) sum += all[(v * TILE_ROWS + m) * OUT + n];
-      float y = round_to<T>(sum);
-      if (seg.b[s] != nullptr) y = round_to<T>(y + to_f(seg.b[s][rr0 + n]));
-      if (GELU) y = round_to<T>(gelu_erf(y));
-      T* out = seg.out[s] + (size_t)(b0 + m) * seg_rows + rr0 + n;
-      if (RESID) y = round_to<T>(to_f(*out) + y);
-      *out = from_f<T>(y);
+      epilogue<T, WT, GELU, RESID, F32OUT>(seg, s, rr0 + n, (size_t)(b0 + m), seg_rows, sum);
     }
   }
 }
@@ -449,13 +549,19 @@ __device__ __forceinline__ void block_reduce_n(float* v, float* red) {
 // shared memory (NQ x chunk floats), and the cluster combines maxima, sums
 // and partial outputs over distributed shared memory in rank order
 // (deterministic).
-template <typename T, int NQ>
+// int8 K/V (KT = int8_t, cross-attention): the scales of the group's audio,
+// k_scale/v_scale + (audio * n_head + h) * HD, as the plain version's int8
+// branch: the query is round(q * scale * k_scale[d]) with scale = D^-0.5,
+// the keys enter unscaled, and the output is round(PV * v_scale[d]).
+template <typename T, typename KT, int NQ>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ k_new,
+decode_attention_kernel(const T* __restrict__ q, const KT* __restrict__ k,
+                        const KT* __restrict__ v, const T* __restrict__ k_new,
                         const T* __restrict__ v_new, T* __restrict__ out, int n_head, int C,
                         size_t kv_stride, int rows_per_kv, const int* __restrict__ lens,
-                        int n_max, int t_cap, float scale) {
+                        int n_max, int t_cap, float scale, const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale) {
+  constexpr bool Q8 = std::is_same<KT, int8_t>::value;
   extern __shared__ float4 sc4[];
   float* sc = reinterpret_cast<float*>(sc4);  // (NQ, chunk)
   __shared__ float qs[NQ][HD];
@@ -471,12 +577,15 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n = lens != nullptr ? min(max(lens[row0], 0), n_max) : n_max;
   const int chunk = (n + CLUSTER - 1) / CLUSTER;
   const int t0 = rank * chunk, t1 = min(n, t0 + chunk);
-  const size_t kv = (row0 / rows_per_kv) * kv_stride + (size_t)h * HD * t_cap;
-  const T* kh = k + kv;
-  const T* vh = v + kv;
+  const size_t audio = row0 / rows_per_kv;
+  const size_t kv = audio * kv_stride + (size_t)h * HD * t_cap;
+  const KT* kh = k + kv;
+  const KT* vh = v + kv;
+  const float* ks = Q8 ? k_scale + (audio * n_head + h) * HD : nullptr;
   for (int i = threadIdx.x; i < NQ * HD; i += THREADS) {
     const int j = i / HD, d = i - j * HD;
-    qs[j][d] = round_to<T>(to_f(q[(row0 + j) * C + h * HD + d]) * scale);
+    const float qf = to_f(q[(row0 + j) * C + h * HD + d]) * scale;
+    qs[j][d] = round_to<T>(Q8 ? qf * ks[d] : qf);
   }
   __syncthreads();
 
@@ -489,7 +598,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NQ; ++j) s[j] = 0.f;
 #pragma unroll 16
     for (int d = 0; d < HD; ++d) {
-      const float kv = round_to<T>(to_f(kh[(size_t)d * t_cap + t]) * scale);
+      const float kv = Q8 ? to_f(kh[(size_t)d * t_cap + t])
+                          : round_to<T>(to_f(kh[(size_t)d * t_cap + t]) * scale);
 #pragma unroll
       for (int j = 0; j < NQ; ++j) s[j] = fmaf(qs[j][d], kv, s[j]);
     }
@@ -588,6 +698,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float o = 0.f;
       for (int rk = 0; rk < CLUSTER; ++rk) o += *cluster.map_shared_rank(&part[j][d], rk);
       if (has_new) o = fmaf(round_to<T>(p_new / denom[0]), to_f(vn[d]), o);
+      if (Q8) o *= v_scale[(audio * n_head + h) * HD + d];
       out[(row0 + j) * C + h * HD + d] = from_f<T>(o);
     }
   }
@@ -595,78 +706,90 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // weight table order: stacked (L, ...) tensors, torch (out, in) layout;
-// the same order as whisper_tpu_torch/ops/kernels/fused_step.py WEIGHTS
+// the same order as whisper_tpu_torch/ops/kernels/fused_step.py WEIGHTS.
+// With int8 weights the eight projections are int8 and their f32 scales,
+// (L, out) each, come in a second table in the order of PROJ.
 enum W {
   ATTN_LN_G, ATTN_LN_B, Q_W, Q_B, K_W, V_W, V_B, O_W, O_B,
   XATTN_LN_G, XATTN_LN_B, XQ_W, XQ_B, XO_W, XO_B,
   MLP_LN_G, MLP_LN_B, FC1_W, FC1_B, FC2_W, FC2_B, N_WEIGHTS
 };
+enum PROJ { P_Q, P_K, P_V, P_O, P_XQ, P_XO, P_FC1, P_FC2, N_PROJ };
 
-template <typename T, int NB, bool LN, bool GELU, bool RESID>
-void gemv_launch(const T* x, int n_rows, int n_in, const T* g, const T* b, Segments<T> seg,
-                 int seg_rows, int rows, cudaStream_t stream) {
+template <typename T, typename WT, int NB, bool LN, bool GELU, bool RESID, bool F32OUT>
+void gemv_launch(const T* x, int n_rows, int n_in, const T* g, const T* b,
+                 Segments<T, WT> seg, int seg_rows, int rows, cudaStream_t stream) {
   // a tile's input rows in chunks of at most SMEM_FLOATS floats in all
   const int nb = min(n_rows, TILE_ROWS);
   const int whole = (n_in + CHUNK_ALIGN - 1) / CHUNK_ALIGN * CHUNK_ALIGN;
   const int chunk = min(whole, SMEM_FLOATS / nb / CHUNK_ALIGN * CHUNK_ALIGN);
   const dim3 grid((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK,
                   (n_rows + TILE_ROWS - 1) / TILE_ROWS);
-  gemv_kernel<T, NB, LN, GELU, RESID><<<grid, THREADS, (size_t)nb * chunk * sizeof(float),
-                                        stream>>>(x, n_rows, n_in, chunk, g, b, seg, seg_rows,
-                                                  rows);
+  gemv_kernel<T, WT, NB, LN, GELU, RESID, F32OUT>
+      <<<grid, THREADS, (size_t)nb * chunk * sizeof(float), stream>>>(
+          x, n_rows, n_in, chunk, g, b, seg, seg_rows, rows);
 }
 
 // the tensor-core GEMV over row tiles of 16: two n tiles per block where
 // that still leaves 200 or more blocks (q|k|v and fc1 at C = 1280: 240 and
 // 320), else one (the C-row projections: 160 blocks at C = 1280)
-template <bool LN, bool GELU, bool RESID>
+template <typename WT, bool LN, bool GELU, bool RESID, bool F32OUT>
 void gemv_tc_launch(const __nv_bfloat16* x, int n_rows, int n_in, const __nv_bfloat16* g,
-                    const __nv_bfloat16* b, Segments<__nv_bfloat16> seg, int seg_rows, int rows,
-                    cudaStream_t stream) {
+                    const __nv_bfloat16* b, Segments<__nv_bfloat16, WT> seg, int seg_rows,
+                    int rows, cudaStream_t stream) {
   const int chunk = min((n_in + CHUNK_ALIGN - 1) / CHUNK_ALIGN * CHUNK_ALIGN, TC_CHUNK);
   const size_t smem = (size_t)TILE_ROWS * (chunk + TC_PAD) * sizeof(__nv_bfloat16);
   const int tiles = (n_rows + TILE_ROWS - 1) / TILE_ROWS;
   if (seg_rows % 16 == 0 && rows / 16 >= 200)
-    gemv_tc_kernel<2, LN, GELU, RESID><<<dim3(tiles, rows / 16), THREADS, smem, stream>>>(
-        x, n_rows, n_in, chunk, g, b, seg, seg_rows);
+    gemv_tc_kernel<WT, 2, LN, GELU, RESID, F32OUT>
+        <<<dim3(tiles, rows / 16), THREADS, smem, stream>>>(x, n_rows, n_in, chunk, g, b, seg,
+                                                             seg_rows);
   else
-    gemv_tc_kernel<1, LN, GELU, RESID><<<dim3(tiles, rows / 8), THREADS, smem, stream>>>(
-        x, n_rows, n_in, chunk, g, b, seg, seg_rows);
+    gemv_tc_kernel<WT, 1, LN, GELU, RESID, F32OUT>
+        <<<dim3(tiles, (rows + 7) / 8), THREADS, smem, stream>>>(x, n_rows, n_in, chunk, g, b,
+                                                                 seg, seg_rows);
 }
 
 // the kernel for nb rows: in bf16 the CUDA-core instance for one row and
 // the tensor-core GEMV above it; in f32 the CUDA-core instance for the
 // smallest of 1, 2, 4, 5, 8, 16 >= nb (more than 16 rows as row tiles of 16)
-template <typename T, bool LN, bool GELU, bool RESID>
-void gemv(const T* x, int nb, int n_in, const T* g, const T* b, Segments<T> seg, int seg_rows,
-          int rows, cudaStream_t stream) {
+template <typename T, typename WT, bool LN, bool GELU, bool RESID, bool F32OUT = false>
+void gemv(const T* x, int nb, int n_in, const T* g, const T* b, Segments<T, WT> seg,
+          int seg_rows, int rows, cudaStream_t stream) {
+#define GEMV(NB) \
+  gemv_launch<T, WT, NB, LN, GELU, RESID, F32OUT>(x, nb, n_in, g, b, seg, seg_rows, rows, stream)
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (nb <= 1) gemv_launch<T, 1, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
-    else gemv_tc_launch<LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+    if (nb <= 1) GEMV(1);
+    else gemv_tc_launch<WT, LN, GELU, RESID, F32OUT>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
   } else {
-    if (nb <= 1) gemv_launch<T, 1, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
-    else if (nb <= 2) gemv_launch<T, 2, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
-    else if (nb <= 4) gemv_launch<T, 4, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
-    else if (nb <= 5) gemv_launch<T, 5, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
-    else if (nb <= 8) gemv_launch<T, 8, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
-    else gemv_launch<T, 16, LN, GELU, RESID>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+    if (nb <= 1) GEMV(1);
+    else if (nb <= 2) GEMV(2);
+    else if (nb <= 4) GEMV(4);
+    else if (nb <= 5) GEMV(5);
+    else if (nb <= 8) GEMV(8);
+    else GEMV(16);
   }
+#undef GEMV
 }
 
 // cross-attention launch for A audios of G rows each: the kernel instance
 // for the largest NQ <= 8 that divides G, over A * G / NQ query groups;
-// the G / NQ groups of an audio read its K/V (one audio's stride apart)
-template <typename T>
+// the G / NQ groups of an audio read its K/V (one audio's stride apart).
+// int8 K/V carry their scales, (A, H, D) each.
+template <typename T, typename KT>
 void cross_attention(int G, int A, size_t stride, int n_head, int C, int ta,
-                     cudaStream_t stream, const T* q, const T* k, const T* v, T* out) {
-  const float scale = (float)pow((double)HD, -0.25);
+                     cudaStream_t stream, const T* q, const KT* k, const KT* v,
+                     const float* k_scale, const float* v_scale, T* out) {
+  constexpr bool Q8 = std::is_same<KT, int8_t>::value;
+  const float scale = (float)pow((double)HD, Q8 ? -0.5 : -0.25);
   int per = 8;
   while (G % per) --per;
   const size_t smem = (size_t)per * ((ta + CLUSTER - 1) / CLUSTER) * sizeof(float);
   const int blocks = A * (G / per) * n_head * CLUSTER;
 #define CROSS(NQ)                                                                              \
-  decode_attention_kernel<T, NQ><<<blocks, THREADS, smem, stream>>>(                           \
-      q, k, v, nullptr, nullptr, out, n_head, C, stride, G, nullptr, ta, ta, scale)
+  decode_attention_kernel<T, KT, NQ><<<blocks, THREADS, smem, stream>>>(                       \
+      q, k, v, nullptr, nullptr, out, n_head, C, stride, G, nullptr, ta, ta, scale, k_scale,  \
+      v_scale)
   switch (per) {
     case 1: CROSS(1); break;
     case 2: CROSS(2); break;
@@ -680,20 +803,45 @@ void cross_attention(int G, int A, size_t stride, int n_head, int C, int ta,
 #undef CROSS
 }
 
-template <typename T>
-int run(int L, int B, int A, int C, int H, int t_cap, int t, int ta, const int* positions,
-        const void* x_, void* out_, void* k_new_, void* v_new_, const void* self_k_,
-        const void* self_v_, const void* cross_k_, const void* cross_v_,
-        const void* const* table, void* scratch_, cudaStream_t stream) {
-  const T* x = static_cast<const T*>(x_);
-  T* out = static_cast<T*>(out_);
-  T* k_new = static_cast<T*>(k_new_);
-  T* v_new = static_cast<T*>(v_new_);
-  const T* self_k = static_cast<const T*>(self_k_);
-  const T* self_v = static_cast<const T*>(self_v_);
-  const T* cross_k = static_cast<const T*>(cross_k_);
-  const T* cross_v = static_cast<const T*>(cross_v_);
-  T* q = static_cast<T*>(scratch_);      // (B, C): q (self, then cross)
+// K5, and K2's MLP stage: x (B, C) <- x + fc2(gelu(fc1(LayerNorm(x)))), in
+// place, through ff (B, F) of scratch; weights (F, C) and (C, F) of type WT
+// with scales s1 (F) and s2 (C) when int8 (else null), biases may be null
+template <typename T, typename WT>
+void mlp_stage(T* x, T* ff, int B, int C, int F, const T* ln_g, const T* ln_b, const WT* w1,
+               const float* s1, const T* b1, const WT* w2, const float* s2, const T* b2,
+               cudaStream_t stream) {
+  Segments<T, WT> s_fc1 = {{w1}, {s1}, {b1}, {ff}};
+  gemv<T, WT, true, true, false>(x, B, C, ln_g, ln_b, s_fc1, F, F, stream);
+  Segments<T, WT> s_fc2 = {{w2}, {s2}, {b2}, {x}};
+  gemv<T, WT, false, false, true>(ff, B, F, nullptr, nullptr, s_fc2, C, C, stream);
+}
+
+// one step's arguments, as fused_decoder_layers takes them
+struct Step {
+  int L, B, A, C, H, t_cap, t, ta;
+  const int* positions;
+  const void *x, *self_k, *self_v, *cross_k, *cross_v;
+  const float *cross_k_scale, *cross_v_scale;  // (L, A, H, D) each, int8 K/V
+  void *out, *k_new, *v_new, *scratch;
+  const void* const* table;     // N_WEIGHTS pointers
+  const float* const* scales;   // N_PROJ pointers, int8 weights
+};
+
+// weights WT (T or int8_t), cross K/V KT (T or int8_t)
+template <typename T, typename WT, typename KT>
+int run(const Step& a, cudaStream_t stream) {
+  const int L = a.L, B = a.B, A = a.A, C = a.C, H = a.H, t_cap = a.t_cap, ta = a.ta;
+  constexpr bool W8 = std::is_same<WT, int8_t>::value;
+  constexpr bool KV8 = std::is_same<KT, int8_t>::value;
+  const T* x = static_cast<const T*>(a.x);
+  T* out = static_cast<T*>(a.out);
+  T* k_new = static_cast<T*>(a.k_new);
+  T* v_new = static_cast<T*>(a.v_new);
+  const T* self_k = static_cast<const T*>(a.self_k);
+  const T* self_v = static_cast<const T*>(a.self_v);
+  const KT* cross_k = static_cast<const KT*>(a.cross_k);
+  const KT* cross_v = static_cast<const KT*>(a.cross_v);
+  T* q = static_cast<T*>(a.scratch);     // (B, C): q (self, then cross)
   T* attn = q + (size_t)B * C;           // (B, C): attention output, merged heads
   T* ff = attn + (size_t)B * C;          // (B, 4C): fc1 + GELU output
 
@@ -703,64 +851,146 @@ int run(int L, int B, int A, int C, int H, int t_cap, int t, int ta, const int* 
   // self-attention: every row at t, or row b at positions[b] clamped to
   // [0, t_cap]; each block of a cluster holds its chunk of the scores,
   // sized for the whole cache (at most 228 bytes at t_cap = 448)
-  const int n_max = positions != nullptr ? t_cap : t;
+  const int n_max = a.positions != nullptr ? t_cap : a.t;
   const size_t self_smem = (size_t)((t_cap + CLUSTER - 1) / CLUSTER + 1) * sizeof(float);
 
   cudaError_t e = cudaMemcpyAsync(out, x, (size_t)B * C * sizeof(T), cudaMemcpyDeviceToDevice, stream);
   if (e != cudaSuccess) return (int)e;
   for (int l = 0; l < L; ++l) {
-    auto p = [&](W i, size_t per_layer) {
-      return static_cast<const T*>(table[i]) + l * per_layer;
+    auto p = [&](W i, size_t per_layer) {  // LayerNorm and bias entries
+      return static_cast<const T*>(a.table[i]) + l * per_layer;
+    };
+    auto w = [&](W i, size_t per_layer) {  // projection weights
+      return static_cast<const WT*>(a.table[i]) + l * per_layer;
+    };
+    auto sc = [&](PROJ j, size_t per_layer) -> const float* {  // their scales
+      return W8 ? a.scales[j] + l * per_layer : nullptr;
     };
     T* kn = k_new + (size_t)l * B * C;
     T* vn = v_new + (size_t)l * B * C;
 
-    Segments<T> s_qkv = {{p(Q_W, cc), p(K_W, cc), p(V_W, cc)},
-                         {p(Q_B, C), nullptr, p(V_B, C)},
-                         {q, kn, vn}};
-    gemv<T, true, false, false>(out, B, C, p(ATTN_LN_G, C), p(ATTN_LN_B, C), s_qkv, C, 3 * C, stream);
-    decode_attention_kernel<T, 1><<<B * H * CLUSTER, THREADS, self_smem, stream>>>(
+    Segments<T, WT> s_qkv = {{w(Q_W, cc), w(K_W, cc), w(V_W, cc)},
+                             {sc(P_Q, C), sc(P_K, C), sc(P_V, C)},
+                             {p(Q_B, C), nullptr, p(V_B, C)},
+                             {q, kn, vn}};
+    gemv<T, WT, true, false, false>(out, B, C, p(ATTN_LN_G, C), p(ATTN_LN_B, C), s_qkv, C, 3 * C,
+                                    stream);
+    decode_attention_kernel<T, T, 1><<<B * H * CLUSTER, THREADS, self_smem, stream>>>(
         q, self_k + l * B * self_row, self_v + l * B * self_row, kn, vn, attn, H, C, self_row, 1,
-        positions, n_max, t_cap, scale);
-    Segments<T> s_o = {{p(O_W, cc)}, {p(O_B, C)}, {out}};
-    gemv<T, false, false, true>(attn, B, C, nullptr, nullptr, s_o, C, C, stream);
+        a.positions, n_max, t_cap, scale, nullptr, nullptr);
+    Segments<T, WT> s_o = {{w(O_W, cc)}, {sc(P_O, C)}, {p(O_B, C)}, {out}};
+    gemv<T, WT, false, false, true>(attn, B, C, nullptr, nullptr, s_o, C, C, stream);
 
-    Segments<T> s_xq = {{p(XQ_W, cc)}, {p(XQ_B, C)}, {q}};
-    gemv<T, true, false, false>(out, B, C, p(XATTN_LN_G, C), p(XATTN_LN_B, C), s_xq, C, C, stream);
-    cross_attention<T>(B / A, A, cross_row, H, C, ta, stream, q, cross_k + l * A * cross_row,
-                       cross_v + l * A * cross_row, attn);
-    Segments<T> s_xo = {{p(XO_W, cc)}, {p(XO_B, C)}, {out}};
-    gemv<T, false, false, true>(attn, B, C, nullptr, nullptr, s_xo, C, C, stream);
+    Segments<T, WT> s_xq = {{w(XQ_W, cc)}, {sc(P_XQ, C)}, {p(XQ_B, C)}, {q}};
+    gemv<T, WT, true, false, false>(out, B, C, p(XATTN_LN_G, C), p(XATTN_LN_B, C), s_xq, C, C,
+                                    stream);
+    const size_t kv_scales = (size_t)l * A * C;  // (L, A, H, D) scales
+    cross_attention<T, KT>(B / A, A, cross_row, H, C, ta, stream, q, cross_k + l * A * cross_row,
+                           cross_v + l * A * cross_row,
+                           KV8 ? a.cross_k_scale + kv_scales : nullptr,
+                           KV8 ? a.cross_v_scale + kv_scales : nullptr, attn);
+    Segments<T, WT> s_xo = {{w(XO_W, cc)}, {sc(P_XO, C)}, {p(XO_B, C)}, {out}};
+    gemv<T, WT, false, false, true>(attn, B, C, nullptr, nullptr, s_xo, C, C, stream);
 
-    Segments<T> s_fc1 = {{p(FC1_W, 4 * cc)}, {p(FC1_B, 4 * C)}, {ff}};
-    gemv<T, true, true, false>(out, B, C, p(MLP_LN_G, C), p(MLP_LN_B, C), s_fc1, 4 * C, 4 * C, stream);
-    Segments<T> s_fc2 = {{p(FC2_W, 4 * cc)}, {p(FC2_B, C)}, {out}};
-    gemv<T, false, false, true>(ff, B, 4 * C, nullptr, nullptr, s_fc2, C, C, stream);
+    mlp_stage<T, WT>(out, ff, B, C, 4 * C, p(MLP_LN_G, C), p(MLP_LN_B, C), w(FC1_W, 4 * cc),
+                     sc(P_FC1, 4 * C), p(FC1_B, 4 * C), w(FC2_W, 4 * cc), sc(P_FC2, C),
+                     p(FC2_B, C), stream);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_weights(int w_int8, int kv_int8, const Step& a, cudaStream_t stream) {
+  if (w_int8)
+    return kv_int8 ? run<T, int8_t, int8_t>(a, stream) : run<T, int8_t, T>(a, stream);
+  return kv_int8 ? run<T, T, int8_t>(a, stream) : run<T, T, T>(a, stream);
 }
 
 }  // namespace
 
 // positions: the rows' positions t[b], int32 in device memory, or null for
-// one position t (0 <= t <= t_cap) shared by every row
-extern "C" int fused_decoder_layers(int dtype, int L, int B, int A, int C, int H, int t_cap,
-                                    int t, int ta, const void* positions, const void* x,
-                                    void* out, void* k_new, void* v_new, const void* self_k,
-                                    const void* self_v, const void* cross_k,
-                                    const void* cross_v, const void* table, void* scratch,
+// one position t (0 <= t <= t_cap) shared by every row.  w_int8: the eight
+// projections are int8 with their scales in scale_table (N_PROJ pointers);
+// kv_int8: the cross K/V are int8 with scales (L, A, H, D) each.
+extern "C" int fused_decoder_layers(int dtype, int w_int8, int kv_int8, int L, int B, int A,
+                                    int C, int H, int t_cap, int t, int ta,
+                                    const void* positions, const void* x, void* out,
+                                    void* k_new, void* v_new, const void* self_k,
+                                    const void* self_v, const void* cross_k, const void* cross_v,
+                                    const void* cross_k_scale, const void* cross_v_scale,
+                                    const void* table, const void* scale_table, void* scratch,
                                     void* stream) {
-  if (C != H * HD || C % 8 != 0 || B < 1 || B > MAX_ROWS || A < 1 || B % A != 0 ||
-      t < 0 || t > t_cap || ta <= 0)
+  if (C != H * HD || C % 16 != 0 || B < 1 || B > MAX_ROWS || A < 1 || B % A != 0 ||
+      t < 0 || t > t_cap || ta <= 0 || (w_int8 && scale_table == nullptr) ||
+      (kv_int8 && (cross_k_scale == nullptr || cross_v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const void* const* tab = static_cast<const void* const*>(table);
-  const int* pos = static_cast<const int*>(positions);
+  const Step a = {L, B, A, C, H, t_cap, t, ta, static_cast<const int*>(positions), x, self_k,
+                  self_v, cross_k, cross_v, static_cast<const float*>(cross_k_scale),
+                  static_cast<const float*>(cross_v_scale), out, k_new, v_new, scratch,
+                  static_cast<const void* const*>(table),
+                  static_cast<const float* const*>(scale_table)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_BF16)
-    return run<__nv_bfloat16>(L, B, A, C, H, t_cap, t, ta, pos, x, out, k_new, v_new, self_k,
-                              self_v, cross_k, cross_v, tab, scratch, s);
-  if (dtype == DTYPE_F32)
-    return run<float>(L, B, A, C, H, t_cap, t, ta, pos, x, out, k_new, v_new, self_k, self_v,
-                      cross_k, cross_v, tab, scratch, s);
+  if (dtype == DTYPE_BF16) return run_weights<__nv_bfloat16>(w_int8, kv_int8, a, s);
+  if (dtype == DTYPE_F32) return run_weights<float>(w_int8, kv_int8, a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K5: out (B, C) = x + fc2(gelu(fc1(LayerNorm(x)))), K2's MLP stage on its
+// own; w1 (F, C), w2 (C, F) in the compute dtype, or int8 (w_int8) with f32
+// scales s1 (F) and s2 (C); b1, b2 may be null; scratch holds B * F
+// elements of the compute dtype
+extern "C" int mlp_fused(int dtype, int w_int8, int B, int C, int F, const void* x, void* out,
+                         const void* ln_g, const void* ln_b, const void* w1, const void* s1,
+                         const void* b1, const void* w2, const void* s2, const void* b2,
+                         void* scratch, void* stream) {
+  if (B < 1 || B > MAX_ROWS || C % 16 != 0 || F % 16 != 0 ||
+      (w_int8 && (s1 == nullptr || s2 == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* f1 = static_cast<const float*>(s1);
+  const float* f2 = static_cast<const float*>(s2);
+#define MLP(T, WT)                                                                             \
+  do {                                                                                         \
+    cudaError_t e = cudaMemcpyAsync(out, x, (size_t)B * C * sizeof(T),                         \
+                                    cudaMemcpyDeviceToDevice, s);                              \
+    if (e != cudaSuccess) return (int)e;                                                       \
+    mlp_stage<T, WT>(static_cast<T*>(out), static_cast<T*>(scratch), B, C, F,                 \
+                     static_cast<const T*>(ln_g), static_cast<const T*>(ln_b),                 \
+                     static_cast<const WT*>(w1), w_int8 ? f1 : nullptr,                        \
+                     static_cast<const T*>(b1), static_cast<const WT*>(w2),                    \
+                     w_int8 ? f2 : nullptr, static_cast<const T*>(b2), s);                     \
+    return (int)cudaGetLastError();                                                            \
+  } while (0)
+  if (dtype == DTYPE_BF16) {
+    if (w_int8) MLP(__nv_bfloat16, int8_t);
+    MLP(__nv_bfloat16, __nv_bfloat16);
+  }
+  if (dtype == DTYPE_F32) {
+    if (w_int8) MLP(float, int8_t);
+    MLP(float, float);
+  }
+#undef MLP
+  return (int)cudaErrorInvalidValue;
+}
+
+// the int8 logits: out (n_rows, V) f32 = (x (n_rows, C) . q (V, C)^T) *
+// s (V), unrounded; K2's GEMV with int8 weights and an f32 epilogue
+extern "C" int int8_logits(int dtype, int n_rows, int C, int V, const void* x, const void* q,
+                           const void* s, void* out, void* stream) {
+  if (n_rows < 1 || C % 16 != 0 || V < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int8_t* w = static_cast<const int8_t*>(q);
+  const float* sc = static_cast<const float*>(s);
+  if (dtype == DTYPE_BF16) {
+    Segments<__nv_bfloat16, int8_t> seg = {{w}, {sc}, {nullptr}, {out}};
+    gemv<__nv_bfloat16, int8_t, false, false, false, true>(
+        static_cast<const __nv_bfloat16*>(x), n_rows, C, nullptr, nullptr, seg, V, V, st);
+  } else if (dtype == DTYPE_F32) {
+    Segments<float, int8_t> seg = {{w}, {sc}, {nullptr}, {out}};
+    gemv<float, int8_t, false, false, false, true>(static_cast<const float*>(x), n_rows, C,
+                                                   nullptr, nullptr, seg, V, V, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }

@@ -116,7 +116,8 @@ class DecodingOptions:
     # model's device); None draws one from numpy's global RNG
     seed: Optional[int] = None
 
-    # "int8" cross-attention K/V: not in this slice (raises)
+    # "int8": the token loop's cross-attention K/V in int8, per (audio,
+    # head, channel), quantized after a full-precision prefill
     kv_cache_dtype: Optional[str] = None
 
 
@@ -204,6 +205,7 @@ class DecodingTask:
             no_speech=tokenizer.no_speech if tokenizer.no_speech is not None else -1,
             no_timestamps=tokenizer.no_timestamps,
             timestamp_begin=tokenizer.timestamp_begin,
+            kv_int8=options.kv_cache_dtype == "int8",
         )
 
     # -- option/token assembly (parity with decoding.py:572-642) -----------
@@ -220,10 +222,6 @@ class DecodingTask:
             raise ValueError("length_penalty (alpha) should be a value between 0 and 1")
         if options.kv_cache_dtype not in (None, "int8"):
             raise ValueError("kv_cache_dtype must be None or 'int8'")
-        if options.kv_cache_dtype == "int8":
-            raise NotImplementedError(
-                "kv_cache_dtype='int8': ROADMAP.md, Queue 1, 'Quantization'"
-            )
         return options
 
     def _get_initial_tokens(self):

@@ -31,6 +31,7 @@ from .models.whisper import (
     init_kv_cache,
     project_logits,
 )
+from .quantize import quantize_kv
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 448)
 
@@ -65,6 +66,7 @@ class EngineSpec:
     beam_size: int = 0  # 0 => greedy/sampling
     n_group: int = 1  # beam_size or best_of or 1
     max_candidates: int = 0  # beam finished-buffer size (round(beam * patience))
+    kv_int8: bool = False  # the token loop's cross K/V in int8 (kv_cache_dtype="int8")
 
 
 class FilterArgs(NamedTuple):
@@ -445,6 +447,11 @@ def decode_engine(
         filter_args = filter_args._replace(sample_begin=begins_dev.repeat_interleave(G))
     else:
         filter_args = filter_args._replace(sample_begin=begins[0])
+    # the token loop's cross K/V, optionally int8 per (audio, head, channel)
+    # as whisper_tpu's (engine.py:545-554): the prefill, no_speech and the
+    # first logits above ran at full precision
+    if spec.kv_int8:
+        xk, xv = quantize_kv(xk), quantize_kv(xv)
     cache = init_kv_cache(dims, B, xk, xv, compute_dtype, ctx=n_ctx)
     # prefill K/V arrive (L, n_audio, H, P, D); the cache stores time-last
     L, _, H, D, _ = cache.self_k.shape

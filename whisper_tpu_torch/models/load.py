@@ -5,6 +5,8 @@ Counterpart of ``whisper_tpu/models/load.py``.  The port keeps torch's
 layouts (linear (out, in), convolution (out, in, k)), so a reference
 checkpoint only needs its per-layer tensors stacked, while the JAX
 package's tree (linear (in, out), convolution (k, in, out)) is transposed.
+Its int8 leaves (``whisper_tpu.quantize``, ``{"q", "s"}``) become
+:class:`~whisper_tpu_torch.quantize.Int8Weight` in the port's layout.
 """
 
 import io
@@ -13,6 +15,7 @@ from typing import Any, Dict, Tuple, Union
 import numpy as np
 import torch
 
+from ..quantize import Int8Weight
 from .dims import ModelDimensions
 from .whisper import Params, sinusoids
 
@@ -39,12 +42,22 @@ def params_from_numpy(
     device: Union[str, torch.device] = "cpu",
 ) -> Params:
     """The JAX package's parameter tree, as numpy arrays, in the port's
-    layout and dtype on ``device``."""
-    def leaf(name: str, a) -> torch.Tensor:
-        if isinstance(a, dict):
-            raise NotImplementedError(
-                "int8-quantized parameters: ROADMAP.md, Queue 1, Quantization"
-            )
+    layout and dtype on ``device``.  An int8 leaf ``{"q": (..., in, out),
+    "s": (..., 1, out)}`` keeps its storage types, int8 and f32, as
+    whisper_tpu's reload does, as (..., out, in) and (..., out, 1); the
+    int8 logits copy ``logits_w`` is (V, C) and (V, 1) in both packages."""
+    def int8_leaf(name: str, a: Dict[str, Any]) -> Int8Weight:
+        q, s = np.array(a["q"], dtype=np.int8), np.array(a["s"], dtype=np.float32)
+        if name != "logits_w":
+            q, s = np.swapaxes(q, -1, -2), np.swapaxes(s, -1, -2)
+        return Int8Weight(
+            torch.from_numpy(np.ascontiguousarray(q)).to(device),
+            torch.from_numpy(np.ascontiguousarray(s)).to(device),
+        )
+
+    def leaf(name: str, a):
+        if isinstance(a, dict) and set(a) == {"q", "s"}:
+            return int8_leaf(name, a)
         a = np.array(a, dtype=np.float32)  # a writable copy
         if name in _LINEAR:
             a = np.swapaxes(a, -1, -2)

@@ -3,10 +3,13 @@
 Counterpart of ``whisper_tpu/models/whisper.py``.  Parameters are a dict
 with the JAX package's keys, per-layer weights stacked on a leading layer
 axis, but in torch's layouts: linear weights (L, out, in) and convolution
-weights (out, in, k), as in the reference checkpoints.  LayerNorm statistics,
-attention scores and logits are f32 whatever the compute dtype.  The KV
-cache is (L, B, H, D, T), time last, as in the JAX package; the decode
-step's attention kernel reads it with threads along T.
+weights (out, in, k), as in the reference checkpoints; a linear weight may
+be an int8 :class:`~whisper_tpu_torch.quantize.Int8Weight` (per output
+row), and the cross-attention K/V of the decode loop int8 per (audio,
+head, channel).  LayerNorm statistics, attention scores and logits are f32
+whatever the compute dtype.  The KV cache is (L, B, H, D, T), time last, as
+in the JAX package; the decode step's attention kernel reads it with threads
+along T.
 """
 
 import base64
@@ -24,6 +27,7 @@ from ..ops.attention import (
     qkv_attention_kt,
     split_heads,
 )
+from ..quantize import Int8Weight, take_layer
 from .dims import ModelDimensions
 
 Params = Dict[str, Any]
@@ -57,10 +61,26 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     return x.to(orig_dtype)
 
 
-def _linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _int8_product(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """x (..., in) . q (out, in)^T in f32, unrounded, the int8 values taken
+    in x's dtype (exact in bf16).  On the card a bf16 x converts the one
+    weight per call and runs a library GEMM with an f32 output: the products
+    that whisper_tpu leaves to XLA (the decode step's are kernel K2's)."""
+    if x.is_cuda and x.dtype != torch.float32:
+        flat = x.reshape(-1, x.shape[-1])
+        out = torch.mm(flat, q.to(x.dtype).t(), out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], q.shape[0])
+    return F.linear(x.float(), q.float())
+
+
+def _linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ w.T, rounded to x's dtype, then + b (rounded again), as the JAX
-    package's einsum-then-bias."""
-    y = F.linear(x, w)
+    package's einsum-then-bias.  An int8 w: the f32 product times its
+    per-output scales, rounded once to x's dtype, then + b."""
+    if isinstance(w, Int8Weight):
+        y = (_int8_product(x, w.q) * w.s[..., 0]).to(x.dtype)
+    else:
+        y = F.linear(x, w)
     if b is not None:
         y = y + b
     return y
@@ -72,7 +92,7 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 def _layer(blocks: Params, i: int) -> Params:
     """Layer i's parameters out of the stacked blocks."""
-    return {k: v[i] for k, v in blocks.items()}
+    return {k: take_layer(v, i) for k, v in blocks.items()}
 
 
 class KVCache(NamedTuple):
@@ -81,13 +101,14 @@ class KVCache(NamedTuple):
     self_k/self_v: (L, B, H, D, T) — autoregressive self-attention, written
     in place one column per step.  cross_k/cross_v: (L, A, H, D, Ta) —
     computed once per segment, one copy per audio; the B = A * G rows are
-    group-major (row = audio * G + g).
+    group-major (row = audio * G + g).  With ``kv_cache_dtype="int8"`` they
+    are Int8Weight: int8 with f32 scales (L, A, H, D, 1) over time.
     """
 
     self_k: torch.Tensor
     self_v: torch.Tensor
-    cross_k: torch.Tensor
-    cross_v: torch.Tensor
+    cross_k: Union[torch.Tensor, Int8Weight]
+    cross_v: Union[torch.Tensor, Int8Weight]
 
 
 # ---------------------------------------------------------------------------
@@ -143,12 +164,9 @@ def compute_cross_kv(
     h = dims.n_text_head
     ks, vs = [], []
     for i in range(dims.n_text_layer):
-        ks.append(split_heads(_linear(audio_features, blocks["xk_w"][i]), h).transpose(-1, -2))
-        vs.append(
-            split_heads(
-                _linear(audio_features, blocks["xv_w"][i], blocks["xv_b"][i]), h
-            ).transpose(-1, -2)
-        )
+        xk_w, xv_w = take_layer(blocks["xk_w"], i), take_layer(blocks["xv_w"], i)
+        ks.append(split_heads(_linear(audio_features, xk_w), h).transpose(-1, -2))
+        vs.append(split_heads(_linear(audio_features, xv_w, blocks["xv_b"][i]), h).transpose(-1, -2))
     return torch.stack(ks), torch.stack(vs)
 
 
@@ -314,7 +332,17 @@ def project_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
 
     The products are of compute-dtype values and the logits stay f32,
     unrounded, as the JAX package's ``preferred_element_type=float32``.
+    With an int8 logits copy (``decoder["logits_w"]``, from
+    ``quantize_params(logits=True)``) the product reads that matrix instead,
+    times its per-row scales, unrounded: on the card through K2's int8 GEMV
+    (:func:`~whisper_tpu_torch.ops.kernels.fused_step.int8_logits`), which
+    reads the int8 bytes as they are.
     """
+    lw = params["decoder"].get("logits_w")
+    if lw is not None:
+        from ..ops.kernels.fused_step import int8_logits
+
+        return int8_logits(hidden, lw)
     emb = params["decoder"]["tok_emb"]
     if hidden.dtype == torch.float32:
         return F.linear(hidden, emb)
@@ -377,9 +405,10 @@ def init_kv_cache(
 ) -> KVCache:
     h, d = dims.n_text_head, dims.n_text_state // dims.n_text_head
     shape = (dims.n_text_layer, batch, h, d, ctx or dims.n_text_ctx)
+    device = (cross_k.q if isinstance(cross_k, Int8Weight) else cross_k).device
     return KVCache(
-        self_k=torch.zeros(shape, dtype=dtype, device=cross_k.device),
-        self_v=torch.zeros(shape, dtype=dtype, device=cross_k.device),
+        self_k=torch.zeros(shape, dtype=dtype, device=device),
+        self_v=torch.zeros(shape, dtype=dtype, device=device),
         cross_k=cross_k,
         cross_v=cross_v,
     )
@@ -511,6 +540,8 @@ class Whisper:
         def count(node):
             if isinstance(node, dict):
                 return sum(count(v) for v in node.values())
+            if isinstance(node, Int8Weight):
+                return node.q.numel()
             return node.numel()
 
         return count(self.params)

@@ -1,13 +1,16 @@
-"""ctypes bindings for the JAX package's native C++ runtime (BPE core, audio
-IO, DTW backtrace), built from its sources by path.
+"""ctypes bindings for the port's native C++ runtime (BPE core, audio IO,
+DTW backtrace), and the directory of its assets.
 
 Counterpart of ``whisper_tpu/native/__init__.py``.  Importing that package
 would import JAX (``whisper_tpu/__init__.py`` loads every module eagerly), so
-the port compiles the same three ``.cpp`` files with ``g++`` into its own
-git-ignored build directory and reads the shared assets by path.  As in the
-JAX package, every binding has a pure-Python/NumPy counterpart at its call
-site (tokenizer BPE, ffmpeg audio decode), so a missing host toolchain
-degrades host-side speed, not the device path.
+the port keeps its own copies and compiles them with ``g++`` into its own
+git-ignored build directory: ``bpe.cpp``, ``audioio.cpp`` and ``dtw.cpp``
+here are whisper_tpu's ``native/*.cpp`` (each names its source in its
+header), and ``whisper_tpu_torch/assets/`` holds copies of whisper_tpu's
+``assets/mel_filters.npz``, ``gpt2.tiktoken`` and ``multilingual.tiktoken``.
+As in the JAX package, every binding has a pure-Python/NumPy counterpart at
+its call site (tokenizer BPE, ffmpeg audio decode), so a missing host
+toolchain degrades host-side speed, not the device path.
 """
 
 import ctypes
@@ -17,10 +20,10 @@ import threading
 import warnings
 from typing import Optional
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SOURCE_DIR = os.path.join(_ROOT, "whisper_tpu", "native")
-ASSETS_DIR = os.path.join(_ROOT, "whisper_tpu", "assets")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE_DIR = os.path.dirname(os.path.abspath(__file__))
+ASSETS_DIR = os.path.join(_PKG, "assets")
+BUILD_DIR = os.path.join(_PKG, "_build")
 _LIB_PATH = os.path.join(BUILD_DIR, "libwhisper_native.so")
 _SOURCES = ["bpe.cpp", "audioio.cpp", "dtw.cpp"]
 

@@ -39,13 +39,17 @@ _I = ctypes.c_int
 SIGNATURES = {
     # dtype, q, k, v, out, batch*heads, T, head_dim, stream
     "encoder_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
-    # dtype, L, B, A, C, H, T_cap, t (shared), Ta, positions (B,) int32 or
-    # null (every row at t), x, out,
-    # k_new, v_new, self_k, self_v, cross_k, cross_v, weight pointer table
-    # (host), scratch, stream
-    "fused_decoder_layers": [
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-    ],
+    # dtype, int8 weights, int8 cross K/V, L, B, A, C, H, T_cap, t (shared),
+    # Ta, positions (B,) int32 or null (every row at t), x, out, k_new,
+    # v_new, self_k, self_v, cross_k, cross_v, cross K/V scales (or null),
+    # weight pointer table (host), scale pointer table (host, or null),
+    # scratch, stream
+    "fused_decoder_layers": [_I] * 11 + [_P] * 15,
+    # dtype, int8 weights, B, C, F, x, out, ln_g, ln_b, w1, s1, b1, w2, s2,
+    # b2, scratch, stream
+    "mlp_fused": [_I] * 5 + [_P] * 12,
+    # dtype, rows, C, V, x, q, s, out, stream
+    "int8_logits": [_I] * 4 + [_P] * 5,
     # x, out, rows, T, width, stream
     "median_filter": [_P, _P, ctypes.c_longlong, _I, _I, _P],
     # x, trace, batch, n, m, stream

@@ -1,8 +1,8 @@
 """K2: all decoder layers of one decode step as hand-written Hopper kernels.
 
 Replaces ``whisper_tpu/ops/kernels/fused_step_pallas.py:fused_decoder_layers``
-in the variants without a pending write block, unquantized: B rows of A
-audios (A divides B, G = B / A rows per audio, group-major: row = audio * G
+in the variants without a pending write block, unquantized and int8: B rows
+of A audios (A divides B, G = B / A rows per audio, group-major: row = audio * G
 + g), each row at its own position.  That covers one greedy row, a beam or
 best-of group of one audio, one row per audio of a batch (the TPU kernel's
 "multi" layout), and the beam or best-of groups of several audios, which
@@ -10,6 +10,14 @@ whisper_tpu leaves to XLA's ``decoder_step(..., n_group=G)``.  The kernels
 are ``whisper_tpu_torch/csrc/fused_step.cu`` (its header says what bounds
 them and how they are laid out); :func:`fused_decoder_layers_plain` is the
 same function in PyTorch, a loop over layers in ``decoder_step``'s op order.
+Its MLP stage is kernel K5's code (:mod:`.mlp`).
+
+int8 (``whisper_tpu_torch.quantize``): the eight projections (q, k, v, o,
+xq, xo, fc1, fc2) may all be :class:`Int8Weight` (L, out, in) int8 with f32
+scales (L, out, 1), and the cross K/V Int8Weight with scales (L, A, H, D, 1);
+either, both or neither.  On the card the int8 bytes are what the kernels
+read: nothing is dequantized to run the bf16 instances.  The int8 logits
+projection (:func:`int8_logits`) is K2's GEMV with an f32 epilogue.
 
 Contract (as the TPU kernel's): x (B, C) is the token + position
 embedding; returns (hidden (B, C) after the last layer, no final
@@ -24,10 +32,13 @@ import ctypes
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from ...models.whisper import NEG_INF, Position, _gelu, _layer, _linear, layer_norm
+from ...models.whisper import NEG_INF, Position, _layer, _linear, layer_norm
+from ...quantize import Int8Weight, take_layer
 from ..attention import merge_heads, qkv_attention_kt, split_heads
 from . import _lib
+from .mlp import mlp_fused, mlp_fused_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64
@@ -39,18 +50,43 @@ WEIGHTS = (
     "xattn_ln_g", "xattn_ln_b", "xq_w", "xq_b", "xo_w", "xo_b",
     "mlp_ln_g", "mlp_ln_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b",
 )
+# the projections that may be int8, in the order of the kernel's scale
+# table (csrc/fused_step.cu enum PROJ)
+PROJECTIONS = ("q_w", "k_w", "v_w", "o_w", "xq_w", "xo_w", "fc1_w", "fc2_w")
 
-def _cross_attention(xq: torch.Tensor, cross_k: torch.Tensor, cross_v: torch.Tensor) -> torch.Tensor:
-    """xq (B, H, 1, D) against A audios' K/V (A, H, D, Ta): the G = B / A
-    rows of each audio fold into its query axis, as whisper_tpu's
-    ``_cross_step_attention`` does, so each audio's K/V serves its rows."""
+
+def _values(leaf):
+    """A leaf's tensor of values: an int8 leaf's q."""
+    return leaf.q if isinstance(leaf, Int8Weight) else leaf
+
+
+def _int8_attention(q: torch.Tensor, k: Int8Weight, v: Int8Weight) -> torch.Tensor:
+    """q (A, H, G, D) against int8 K/V (A, H, D, Ta), as whisper_tpu's
+    ``_cross_step_attention`` int8 branch: D^-0.5 and the K scales folded
+    into q (rounded once), f32 scores, weights rounded, f32 PV, times the V
+    scales, rounded."""
+    D = q.shape[-1]
+    sk = k.s[..., 0][:, :, None, :]  # (A, H, 1, D)
+    sv = v.s[..., 0][:, :, None, :]
+    q_eff = (q.float() * D**-0.5 * sk).to(q.dtype)
+    w = torch.softmax(torch.matmul(q_eff.float(), k.q.float()), dim=-1).to(q.dtype)
+    pv = torch.matmul(w.float(), v.q.float().transpose(-1, -2))
+    return (pv * sv).to(q.dtype)
+
+
+def _cross_attention(xq: torch.Tensor, cross_k, cross_v) -> torch.Tensor:
+    """xq (B, H, 1, D) against A audios' K/V (A, H, D, Ta), in the compute
+    dtype or int8: the G = B / A rows of each audio fold into its query
+    axis, as whisper_tpu's ``_cross_step_attention`` does, so each audio's
+    K/V serves its rows."""
     B, H, _, D = xq.shape
-    A = cross_k.shape[0]
+    A = _values(cross_k).shape[0]
     G = B // A
+    attend = _int8_attention if isinstance(cross_k, Int8Weight) else qkv_attention_kt
     if G == 1:
-        return qkv_attention_kt(xq, cross_k, cross_v)
+        return attend(xq, cross_k, cross_v)
     q = xq[:, :, 0].reshape(A, G, H, D).transpose(1, 2)  # (A, H, G, D)
-    out = qkv_attention_kt(q, cross_k, cross_v)
+    out = attend(q, cross_k, cross_v)
     return out.transpose(1, 2).reshape(B, H, 1, D)
 
 
@@ -61,17 +97,19 @@ def fused_decoder_layers_plain(
     t: Position,  # shared by the rows, or (B,) per row
     self_k: torch.Tensor,  # (L, B, H, D, T)
     self_v: torch.Tensor,
-    cross_k: torch.Tensor,  # (L, A, H, D, Ta), A divides B
-    cross_v: torch.Tensor,
+    cross_k,  # (L, A, H, D, Ta), A divides B; or Int8Weight
+    cross_v,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The layers of ``decoder_step`` in PyTorch: the softmax runs over
     [row b's cache positions < t[b] | its new token], in f32, and the
     weights round to the compute dtype before PV.  Cross-attention folds
-    each audio's rows into its query axis (``_cross_attention``)."""
+    each audio's rows into its query axis (``_cross_attention``).  int8
+    weights go through ``_linear``'s int8 branch."""
     L = self_k.shape[0]
     n_ctx = self_k.shape[-1]
-    if cross_k.shape[1] < 1 or x.shape[0] % cross_k.shape[1]:
-        raise ValueError(f"{cross_k.shape[1]} audios do not divide {x.shape[0]} rows")
+    A = _values(cross_k).shape[1]
+    if A < 1 or x.shape[0] % A:
+        raise ValueError(f"{A} audios do not divide {x.shape[0]} rows")
     positions = torch.arange(n_ctx, device=x.device)
     if isinstance(t, int):
         pos_mask = torch.where(positions < t, 0.0, NEG_INF).float()
@@ -98,43 +136,79 @@ def fused_decoder_layers_plain(
 
         hx = layer_norm(x, p["xattn_ln_g"], p["xattn_ln_b"])
         xq = split_heads(_linear(hx, p["xq_w"], p["xq_b"]), n_head)
-        xattn = _cross_attention(xq, cross_k[i], cross_v[i])
+        xattn = _cross_attention(xq, take_layer(cross_k, i), take_layer(cross_v, i))
         x = x + _linear(merge_heads(xattn), p["xo_w"], p["xo_b"])
-        hm = _gelu(_linear(layer_norm(x, p["mlp_ln_g"], p["mlp_ln_b"]), p["fc1_w"], p["fc1_b"]))
-        x = x + _linear(hm, p["fc2_w"], p["fc2_b"])
+        x = mlp_fused_plain(x, p["mlp_ln_g"], p["mlp_ln_b"], p["fc1_w"], p["fc1_b"], p["fc2_w"],
+                            p["fc2_b"])
         k_news.append(merge_heads(k_new)[:, 0])
         v_news.append(merge_heads(v_new)[:, 0])
     return x[:, 0], torch.stack(k_news), torch.stack(v_news)
 
 
-def _check_args(blocks, n_head, x, positions, self_k, self_v, cross_k, cross_v) -> None:
+def _int8_form(leaves, what: str) -> bool:
+    """True when every leaf is int8, False when none is; raises otherwise."""
+    int8 = [isinstance(a, Int8Weight) for a in leaves]
+    if any(int8) and not all(int8):
+        raise ValueError(f"fused decode-step kernel: all of the {what} int8, or none")
+    return all(int8)
+
+
+def _check_int8(leaf: Int8Weight, device) -> None:
+    q, s = leaf
+    if (q.dtype != torch.int8 or s.dtype != torch.float32 or tuple(s.shape) != (*q.shape[:-1], 1)
+            or q.device != device or s.device != device
+            or not (q.is_contiguous() and s.is_contiguous())):
+        raise ValueError(
+            "fused decode-step kernel: an int8 leaf is contiguous int8 values with contiguous "
+            f"f32 scales (..., 1) beside them, on {device}"
+        )
+
+
+def _check_args(blocks, n_head, x, positions, self_k, self_v, cross_k, cross_v) -> Tuple[bool, bool]:
+    """Raise on what the kernels do not take; (int8 weights, int8 cross K/V)."""
     B, C = x.shape
     L, _, H, D, T = self_k.shape
     if not 1 <= B <= MAX_ROWS:
         raise ValueError(f"fused decode-step kernel: at most {MAX_ROWS} rows, got {B}")
-    if D != HEAD_DIM or H != n_head or C != H * D or C % 8:
+    if D != HEAD_DIM or H != n_head or C != H * D or C % 16:
         raise ValueError(f"fused decode-step kernel: C={C}, H={H}, D={D} unsupported")
     if self_v.shape != self_k.shape or self_k.shape[1] != B:
         raise ValueError(f"fused decode-step kernel: self cache {tuple(self_k.shape)}")
-    A = cross_k.shape[1]
-    if cross_k.shape != cross_v.shape or A < 1 or B % A or cross_k.shape[:4] != (L, A, H, D):
+    w8 = _int8_form([blocks[n] for n in PROJECTIONS], "projection weights")
+    kv8 = _int8_form([cross_k, cross_v], "cross K/V")
+    xk, xv = _values(cross_k), _values(cross_v)
+    A = xk.shape[1]
+    if xk.shape != xv.shape or A < 1 or B % A or xk.shape[:4] != (L, A, H, D):
         raise ValueError(
-            f"fused decode-step kernel: cross cache {tuple(cross_k.shape)} "
+            f"fused decode-step kernel: cross cache {tuple(xk.shape)} "
             f"(audios must divide the {B} rows)"
         )
     if positions is not None and (positions.shape != (B,) or positions.device != x.device):
         raise ValueError(f"fused decode-step kernel: positions {tuple(positions.shape)} for {B} rows")
     if x.dtype not in _DTYPES:
         raise ValueError(f"fused decode-step kernel: dtype {x.dtype} (bf16 or f32)")
-    stacked = [self_k, self_v, cross_k, cross_v] + [blocks[n] for n in WEIGHTS]
-    for a in [x] + stacked:
+    int8 = ([blocks[n] for n in PROJECTIONS] if w8 else []) + ([cross_k, cross_v] if kv8 else [])
+    dense = [self_k, self_v] + ([] if kv8 else [cross_k, cross_v]) + [
+        blocks[n] for n in WEIGHTS if not (w8 and n in PROJECTIONS)
+    ]
+    for a in [x] + dense:
         if a.dtype != x.dtype or a.device != x.device or not a.is_contiguous():
             raise ValueError(
                 "fused decode-step kernel: every input must be contiguous, of "
                 f"x's dtype {x.dtype}, on {x.device}"
             )
-    if any(a.shape[0] != L for a in stacked):
+    for leaf in int8:
+        _check_int8(leaf, x.device)
+    if any(_values(blocks[n]).shape[0] != L for n in WEIGHTS):
         raise ValueError(f"fused decode-step kernel: {L} layers expected")
+    return w8, kv8
+
+
+def _layout(A: int, G: int, w8: bool, kv8: bool) -> tuple:
+    """launches_by_layout's key: (A, G), with a tag for the int8 forms:
+    "int8" (weights), "kv_int8" (cross K/V) or "int8+kv_int8"."""
+    tag = "+".join(name for name, on in (("int8", w8), ("kv_int8", kv8)) if on)
+    return (A, G, tag) if tag else (A, G)
 
 
 def fused_decoder_layers(
@@ -144,13 +218,14 @@ def fused_decoder_layers(
     t: Position,
     self_k: torch.Tensor,
     self_v: torch.Tensor,
-    cross_k: torch.Tensor,
-    cross_v: torch.Tensor,
+    cross_k,
+    cross_v,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """All decoder layers of one step for B rows.  A CPU tensor takes
     :func:`fused_decoder_layers_plain`; a CUDA tensor launches the kernels
     (1 <= B <= 128 rows of A audios, A dividing B; head_dim 64; bf16 or
-    f32) or raises.
+    f32; the projections and the cross K/V each in the compute dtype or
+    int8) or raises.
 
     ``t``: one position for every row (a host int, a kernel argument), or
     a (B,) integer tensor on x's device, one per row, which the kernel
@@ -168,25 +243,65 @@ def fused_decoder_layers(
     else:
         shared, positions = 0, t.to(torch.int32).contiguous()
         positions_ptr = positions.data_ptr()
-    _check_args(blocks, n_head, x, positions, self_k, self_v, cross_k, cross_v)
-    A, C = cross_k.shape[1], x.shape[1]
+    w8, kv8 = _check_args(blocks, n_head, x, positions, self_k, self_v, cross_k, cross_v)
+    xk, xv = _values(cross_k), _values(cross_v)
+    A, C = xk.shape[1], x.shape[1]
     hidden = torch.empty_like(x)
     k_new = torch.empty((L, B, C), dtype=x.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
     scratch = torch.empty(6 * B * C, dtype=x.dtype, device=x.device)
-    table = (ctypes.c_void_p * len(WEIGHTS))(*(blocks[n].data_ptr() for n in WEIGHTS))
+    table = (ctypes.c_void_p * len(WEIGHTS))(*(_values(blocks[n]).data_ptr() for n in WEIGHTS))
+    scales = (ctypes.c_void_p * len(PROJECTIONS))(*(blocks[n].s.data_ptr() for n in PROJECTIONS)) if w8 else None
     err = _lib.lib().fused_decoder_layers(
-        _DTYPES[x.dtype], L, B, A, C, H, T, shared, cross_k.shape[-1],
+        _DTYPES[x.dtype], int(w8), int(kv8), L, B, A, C, H, T, shared, xk.shape[-1],
         positions_ptr, x.data_ptr(), hidden.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), self_k.data_ptr(), self_v.data_ptr(), cross_k.data_ptr(),
-        cross_v.data_ptr(), ctypes.cast(table, ctypes.c_void_p), scratch.data_ptr(),
+        v_new.data_ptr(), self_k.data_ptr(), self_v.data_ptr(), xk.data_ptr(), xv.data_ptr(),
+        cross_k.s.data_ptr() if kv8 else None, cross_v.s.data_ptr() if kv8 else None,
+        ctypes.cast(table, ctypes.c_void_p), ctypes.cast(scales, ctypes.c_void_p) if w8 else None,
+        scratch.data_ptr(),
         _lib.stream_ptr(x.device),
     )
     _lib.check(err, "fused_decoder_layers")
     fused_decoder_layers.launches += 1
-    fused_decoder_layers.launches_by_layout[(A, B // A)] += 1
+    fused_decoder_layers.launches_by_layout[_layout(A, B // A, w8, kv8)] += 1
+    mlp_fused.launches += L  # its MLP stage, K5's code, once per layer
     return hidden, k_new, v_new
 
 
 fused_decoder_layers.launches = 0
-fused_decoder_layers.launches_by_layout = collections.Counter()  # (A, G) -> launches
+# (A, G) -> launches; the int8 forms as (A, G, tag), see _layout
+fused_decoder_layers.launches_by_layout = collections.Counter()
+
+
+def int8_logits_plain(hidden: torch.Tensor, w: Int8Weight) -> torch.Tensor:
+    """hidden (..., C) . q (V, C)^T in f32, times the per-row scales s (V,
+    1), unrounded: whisper_tpu's ``project_logits`` with ``logits_w``."""
+    return F.linear(hidden.float(), w.q.float()) * w.s[:, 0]
+
+
+def int8_logits(hidden: torch.Tensor, w: Int8Weight) -> torch.Tensor:
+    """The int8 logits projection, f32 (..., V).  A CPU tensor takes
+    :func:`int8_logits_plain`; a CUDA tensor launches K2's GEMV with int8
+    weights and an unrounded f32 epilogue, reading the (V, C) int8 matrix
+    as it is, or raises."""
+    if hidden.device.type == "cpu":
+        return int8_logits_plain(hidden, w)
+    if hidden.device.type != "cuda":
+        raise ValueError(f"int8 logits kernel: unsupported device {hidden.device}")
+    _check_int8(w, hidden.device)
+    V, C = w.q.shape
+    if hidden.dtype not in _DTYPES or hidden.shape[-1] != C or C % 16 or w.q.dim() != 2:
+        raise ValueError(f"int8 logits kernel: hidden (..., {C}) bf16 or f32, C a multiple of 16; "
+                         f"got {tuple(hidden.shape)} {hidden.dtype}")
+    flat = hidden.reshape(-1, C).contiguous()
+    out = torch.empty((flat.shape[0], V), dtype=torch.float32, device=hidden.device)
+    err = _lib.lib().int8_logits(
+        _DTYPES[hidden.dtype], flat.shape[0], C, V, flat.data_ptr(), w.q.data_ptr(),
+        w.s.data_ptr(), out.data_ptr(), _lib.stream_ptr(hidden.device),
+    )
+    _lib.check(err, "int8_logits")
+    int8_logits.launches += 1
+    return out.reshape(*hidden.shape[:-1], V)
+
+
+int8_logits.launches = 0

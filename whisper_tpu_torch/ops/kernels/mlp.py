@@ -1,0 +1,103 @@
+"""K5: the decoder MLP of one decode step as hand-written Hopper kernels.
+
+Replaces ``whisper_tpu/ops/kernels/mlp_pallas.py:mlp_fused_pallas``:
+``x + fc2(gelu(fc1(layer_norm(x))))`` for 1-128 rows, each weight read
+once, int8 weights converted inside the kernel.  The kernels are K2's MLP
+stage in ``whisper_tpu_torch/csrc/fused_step.cu`` (``mlp_stage``: the
+LayerNorm-prologue fc1 + GELU GEMV, then the fc2 + residual GEMV), so the
+decode step runs this code in every layer of every step and there is one
+implementation; :func:`mlp_fused_plain` is the same function in PyTorch.
+
+Weights in the port's layout: w1 (4C, C), w2 (C, 4C), tensors of x's
+dtype or :class:`~whisper_tpu_torch.quantize.Int8Weight`.  Numerics as
+``mlp_pallas.py``'s: LayerNorm statistics in f32, the normalised row rounded
+to the compute dtype, each product accumulated in f32 and rounded once
+(times the int8 scales first), the bias, GELU (exact erf; the TPU kernel's
+A&S erf differs by at most 1.5e-7 before rounding) and the residual each
+rounded.
+"""
+
+from typing import Optional
+
+import torch
+
+from ...models.whisper import _gelu, _linear, layer_norm
+from ...quantize import Int8Weight
+from . import _lib
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_ROWS = 128  # csrc/fused_step.cu MAX_ROWS
+
+
+def mlp_fused_plain(x, ln_g, ln_b, w1, b1, w2, b2):
+    """x (..., C) + fc2(gelu(fc1(layer_norm(x)))) in PyTorch."""
+    h = _gelu(_linear(layer_norm(x, ln_g, ln_b), w1, b1))
+    return x + _linear(h, w2, b2)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _check(x, ln_g, ln_b, w1, b1, w2, b2) -> bool:
+    """Raise on what the kernel does not take; True for int8 weights."""
+    B, C = x.shape
+    int8 = isinstance(w1, Int8Weight)
+    if int8 != isinstance(w2, Int8Weight):
+        raise ValueError("fused MLP kernel: both weights int8, or neither")
+    q1, q2 = (w1.q, w2.q) if int8 else (w1, w2)
+    F = q1.shape[0]
+    if not 1 <= B <= MAX_ROWS or C % 16 or F % 16 or x.dtype not in _DTYPES:
+        raise ValueError(f"fused MLP kernel: B={B} (1-{MAX_ROWS}), C={C} and F={F} (multiples "
+                         f"of 16), dtype {x.dtype} (bf16 or f32)")
+    if tuple(q1.shape) != (F, C) or tuple(q2.shape) != (C, F):
+        raise ValueError(f"fused MLP kernel: weights {(F, C)} and {(C, F)} expected")
+    dense = [x, ln_g, ln_b] + [b for b in (b1, b2) if b is not None] + ([] if int8 else [w1, w2])
+    if any(t.dtype != x.dtype or t.device != x.device or not t.is_contiguous() for t in dense):
+        raise ValueError(f"fused MLP kernel: every tensor contiguous, of x's dtype {x.dtype}, "
+                         f"on {x.device}")
+    if int8 and any(
+        w.q.dtype != torch.int8 or w.s.dtype != torch.float32 or tuple(w.s.shape) != (w.q.shape[0], 1)
+        or w.q.device != x.device or w.s.device != x.device
+        or not (w.q.is_contiguous() and w.s.is_contiguous())
+        for w in (w1, w2)
+    ):
+        raise ValueError("fused MLP kernel: int8 weights (out, in) with f32 scales (out, 1)")
+    return int8
+
+
+def mlp_fused(
+    x: torch.Tensor,  # (B, C)
+    ln_g: torch.Tensor,  # (C,)
+    ln_b: torch.Tensor,
+    w1,  # (4C, C) tensor or Int8Weight
+    b1: Optional[torch.Tensor],  # (4C,)
+    w2,  # (C, 4C)
+    b2: Optional[torch.Tensor],  # (C,)
+) -> torch.Tensor:
+    """``x + fc2(gelu(fc1(layer_norm(x))))`` for B rows.  A CPU tensor
+    takes :func:`mlp_fused_plain`; a CUDA tensor launches the kernels (1 <=
+    B <= 128, widths multiples of 16, bf16 or f32, weights of x's dtype or
+    both int8) or raises."""
+    if x.device.type == "cpu":
+        return mlp_fused_plain(x, ln_g, ln_b, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused MLP kernel: unsupported device {x.device}")
+    int8 = _check(x, ln_g, ln_b, w1, b1, w2, b2)
+    q1, q2 = (w1.q, w2.q) if int8 else (w1, w2)
+    (B, C), F = x.shape, q1.shape[0]
+    out = torch.empty_like(x)
+    scratch = torch.empty(B * F, dtype=x.dtype, device=x.device)
+    err = _lib.lib().mlp_fused(
+        _DTYPES[x.dtype], int(int8), B, C, F, x.data_ptr(), out.data_ptr(), ln_g.data_ptr(),
+        ln_b.data_ptr(), q1.data_ptr(), _ptr(w1.s) if int8 else None, _ptr(b1), q2.data_ptr(),
+        _ptr(w2.s) if int8 else None, _ptr(b2), scratch.data_ptr(), _lib.stream_ptr(x.device),
+    )
+    _lib.check(err, "mlp_fused")
+    mlp_fused.launches += 1
+    return out
+
+
+# runs of the MLP stage: one per call of mlp_fused, and L per K2 step
+# (fused_step.fused_decoder_layers adds them, its MLP stage being this code)
+mlp_fused.launches = 0

@@ -5,10 +5,11 @@ Interface parity target: reference ``whisper/tokenizer.py`` (Tokenizer
 dataclass, get_encoding/get_tokenizer, LANGUAGES table, special-token layout at
 ``tokenizer.py:340-351``, word splitting at ``tokenizer.py:277-327``).
 
-The BPE core is native C++ (whisper_tpu/native/bpe.cpp) replacing the Rust
-``tiktoken`` dependency; Unicode pre-tokenization uses the ``regex`` module
-with the exact pat_str from reference ``tokenizer.py:360``.  A pure-Python
-merge loop backs the native core when the toolchain is unavailable.
+The BPE core is native C++ (the port's copy of whisper_tpu's
+native/bpe.cpp) replacing the Rust ``tiktoken`` dependency; Unicode
+pre-tokenization uses the ``regex`` module with the exact pat_str from
+reference ``tokenizer.py:360``.  A pure-Python merge loop backs the native
+core when the toolchain is unavailable.
 """
 
 import base64
