@@ -72,7 +72,37 @@ Phases, each of which must pass (any failure exits non-zero):
  19. with --profile only: the pinned greedy window, the beam-5 window and
      the 16-window run_with_prompts, bf16 and int8, under torch.profiler
      (device idle share), and the bf16 ones under cProfile (host time per
-     token step).
+     token step);
+ 20. K2's pending block (the write-block engine's step) against its plain
+     version at turbo shapes, T = 448 (beside the same layouts at T = 448
+     without a block), W = 8 with 0, 3 and 7 columns valid,
+     bf16 and f32: one row in the "int8+kv_int8" form (int8 streaming), 16
+     audios x 1 at 16 per-row block starts (the server's batch), 3 x 5 at
+     per-row block starts (best-of groups of a batch), each with its bound
+     and time (run with the other kernel checks);
+ 21. the write path at B=16, T=448 (phase 15's): eight pending-column
+     writes and one flush per block, per step, beside the per-step column
+     write;
+ 22. the write-block engine against the per-step engine: phase 11's
+     16-window run_with_prompts with write_block 8 and 0 in turns (wall, ms
+     per step, K2's pending and per-step launches), bf16 and int8 (phase
+     18), and the int8 pinned window in turns; in f32 without timestamps,
+     with a pinned 110-token sequence no filter masks, equal tokens and
+     avg_logprob within 1e-5, and the free-running tokens' agreement;
+ 23. the HTTP server end to end (with --profile, its 20 requests again
+     under torch.profiler: the card's idle share): make_server(model,
+     port=0, batch_size=16,
+     max_wait_s=0.25) in a thread on 127.0.0.1 with the random bf16 turbo
+     model; phase 12's 20 files as WAV bodies from 20 client threads
+     (language en, T = 0): every answer 200 and well-formed, /healthz,
+     the batcher's stats, K1 and K2's multi-audio pending layout launched;
+     requests per second, audio seconds per wall second, p50/p95 latency,
+     mean batch occupancy; then a stream=true request and a
+     chunked=true&stream=true request on jfk tiled to 70 s (NDJSON ending
+     in "done"; time to the first line against the whole answer);
+ 24. StreamingTranscriber on phase 18's int8 model with
+     kv_cache_dtype="int8", fed jfk tiled to 44 s in 5 s pushes: K2's
+     one-row int8 pending instance launched.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -81,6 +111,7 @@ and prints no result.
 import argparse
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -244,16 +275,17 @@ def nbytes(leaf) -> int:
     return leaf.numel() * leaf.element_size()
 
 
-def k2_bound(blocks, dims: tuple, positions, dtype: str, cross_k, cross_v) -> dict:
+def k2_bound(blocks, dims: tuple, positions, dtype: str, cross_k, cross_v, pend_w: int = 0) -> dict:
     """K2's bound for one step: every weight read once; each audio's cross
-    K/V read once; row b's self K/V at its min(t[b], T) positions read once;
-    x read and hidden, k_new, v_new written; each tensor at its own element
-    size (int8 weights and K/V with their f32 scales).  Operations: the
-    GEMVs (two per weight element per row) and the attention products."""
+    K/V read once; row b's self K/V at its min(t[b], T) positions read once,
+    and its pend_w pending columns; x read and hidden, k_new, v_new
+    written; each tensor at its own element size (int8 weights and K/V with
+    their f32 scales).  Operations: the GEMVs (two per weight element per
+    row) and the attention products."""
     from whisper_tpu_torch.quantize import Int8Weight
 
     L, B, A, C, T, Ta = dims
-    n_ctx = sum(min(max(int(t), 0), T) for t in positions)
+    n_ctx = sum(min(max(int(t), 0), T) + pend_w for t in positions)
     act = blocks["attn_ln_g"].element_size()  # the compute dtype's
     moved = (sum(nbytes(w) for w in blocks.values()) + nbytes(cross_k) + nbytes(cross_v)
              + act * (2 * L * C * n_ctx + 2 * B * C + 2 * L * B * C))
@@ -263,11 +295,14 @@ def k2_bound(blocks, dims: tuple, positions, dtype: str, cross_k, cross_v) -> di
     return bound(moved, gemv + attention, dtype)
 
 
-def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = "", form: str = ""):
+def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = "", form: str = "",
+             T: int = 256, pend_w=None):
     """K2 against its plain version at turbo decoder shapes for A audios of
     G rows; t is one position for every row, or a list, one per row.  form
     "int8": the eight projections int8 (quantize_weight of the same random
-    weights); "int8+kv_int8": the cross K/V int8 too (quantize_kv)."""
+    weights); "int8+kv_int8": the cross K/V int8 too (quantize_kv).  With
+    pend_w, the pending variant: a random (L, B, H, D, 8) pending block of
+    which pend_w columns are valid, t the rows' block starts."""
     import torch
 
     from whisper_tpu_torch.ops.kernels.fused_step import (
@@ -278,7 +313,7 @@ def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = "", form: 
     )
     from whisper_tpu_torch.quantize import quantize_kv, quantize_weight
 
-    L, C, H, T, Ta = 4, 1280, 20, 256, 1500
+    L, C, H, Ta, W = 4, 1280, 20, 1500, 8
     D = C // H
     B = A * G
     positions = [t] * B if isinstance(t, int) else list(t)
@@ -301,6 +336,7 @@ def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = "", form: 
     x32 = randn(B, C, scale=0.5)
     sk32, sv32 = randn(L, B, H, D, T), randn(L, B, H, D, T)  # each row its own history
     xk32, xv32 = randn(L, A, H, D, Ta), randn(L, A, H, D, Ta)  # one per audio, shared by its rows
+    pk32, pv32 = (randn(L, B, H, D, W), randn(L, B, H, D, W)) if pend_w is not None else (None, None)
     pos = t if isinstance(t, int) else torch.tensor(positions, device=device)
 
     rows = {}
@@ -313,6 +349,8 @@ def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = "", form: 
         if "kv_int8" in form:
             xk, xv = quantize_kv(xk), quantize_kv(xv)
         args = (blocks, H, x32.to(dtype), pos, sk32.to(dtype), sv32.to(dtype), xk, xv)
+        if pend_w is not None:
+            args += (pk32.to(dtype), pv32.to(dtype), pend_w)
         out = fused_decoder_layers(*args)
         ref = fused_decoder_layers_plain(*args)
         torch.cuda.synchronize()
@@ -323,9 +361,11 @@ def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = "", form: 
         device_ms = graph_ms(lambda: fused_decoder_layers(*args))
         plain_ms = time_ms(lambda: fused_decoder_layers_plain(*args))
         err_abs = (out[0].float() - ref[0].float()).abs().max().item()
-        kb = k2_bound(blocks, (L, B, A, C, T, Ta), positions, name, xk, xv)
+        kb = k2_bound(blocks, (L, B, A, C, T, Ta), positions, name, xk, xv, pend_w or 0)
         where = f"t={t}" if isinstance(t, int) else f"{len(set(positions))} positions in [{min(positions)}, {max(positions)}]"
-        log(f"K2 fused_decoder_layers{label} A={A} G={G} B={B} {where} {name}"
+        if pend_w is not None:
+            where = f"pending {pend_w} of {W} columns, block start {where}"
+        log(f"K2 fused_decoder_layers{label} A={A} G={G} B={B} T={T} {where} {name}"
             f"{' ' + form if form else ''}: max_abs_err hidden "
             f"{err_abs:.3e}; relative errors hidden/k_new/v_new {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
             f"(tol {K2_REL_TOL[name]:.0e}) kernel {ms:.4f} ms ({device_ms:.4f} ms replayed from a "
@@ -333,6 +373,27 @@ def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = "", form: 
         if not max(errs) <= K2_REL_TOL[name]:
             raise RuntimeError(f"K2 A={A} G={G} {name} disagrees with its plain version: {errs}")
         rows[name] = dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, library_ms=None, **kb)
+    return rows
+
+
+def check_k2_pending(gen, device):
+    """K2's pending variant at turbo shapes, T = 448, W = 8, pend_w 0, 3
+    and 7, bf16 and f32: one row in the int8+kv_int8 form at one block
+    start; 16 audios x 1 row and 3 x 5 rows at per-row block starts (two
+    of them at or past the cache's end).  Returns the pend_w = 7 rows by
+    layout."""
+    import torch
+
+    starts16 = [int(p) for p in torch.randperm(441, generator=torch.Generator().manual_seed(1))[:16]]
+    starts16[-1] = 448
+    layouts = {"int8": dict(form="int8+kv_int8", t=300), "multi": dict(A=16, t=starts16),
+               "groups": dict(A=3, G=5, t=[5, 120, 448, 447, 0] * 3)}
+    rows = {}
+    for name, kw in layouts.items():  # the same layouts at T = 448 without a block
+        check_k2(gen, device, T=448, label=" (no block)", **kw)
+    for pend_w in (0, 3, 7):
+        for name, kw in layouts.items():
+            rows[name] = check_k2(gen, device, T=448, pend_w=pend_w, label=" pending", **kw)
     return rows
 
 
@@ -491,22 +552,57 @@ def reset_launches():
 
 @contextlib.contextmanager
 def k2_positions(record: list, keep: bool):
-    """Records the positions the engine gives each decode step, which
-    passes them to K2 as they are: the shared int, or for a (B,) tensor a
-    copy of it (keep) or None."""
+    """Records the positions the engine gives each decode step, per-step
+    or in a write block, which passes them on as they are: the shared int,
+    or for a (B,) tensor a copy of it (keep) or None."""
     from whisper_tpu_torch import engine
 
-    real = engine.decoder_step_fused
+    real, real_pending = engine.decoder_step_fused, engine.decoder_step_fused_pending
 
-    def spy(params, dims, tokens, t, cache):
+    def note(t):
         record.append(t if isinstance(t, int) else (t.clone() if keep else None))
-        return real(params, dims, tokens, t, cache)
 
-    engine.decoder_step_fused = spy
+    def spy(params, dims, tokens, t, *rest):
+        note(t)
+        return real(params, dims, tokens, t, *rest)
+
+    def spy_pending(params, dims, tokens, t, *rest):
+        note(t)
+        return real_pending(params, dims, tokens, t, *rest)
+
+    engine.decoder_step_fused, engine.decoder_step_fused_pending = spy, spy_pending
     try:
         yield
     finally:
-        engine.decoder_step_fused = real
+        engine.decoder_step_fused, engine.decoder_step_fused_pending = real, real_pending
+
+
+def with_pending(tag: str = "") -> str:
+    """launches_by_layout's tag of a form with the pending block."""
+    return f"{tag}+pending" if tag else "pending"
+
+
+def k2_count(layout: dict, multi: bool, groups: bool, tag: str = "") -> int:
+    """K2's launches under the layouts of several audios (A > 1) of one row
+    (groups False) or of groups of rows (groups True), with the tag."""
+    return sum(n for key, n in layout.items()
+               if (key[0] > 1) == multi and (key[1] > 1) == groups
+               and key[2:] == ((tag,) if tag else ()))
+
+
+@contextlib.contextmanager
+def write_block(value):
+    """Every DecodingTask in the block decodes with this write block (None:
+    the policy's own)."""
+    from whisper_tpu_torch.decoding import DecodingTask
+
+    policy = DecodingTask.write_block
+    if value is not None:
+        DecodingTask.write_block = lambda self, n_audio: value
+    try:
+        yield
+    finally:
+        DecodingTask.write_block = policy
 
 
 def end_to_end(device, name: str = "turbo"):
@@ -688,21 +784,14 @@ def beam_window(model, audio, label: str = "", **options):
     return features, options, 1000 * wall / steps
 
 
-def prompts_window(model, audio, tag: str = "", **options):
-    """DecodingTask.run_with_prompts on 16 windows of jfk whose prompts have
-    four lengths, 0 and 223 tokens among them: every step of the loop must
-    run K2 once for the 16 rows (under its layout (16, 1), with the tag of
-    an int8 form), and in a last run (untimed) each step's positions must be
-    the rows' own, four different ones: the tensor the engine passed to K2's
-    step, read back after the run.  Returns (a function that runs it once,
-    ms per step)."""
+def sixteen_windows(model, audio):
+    """16 windows of jfk tiled, 1 s apart, on the card, and prompts of 0, 7,
+    64 and 223 tokens for them (four of each)."""
     import numpy as np
     import torch
 
     from whisper_tpu_torch import log_mel_spectrogram
     from whisper_tpu_torch.batch import _slice_windows
-    from whisper_tpu_torch.decoding import DecodingOptions, DecodingTask
-    from whisper_tpu_torch.ops.kernels import fused_step
 
     wave = np.tile(audio, 4)
     store = log_mel_spectrogram(wave, model.dims.n_mels, padding=16000 * 30, device=model.device)[None]
@@ -710,19 +799,47 @@ def prompts_window(model, audio, tag: str = "", **options):
     windows = _slice_windows(store, torch.zeros_like(seeks), seeks, torch.full_like(seeks, 3000))
     text = np.random.RandomState(1).randint(1000, 20000, size=223)
     lengths = [0, 7, 64, 223] * 4
-    prompts = [list(map(int, text[:n])) for n in lengths]
+    return windows, [list(map(int, text[:n])) for n in lengths], lengths
+
+
+def prompts_window(model, audio, tag: str = "", **options):
+    """DecodingTask.run_with_prompts on 16 windows of jfk whose prompts have
+    four lengths, 0 and 223 tokens among them, greedy, in turns with the
+    policy's 8-step write blocks and with per-step writes (block, step,
+    step, block after a warm-up of each): every step must run K2 once for
+    the 16 rows, under its layout (16, 1) with the tag of an int8 form and,
+    in blocks, of the pending block.  In a last run (untimed, in blocks)
+    each step's positions must be the rows' own, four different ones: the
+    tensor the engine passed to K2's step, read back after the run.
+    Returns (a function that runs it once, ms per step in blocks, a dict of
+    the launches of both engines and their ms per step)."""
+    import torch
+
+    from whisper_tpu_torch.decoding import DecodingOptions, DecodingTask
+    from whisper_tpu_torch.ops.kernels import fused_step
+
+    windows, prompts, lengths = sixteen_windows(model, audio)
     task = DecodingTask(model, DecodingOptions(language="en", temperature=0.0, **options))
+    if task.write_block(16) != 8:
+        raise RuntimeError(f"a 16-window decode of a wide decoder takes write blocks of 8, not "
+                           f"{task.write_block(16)}")
     layer = fused_step.fused_decoder_layers
-    walls = []
-    for _ in range(3):  # the first is a warm-up
-        reset_launches()
-        t0 = time.perf_counter()
-        results = task.run_with_prompts(windows, prompts)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        steps = layer.launches
-        multi = layer.launches_by_layout[(16, 1, tag) if tag else (16, 1)]
-    wall = min(walls[1:])
+    walls, launches = {8: [], 0: []}, {}
+    for wb in (8, 0, 8, 0, 0, 8):  # the first two are warm-ups
+        with write_block(wb):
+            reset_launches()
+            t0 = time.perf_counter()
+            results = task.run_with_prompts(windows, prompts)
+            torch.cuda.synchronize()
+            walls[wb].append(time.perf_counter() - t0)
+        key = (16, 1, with_pending(tag)) if wb else ((16, 1, tag) if tag else (16, 1))
+        launches[wb] = layer.launches_by_layout[key]
+        if not launches[wb] or launches[wb] != layer.launches or (wb and launches[wb] % wb):
+            raise RuntimeError(f"the prompts window with write block {wb} did not run every step on "
+                               f"K2 {key}: {dict(layer.launches_by_layout)}")
+        if len(results) != 16 or any(not 0 <= t < model.dims.n_vocab for r in results for t in r.tokens):
+            raise RuntimeError("run_with_prompts gave malformed results")
+    ms = {wb: 1000 * min(w[1:]) / launches[wb] for wb, w in walls.items()}
     record = []
     with k2_positions(record, keep=True):
         task.run_with_prompts(windows, prompts)
@@ -732,16 +849,26 @@ def prompts_window(model, audio, tag: str = "", **options):
         1 for i, t in enumerate(record)
         if not isinstance(t, int) and torch.equal(t.cpu(), begins + i) and len(set(t.tolist())) == 4
     )
-    log(f"run_with_prompts{' ' + tag if tag else ''}: 16 windows, prompt lengths {sorted(set(lengths))}, greedy: "
-        f"{steps} K2 launches of 16 audios x 1 row; wall {wall:.4f} s (best of 2 after a warm-up), "
-        f"{1000 * wall / steps:.4f} ms per step; recorded run: {per_row} of {len(record)} steps at "
+    log(f"run_with_prompts{' ' + tag if tag else ''}: 16 windows, prompt lengths {sorted(set(lengths))}, "
+        f"greedy, in turns: write blocks of 8: {launches[8]} K2 pending launches of 16 audios x 1 row, "
+        f"wall {min(walls[8][1:]):.4f} s (best of 2 after a warm-up), {ms[8]:.4f} ms per step; per-step "
+        f"writes: {launches[0]} K2 launches, wall {min(walls[0][1:]):.4f} s, {ms[0]:.4f} ms per step "
+        f"(blocks / per-step {ms[8] / ms[0]:.3f}); recorded run: {per_row} of {len(record)} steps at "
         f"the rows' own positions (first step {begins.tolist()})")
-    if not steps or multi != steps or per_row != steps or len(record) != steps:
-        raise RuntimeError(f"the prompts window did not run every step on K2 at per-row positions: "
-                           f"{steps}, {multi}, {per_row} of {len(record)}")
-    if len(results) != 16 or any(not 0 <= t < model.dims.n_vocab for r in results for t in r.tokens):
-        raise RuntimeError("run_with_prompts gave malformed results")
-    return (lambda: task.run_with_prompts(windows, prompts)), 1000 * wall / steps
+    if per_row != launches[8] or len(record) != launches[8]:
+        raise RuntimeError(f"the prompts window did not run every step at per-row positions: "
+                           f"{per_row} of {len(record)}, {launches[8]} steps")
+    return (lambda: task.run_with_prompts(windows, prompts)), ms[8], dict(launches=launches, ms=ms)
+
+
+def twenty_files(audio):
+    """Phase 12's 20 inputs cut and tiled from jfk (4-70 s, each from its
+    own offset), float32 at 16 kHz."""
+    import numpy as np
+
+    seconds = [4, 70, 12, 45, 8, 33, 25, 60, 6, 40, 18, 52, 10, 28, 65, 15, 36, 22, 48, 30]
+    tiled = np.tile(audio, 8)
+    return [tiled[int(0.37 * 16000 * i) :][: 16000 * n] for i, n in enumerate(seconds)]
 
 
 def _well_formed(result, n_samples: int, n_vocab: int) -> bool:
@@ -757,19 +884,16 @@ def batch_path(model, audio, tag: str = "", **options):
     """transcribe_batch on 20 inputs cut and tiled from jfk (4-70 s, each
     from its own offset), batch_size 16, T = 0, condition_on_previous_text:
     files go in groups of 16, and each round of a group decodes the next
-    window of its unfinished files, each row after its own file's prompt,
-    so the rows of a later round sit at their own positions (different
-    ones when their files' prompts differ in length: random weights may
-    give every file the same)."""
-    import numpy as np
+    window of its unfinished files in write blocks, each row after its own
+    file's prompt, so the rows of a later round sit at their own positions
+    (different ones when their files' prompts differ in length: random
+    weights may give every file the same)."""
     import torch
 
     from whisper_tpu_torch.decoding import DecodingTask
     from whisper_tpu_torch.ops.kernels import attention, fused_step
 
-    seconds = [4, 70, 12, 45, 8, 33, 25, 60, 6, 40, 18, 52, 10, 28, 65, 15, 36, 22, 48, 30]
-    tiled = np.tile(audio, 8)
-    files = [tiled[int(0.37 * 16000 * i) :][: 16000 * n] for i, n in enumerate(seconds)]
+    files = twenty_files(audio)
     calls = []  # the prompt lengths of each decode, as the engine saw them
     positions = []  # what each K2 call was given: an int, or None for per-row positions
     run = DecodingTask.run_with_prompts
@@ -790,10 +914,11 @@ def batch_path(model, audio, tag: str = "", **options):
     finally:
         DecodingTask.run_with_prompts = run
     layout = dict(fused_step.fused_decoder_layers.launches_by_layout)
-    multi = sum(n for key, n in layout.items() if key[0] > 1 and key[1] == 1 and key[2:] == ((tag,) if tag else ()))
-    launches = {"encoder_attention": attention.attention.launches, "fused_decoder_layers_multi": multi}
+    launches = {"encoder_attention": attention.attention.launches,
+                "fused_decoder_layers_pending_multi": k2_count(layout, True, False, with_pending(tag))}
     per_row = sum(t is None for t in positions)
-    log(f"transcribe_batch{' ' + tag if tag else ''}: {len(files)} files, {sum(seconds)} s of audio, batch_size 16, T=0: "
+    seconds = sum(len(f) for f in files) // 16000
+    log(f"transcribe_batch{' ' + tag if tag else ''}: {len(files)} files, {seconds} s of audio, batch_size 16, T=0: "
         f"wall {wall:.3f} s, {len(calls)} rounds of {[len(c) for c in calls]} rows, "
         f"prompt lengths per round {[sorted(set(c)) for c in calls]}, "
         f"{sum(len(r['segments']) for r in results)} segments, launches {launches}, "
@@ -812,8 +937,9 @@ def chunked_cli_path(model, audio, tag: str = "", **options):
     """``python -m whisper_tpu_torch jfk110.wav --chunked True
     --word_timestamps True --highlight_words True`` after load_model: jfk
     tiled to 110 s in five 30 s chunks, beam 5 at T = 0 and best-of 5 on the
-    0.2-step ladder (25 rows of five audios), word timestamps, every
-    writer.  K2's groups are counted under the tag of an int8 form."""
+    0.2-step ladder (25 rows of five audios, in write blocks), word
+    timestamps, every writer.  K2's groups are counted under the tag of an
+    int8 form."""
     import numpy as np
     import torch
 
@@ -832,8 +958,9 @@ def chunked_cli_path(model, audio, tag: str = "", **options):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     layout = dict(fused_step.fused_decoder_layers.launches_by_layout)
-    launches = {"fused_decoder_layers_groups": sum(
-                    n for key, n in layout.items() if key[0] > 1 < key[1] and key[2:] == ((tag,) if tag else ())),
+    # beam 5 writes per step; the best-of rungs of the five chunks in blocks
+    launches = {"fused_decoder_layers_groups": k2_count(layout, True, True, tag),
+                "fused_decoder_layers_pending_groups": k2_count(layout, True, True, with_pending(tag)),
                 "median_filter": median.median_filter.launches, "dtw_trace": dtw.dtw_trace.launches}
     with tempfile.TemporaryDirectory() as out_dir:
         get_writer("all", out_dir)(result, "jfk110.wav", highlight_words=True, max_line_count=None,
@@ -896,13 +1023,14 @@ def int8_path(model, audio, forced, bf16: dict):
     weights quantized "int8+logits" (quantize_params, as load_model(...,
     quantize="int8+logits") does on the card) and decoded with
     kv_cache_dtype="int8".  The model's bytes; the greedy transcribe(jfk)
-    with its kernels' launches; the pinned window, the beam-5 window, the
-    16-window run_with_prompts and transcribe_batch, each beside the same
-    run's bf16 number (the pinned window in turns); int8_divergence_proxy
-    on three windows; the --chunked CLI path (groups of rows of several
-    audios).  Returns the int8 kernels' launch counts, and the
-    int8 model with its beam-5 window and run_with_prompts (for
-    --profile)."""
+    with its kernels' launches (one row in write blocks: K2's int8 pending
+    instance); the pinned window in turns with bf16's and with its own
+    per-step writes; the beam-5 window, the 16-window run_with_prompts (in
+    blocks and per step) and transcribe_batch, each beside the same run's
+    bf16 number; int8_divergence_proxy on three windows; the --chunked CLI
+    path (groups of rows of several audios).  Returns the int8 kernels'
+    launch counts, and the int8 model with its beam-5 window and
+    run_with_prompts (for --profile)."""
     import numpy as np
     import torch
 
@@ -936,7 +1064,7 @@ def int8_path(model, audio, forced, bf16: dict):
     wall = time.perf_counter() - t0
     layout = fused_step.fused_decoder_layers.launches_by_layout
     launches = {"encoder_attention": attention.attention.launches,
-                "fused_decoder_layers_int8": layout[(1, 1, tag)],
+                "fused_decoder_layers_pending_int8_transcribe": layout[(1, 1, with_pending(tag))],
                 "mlp_fused": mlp.mlp_fused.launches,
                 "int8_logits": fused_step.int8_logits.launches}
     log(f"int8 transcribe(jfk.flac, language=None, kv_cache_dtype='int8'): language "
@@ -946,24 +1074,37 @@ def int8_path(model, audio, forced, bf16: dict):
         not 0 <= t < qmodel.dims.n_vocab for s in result["segments"] for t in s["tokens"]
     ):
         raise RuntimeError("the int8 transcribe gave a malformed result")
-    if min(launches.values()) <= 0 or set(layout) != {(1, 1, tag)}:
+    if min(launches.values()) <= 0 or set(layout) != {(1, 1, with_pending(tag))}:
         raise RuntimeError(f"the int8 path missed a kernel or ran another K2 form: {launches}, {dict(layout)}")
 
-    walls = {"bf16": [], "int8": []}
-    for m, name in ((model, "bf16"), (qmodel, "int8"), (qmodel, "int8"), (model, "bf16")) * 2:
-        walls[name] += pinned_walls(m, audio, forced, runs=1, **(opts if name == "int8" else {}))
+    # in turns: bf16 (per-step writes, the policy for one unquantized row),
+    # int8 in blocks (the policy), int8 with per-step writes
+    walls = {"bf16": [], "int8": [], "int8 per-step": []}
+    reset_launches()
+    for name in ("bf16", "int8", "int8 per-step", "int8 per-step", "int8", "bf16") * 2:
+        with write_block(0 if name == "int8 per-step" else None):
+            walls[name] += pinned_walls(model if name == "bf16" else qmodel, audio, forced, runs=1,
+                                        **({} if name == "bf16" else opts))
+    launches["fused_decoder_layers_int8"] = layout[(1, 1, tag)]
+    pending = layout[(1, 1, with_pending(tag))]
     pinned = {name: 1000 * float(np.median(w)) / len(forced) for name, w in walls.items()}
-    log(f"pinned window, in turns (bf16, int8, int8, bf16, twice): ms per token int8 "
-        f"{pinned['int8']:.4f}, bf16 {pinned['bf16']:.4f} (medians of 4)")
+    log(f"pinned window, in turns (bf16, int8, int8 per-step, int8 per-step, int8, bf16, twice): ms "
+        f"per token int8 in blocks {pinned['int8']:.4f}, int8 per-step {pinned['int8 per-step']:.4f}, "
+        f"bf16 {pinned['bf16']:.4f} (medians of 4); K2 int8 launches {pending} in blocks, "
+        f"{launches['fused_decoder_layers_int8']} per step")
+    if pending <= 0 or launches["fused_decoder_layers_int8"] <= 0:
+        raise RuntimeError(f"the int8 pinned windows missed K2's int8 instances: {dict(layout)}")
 
     reset_launches()
     beam = beam_window(qmodel, audio, label=" int8", **opts)
     launches["fused_decoder_layers_b5_int8"] = layout[(1, 5, tag)]
-    prompts_fn, prompts = prompts_window(qmodel, audio, tag=tag, **opts)
+    prompts_fn, prompts, turns = prompts_window(qmodel, audio, tag=tag, **opts)
+    launches["fused_decoder_layers_multi_int8"] = turns["launches"][0]
     batch_launches, batch_wall = batch_path(qmodel, audio, tag=tag, **opts)
-    launches["fused_decoder_layers_multi_int8"] = batch_launches["fused_decoder_layers_multi"]
-    launches["fused_decoder_layers_groups_int8"] = chunked_cli_path(
-        qmodel, audio, tag=tag, **opts)[0]["fused_decoder_layers_groups"]
+    launches["fused_decoder_layers_pending_multi_int8"] = batch_launches["fused_decoder_layers_pending_multi"]
+    chunked = chunked_cli_path(qmodel, audio, tag=tag, **opts)[0]
+    launches["fused_decoder_layers_groups_int8"] = chunked["fused_decoder_layers_groups"]
+    launches["fused_decoder_layers_pending_groups_int8"] = chunked["fused_decoder_layers_pending_groups"]
     log(f"int8 against bf16: beam-5 window {beam[2]:.4f} / {bf16['beam']:.4f} ms per step; "
         f"run_with_prompts 16 windows {prompts:.4f} / {bf16['prompts']:.4f} ms per step; "
         f"transcribe_batch 20 files {batch_wall:.3f} / {bf16['batch']:.3f} s")
@@ -981,11 +1122,12 @@ def int8_path(model, audio, forced, bf16: dict):
 
 def column_write(device):
     """The per-row K/V column write at B=16 (turbo, T=448: the prompts
-    window's cache) beside K2's step at the same shapes: the condition for
-    porting the pending-block variant."""
+    window's cache) beside K2's step at the same shapes; and the write
+    block's path per step: the engine's W = 8 pending-column writes and one
+    flush_pending per block, at per-row and at one shared block start."""
     import torch
 
-    from whisper_tpu_torch.models.whisper import KVCache, _write_kv_column
+    from whisper_tpu_torch.models.whisper import KVCache, _write_kv_column, flush_pending
     from whisper_tpu_torch.ops.kernels.fused_step import WEIGHTS, fused_decoder_layers
 
     L, B, C, H, T, Ta = 4, 16, 1280, 20, 448, 1500
@@ -1015,7 +1157,258 @@ def column_write(device):
         f"launches), one shared position {device_only['uniform']:.4f} ms ({eager['uniform']:.4f} ms "
         f"eager), beside K2's step at the same shapes {step_ms:.4f} ms (per-row device time / "
         f"step {device_only['per_row'] / step_ms:.3f})")
-    return dict(device_only, step_ms=step_ms)
+
+    W = 8
+    pend_k, pend_v = randn(L, B, H, 64, W), randn(L, B, H, 64, W)
+
+    def block(start):
+        def run():  # _step_pending's column writes, then the flush
+            for w in range(W):
+                pend_k[..., w] = k_new.view(L, B, H, 64)
+                pend_v[..., w] = v_new.view(L, B, H, 64)
+            flush_pending(cache, pend_k, pend_v, start)
+        return run
+
+    blocks_ms = {name: graph_ms(block(start)) / W for name, start in (("per_row", pos), ("uniform", 200))}
+    log(f"write path per step at B=16, T=448, W={W}, bf16 (graph replay of one block / {W}): "
+        f"pending-column writes + flush at per-row block starts {blocks_ms['per_row']:.4f} ms, at one "
+        f"shared start {blocks_ms['uniform']:.4f} ms; per-step column writes {device_only['per_row']:.4f} "
+        f"and {device_only['uniform']:.4f} ms")
+    return dict(device_only, step_ms=step_ms, blocks=blocks_ms)
+
+
+def f32_block_check(device, audio):
+    """In f32 (random turbo weights, seed 3), the 16-window run_with_prompts
+    without timestamps, with a pinned sequence of 109 text tokens that no
+    filter masks, then EOT (random weights have near-tied logits, so
+    free-running tokens may part for reasons that are no fault): the
+    write-block engine's tokens must equal the per-step engine's and its
+    avg_logprob lie within 1e-5 of it.  Then the same decode free-running,
+    whose agreement is reported."""
+    import numpy as np
+    import torch
+
+    import whisper_tpu_torch
+    from whisper_tpu_torch.decoding import DecodingOptions, DecodingTask
+    from whisper_tpu_torch.models import KNOWN_MODELS
+    from whisper_tpu_torch.models.whisper import init_params
+
+    dims = KNOWN_MODELS["turbo"]
+    gen = torch.Generator(device=device).manual_seed(3)
+    model = whisper_tpu_torch.Whisper(dims, init_params(dims, gen, torch.float32, device))
+    windows, prompts, _ = sixteen_windows(model, audio)
+    task = DecodingTask(model, DecodingOptions(language="en", temperature=0.0, without_timestamps=True))
+    allowed = np.flatnonzero(~task._suppress_mask.cpu().numpy()[1000:20000]) + 1000
+    forced = [int(t) for t in np.random.RandomState(0).choice(allowed, 109)] + [task.tokenizer.eot]
+    results = {}
+    for pinned in (True, False):
+        task._forced_tokens = forced if pinned else None
+        for wb in (8, 0):
+            with write_block(wb):
+                results[pinned, wb] = task.run_with_prompts(windows, prompts)
+    torch.cuda.synchronize()
+    same = {p: sum(a.tokens == b.tokens for a, b in zip(results[p, 8], results[p, 0])) for p in (True, False)}
+    diff = max(abs(a.avg_logprob - b.avg_logprob) for a, b in zip(results[True, 8], results[True, 0]))
+    finite = sum(math.isfinite(r.avg_logprob) for r in results[True, 8])
+    log(f"f32 write blocks against per-step writes, 16 windows without timestamps: pinned {len(forced)}-token "
+        f"sequence: {same[True]} of 16 rows with equal tokens, max |avg_logprob difference| {diff:.3e} "
+        f"(bound 1e-5; {finite} of 16 finite); free-running: {same[False]} of 16 rows with equal tokens")
+    del model
+    torch.cuda.empty_cache()
+    if same[True] != 16 or finite != 16 or not diff <= 1e-5:
+        raise RuntimeError(f"the write-block engine departs from the per-step engine in f32: {same}, {diff}")
+
+
+def _wav_bytes(wave) -> bytes:
+    """16-bit mono WAV at 16 kHz of a float waveform (jfk's samples are
+    16-bit values over 32768, so the round trip is exact)."""
+    import io
+    import wave as wave_mod
+
+    import numpy as np
+
+    pcm = np.clip(np.round(np.asarray(wave) * 32768.0), -32768, 32767).astype(np.int16)
+    buf = io.BytesIO()
+    with wave_mod.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+def _post(port: int, query: str, body: bytes, first_line: bool = False):
+    """POST /v1/audio/transcriptions?query; (status, body bytes, seconds to
+    the first NDJSON line or None, seconds to the whole answer)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", f"/v1/audio/transcriptions{query}", body=body)
+    resp = conn.getresponse()
+    data, t_first = b"", None
+    if first_line:
+        while chunk := resp.read(1):
+            data += chunk
+            if chunk == b"\n" and t_first is None:
+                t_first = time.perf_counter() - t0
+    else:
+        data = resp.read()
+    total = time.perf_counter() - t0
+    conn.close()
+    return resp.status, data, t_first, total
+
+
+def server_path(model, audio, profile: bool = False):
+    """The batching HTTP server end to end (make_server on an ephemeral
+    port of 127.0.0.1, batch_size 16, max_wait_s 0.25, in a thread): after
+    a warm-up of the batch and stream paths, phase 12's 20 files as WAV
+    bodies from 20 client threads at once (language en, T = 0); then a
+    stream=true and a chunked=true&stream=true request on jfk tiled to 70
+    s.  With profile, the 20 requests once more under torch.profiler: the
+    card's busy time and idle share.  Returns the launches of the 20
+    requests."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.ops.kernels import attention, fused_step
+    from whisper_tpu_torch.serve import make_server
+
+    files = twenty_files(audio)
+    bodies = [_wav_bytes(f) for f in files]
+    long_body = _wav_bytes(np.tile(audio, 7)[: 16000 * 70])
+    query = "?language=en&temperature=0"
+    server = make_server(model, port=0, batch_size=16, max_wait_s=0.25)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_port
+    try:
+        for q in (query, query + "&stream=true"):  # warm-up: the native decoder, both paths
+            status, data, _, _ = _post(port, q, bodies[0])
+            if status != 200:
+                raise RuntimeError(f"the server's warm-up failed: {status} {data[:200]!r}")
+        before = dict(server.batcher.stats)
+        answers = [None] * len(files)
+
+        def client(i):
+            answers[i] = _post(port, query, bodies[i])
+
+        def send_all() -> float:
+            clients = [threading.Thread(target=client, args=(i,)) for i in range(len(files))]
+            t0 = time.perf_counter()
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        reset_launches()
+        wall = send_all()
+        layout = dict(fused_step.fused_decoder_layers.launches_by_layout)
+        launches = {"encoder_attention": attention.attention.launches,
+                    "fused_decoder_layers_pending_multi": k2_count(layout, True, False, "pending")}
+        stats = {k: server.batcher.stats[k] - before[k] for k in before}
+        bad = []
+        for i, (status, data, _, _) in enumerate(answers):
+            body = json.loads(data)
+            if status != 200 or set(body) != {"text", "language", "segments"} or body["language"] != "en" \
+                    or not isinstance(body["text"], str) or any(
+                        not 0 <= seg["start"] <= seg["end"] or not isinstance(seg["text"], str)
+                        for seg in body["segments"]):
+                bad.append((i, status, data[:200]))
+        conn_health = _health(port)
+        latencies = sorted(a[3] for a in answers)
+        audio_s = sum(len(f) for f in files) / 16000
+        log(f"server: {len(files)} concurrent requests ({audio_s:.0f} s of audio, WAV bodies, "
+            f"language en, T=0), batch_size 16, max_wait 0.25 s: wall {wall:.3f} s, "
+            f"{len(files) / wall:.3f} requests/s, {audio_s / wall:.3f} audio s per wall s, latency "
+            f"p50 {float(np.percentile(latencies, 50)):.3f} s p95 {float(np.percentile(latencies, 95)):.3f} s, "
+            f"batcher stats {stats}, mean batch occupancy {stats['requests'] / max(stats['batches'], 1) / 16:.3f}, "
+            f"launches {launches}, K2 launches by layout {layout}, /healthz {conn_health}")
+        if bad or stats["errors"] or stats["batches"] < 2:
+            raise RuntimeError(f"the server answered badly: {bad[:3]}, stats {stats}")
+        if min(launches.values()) <= 0:
+            raise RuntimeError(f"a kernel of the server path never launched: {launches}")
+        if profile:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as profiler
+
+            with profiler(activities=[ProfilerActivity.CUDA]) as prof:
+                again = send_all()
+            busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+            log(f"profile server, 20 concurrent requests: wall {again:.3f} s, device busy {busy:.3f} s, "
+                f"idle share {1 - busy / again:.3f}")
+
+        for q, name in ((query + "&stream=true", "stream"),
+                        (query + "&chunked=true&stream=true", "chunked stream")):
+            reset_launches()
+            status, data, t_first, total = _post(port, q, long_body, first_line=True)
+            lines = [json.loads(line) for line in data.decode().splitlines() if line]
+            segments = lines[:-1]
+            log(f"server {name} (jfk tiled to 70 s): {status}, {len(segments)} segment lines, first line "
+                f"after {t_first:.3f} s of {total:.3f} s, K2 launches by layout "
+                f"{dict(fused_step.fused_decoder_layers.launches_by_layout)}")
+            if (status != 200 or not lines or lines[-1].get("done") is not True or not segments
+                    or any("error" in line for line in lines)
+                    or [seg["id"] for seg in segments] != list(range(len(segments)))):
+                raise RuntimeError(f"the {name} answer is malformed: {status} {data[-300:]!r}")
+    finally:
+        server.shutdown()
+        server.batcher.close(drain=False)
+        thread.join(timeout=60)
+    return launches
+
+
+def _health(port: int) -> dict:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", "/healthz")
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    conn.close()
+    if resp.status != 200 or body.get("status") != "ok":
+        raise RuntimeError(f"/healthz answered {resp.status} {body}")
+    return body
+
+
+def int8_streaming(qmodel, audio):
+    """StreamingTranscriber on the int8 model with kv_cache_dtype="int8",
+    fed jfk tiled to 44 s in 5 s pushes: one window decodes at a push, the
+    rest at flush, each one row in write blocks (K2's one-row int8 pending
+    instance).  Returns its launches."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch import StreamingTranscriber
+    from whisper_tpu_torch.ops.kernels import attention, fused_step
+
+    wave = np.tile(audio, 4)
+    reset_launches()
+    t0 = time.perf_counter()
+    st = StreamingTranscriber(qmodel, language="en", temperature=0.0, kv_cache_dtype="int8")
+    emitted, at_push = [], 0
+    for off in range(0, len(wave), 5 * 16000):
+        emitted += st.push(wave[off : off + 5 * 16000])
+    at_push = len(emitted)
+    emitted += st.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    layout = dict(fused_step.fused_decoder_layers.launches_by_layout)
+    launches = {"encoder_attention": attention.attention.launches,
+                "fused_decoder_layers_pending_int8": layout.get((1, 1, "int8+kv_int8+pending"), 0)}
+    result = st.result
+    log(f"StreamingTranscriber int8 (kv_cache_dtype='int8', jfk tiled to {len(wave) / 16000:.1f} s in 5 s "
+        f"pushes): {len(emitted)} segments ({at_push} at pushes), seek {st.seek}, wall {wall:.3f} s, "
+        f"launches {launches}, K2 launches by layout {layout}")
+    if emitted != result["segments"] or not _well_formed(result, len(wave), qmodel.dims.n_vocab):
+        raise RuntimeError("the int8 stream gave a malformed result")
+    if min(launches.values()) <= 0 or set(layout) != {(1, 1, "int8+kv_int8+pending")}:
+        raise RuntimeError(f"the int8 stream missed K2's one-row int8 pending instance: {layout}")
+    return launches
 
 
 def host_split(fn, steps: int, label: str) -> None:
@@ -1034,10 +1427,11 @@ def host_split(fn, steps: int, label: str) -> None:
     per_step = {}
     for (_, _, fn_name), (_, calls, own, cum, _) in pstats.Stats(profiler).stats.items():
         if fn_name in ("apply_logit_filters", "_greedy_update", "_beam_update", "decoder_step_fused",
-                       "fused_decoder_layers", "project_logits"):
+                       "decoder_step_fused_pending", "flush_pending", "fused_decoder_layers",
+                       "project_logits"):
             per_step[fn_name] = (calls, 1e3 * cum)
-        elif fn_name == "decode_engine":  # its own time holds completed's read-back
-            per_step["decode_engine (own time)"] = (calls, 1e3 * own)
+        elif fn_name in ("decode_engine", "_block_loop"):  # own time: completed's read-back
+            per_step[f"{fn_name} (own time)"] = (calls, 1e3 * own)
     log(f"profile host per step of the {label} (cProfile, total ms / {steps} steps): " + ", ".join(
         f"{k} {ms / steps:.3f} ms ({calls} calls)" for k, (calls, ms) in sorted(per_step.items())))
 
@@ -1118,8 +1512,9 @@ def profile_window(model, audio, forced, beam, prompts, int8) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="after the phases, profile the pinned window, the beam-5 window and "
-                        "the 16-window run_with_prompts (device idle share, host time per step)")
+                        help="profile the server's 20 requests and, after the phases, the pinned "
+                        "window, the beam-5 window and the 16-window run_with_prompts (device idle "
+                        "share, host time per step)")
     args = parser.parse_args()
 
     import torch
@@ -1155,16 +1550,18 @@ def main() -> int:
     # (its chunks carry no prompt), four on a rung that re-decodes four
     k2ag = check_k2(gen, device, A=5, G=5, label=" groups")
     check_k2(gen, device, A=4, G=5, label=" groups")
+    k2p = check_k2_pending(gen, device)
     k3 = check_k3(gen, device)
     k4 = check_k4(gen, device)
     launches, model, audio, forced = end_to_end(device)
     cli_launches = cli_default_path(model)
     beam = beam_window(model, audio)
-    prompts, prompts_ms = prompts_window(model, audio)
+    prompts, prompts_ms, turns = prompts_window(model, audio)
     batch_launches, batch_wall = batch_path(model, audio)
     chunked_launches, wave, chunked = chunked_cli_path(model, audio)
     align_path(model, wave, chunked)
     column_write(device)
+    f32_block_check(device, audio)
     # int8: K2's int8 instances (int8 weights with the cross K/V in bf16, and
     # both int8) at the layouts of the int8 paths, both compute dtypes; K5;
     # the int8 logits; then the int8 configuration end to end
@@ -1180,11 +1577,14 @@ def main() -> int:
     logits = check_int8_logits(gen, device)
     int8_launches, int8 = int8_path(model, audio, forced,
                                     dict(beam=beam[2], prompts=prompts_ms, batch=batch_wall))
+    server_launches = server_path(model, audio, profile=args.profile)
+    stream_launches = int8_streaming(int8[0], audio)
     if args.profile:
         profile_window(model, audio, forced, beam, prompts, int8)
 
     fused = dict(route="cuda", source="whisper_tpu_torch/csrc/fused_step.cu",
                  replaces="whisper_tpu/ops/kernels/fused_step_pallas.py:301")
+    pending = dict(fused, replaces="whisper_tpu/ops/kernels/fused_step_pallas.py:312")
     kernels = [
         dict(name="encoder_attention", route="cuda",
              source="whisper_tpu_torch/csrc/attention.cu",
@@ -1195,11 +1595,12 @@ def main() -> int:
              launches=launches["fused_decoder_layers"], **k2["bfloat16"]),
         dict(name="fused_decoder_layers_b5", **fused,
              launches=cli_launches["fused_decoder_layers_b5"], **k2g["bfloat16"]),
-        # several audios: one row each (transcribe_batch's count, timed at
-        # A=B=16) and groups of rows (the chunked path's count, timed at its
-        # 5 x 5)
+        # several audios: one row each (the 16-window decode's per-step turn,
+        # timed at A=B=16; every other batch of a wide decoder writes in
+        # blocks) and groups of rows (the chunked path's beam count, timed at
+        # its 5 x 5)
         dict(name="fused_decoder_layers_multi", **fused,
-             launches=batch_launches["fused_decoder_layers_multi"], **k2m["bfloat16"]),
+             launches=turns["launches"][0], **k2m["bfloat16"]),
         dict(name="fused_decoder_layers_groups", **fused,
              launches=chunked_launches["fused_decoder_layers_groups"], **k2ag["bfloat16"]),
         dict(name="median_filter", route="cuda", source="whisper_tpu_torch/csrc/median.cu",
@@ -1208,10 +1609,11 @@ def main() -> int:
         dict(name="dtw_trace", route="cuda", source="whisper_tpu_torch/csrc/dtw.cu",
              replaces="whisper_tpu/ops/kernels/dtw_pallas.py:80",
              launches=cli_launches["dtw_trace"], **k4),
-        # the int8 configuration (int8 weights and cross K/V): B=1 and the
-        # MLP stage (K5's code, timed alone at B=1, int8) and the int8
-        # logits, the greedy transcribe's counts; B=5 the int8 beam window's;
-        # 16 x 1 the int8 transcribe_batch's; 5 x 5 the int8 --chunked path's
+        # the int8 configuration (int8 weights and cross K/V): B=1 the int8
+        # pinned window's per-step turns; the MLP stage (K5's code, timed
+        # alone at B=1, int8) and the int8 logits, the greedy transcribe's
+        # counts; B=5 the int8 beam window's; 16 x 1 the int8 16-window
+        # decode's per-step turn; 5 x 5 the int8 --chunked path's beam
         dict(name="fused_decoder_layers_int8", **fused,
              launches=int8_launches["fused_decoder_layers_int8"], **k2q["int8+kv_int8", 1]["bfloat16"]),
         dict(name="fused_decoder_layers_b5_int8", **fused,
@@ -1228,6 +1630,16 @@ def main() -> int:
         dict(name="int8_logits", route="cuda", source="whisper_tpu_torch/csrc/fused_step.cu",
              replaces="whisper_tpu/models/whisper.py:869",
              launches=int8_launches["int8_logits"], **logits[1]),
+        # the pending block, timed at T=448 with 7 of 8 columns valid: 16 x
+        # 1 the server's 20 requests' count; one int8+kv_int8 row the int8
+        # stream's; 3 x 5 (timed) and 5 x 5 (counted) the chunked path's
+        # best-of rungs
+        dict(name="fused_decoder_layers_pending_multi", **pending,
+             launches=server_launches["fused_decoder_layers_pending_multi"], **k2p["multi"]["bfloat16"]),
+        dict(name="fused_decoder_layers_pending_int8", **pending,
+             launches=stream_launches["fused_decoder_layers_pending_int8"], **k2p["int8"]["bfloat16"]),
+        dict(name="fused_decoder_layers_pending_groups", **pending,
+             launches=chunked_launches["fused_decoder_layers_pending_groups"], **k2p["groups"]["bfloat16"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

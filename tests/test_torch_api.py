@@ -1,9 +1,11 @@
 """whisper_tpu_torch's public signatures against whisper_tpu's.
 
 ``transcribe``, ``decode``, ``load_model`` and the many-file entry points
-``transcribe_batch``, ``transcribe_chunked`` and ``align`` must take the
-same parameters (names, kinds and defaults, in order), ``DecodingOptions`` must have the same
-fields with the same defaults, and ``cli`` must declare the same flags with
+``transcribe_batch``, ``transcribe_chunked`` and ``align``, and the serving
+layer's ``BatchingTranscriber``, ``StreamingTranscriber``, ``make_server``
+and ``serve`` must take the same parameters (names, kinds and defaults, in
+order), ``DecodingOptions`` must have the same fields with the same
+defaults, and ``cli`` and ``serve.main`` must declare the same flags with
 the same defaults.  A difference fails unless it is on the allow-list below,
 which names why it stands: a later slice of the port, or a deliberate
 difference of the port.  Annotations are not compared: they name each
@@ -26,6 +28,8 @@ from whisper_tpu_torch.decoding import DecodingOptions as TOptions
 # the modules (each package's __init__ rebinds the name to the function)
 jtranscribe = importlib.import_module("whisper_tpu.transcribe")
 ttranscribe = importlib.import_module("whisper_tpu_torch.transcribe")
+jserve = importlib.import_module("whisper_tpu.serve")
+tserve = importlib.import_module("whisper_tpu_torch.serve")
 
 # (where, name) -> why the port differs
 ALLOWED = {
@@ -34,6 +38,12 @@ ALLOWED = {
     # the port never picks a device by itself: CUDA unless told otherwise
     ("load_model", "device"): "default 'cuda' (whisper_tpu: None, JAX's default backend)",
     ("cli", "--device"): "default 'cuda' (whisper_tpu: None, JAX's default backend)",
+    ("serve.main", "--device"): "the torch device, 'cuda' by default (whisper_tpu: JAX's default backend)",
+    # the same parameter in both, which the port refuses for now
+    ("BatchingTranscriber", "mesh"): "multi-device serving raises: ROADMAP Queue 1 item 19",
+    ("make_server", "mesh"): "multi-device serving raises: ROADMAP Queue 1 item 19",
+    ("serve", "mesh"): "multi-device serving raises: ROADMAP Queue 1 item 19",
+    ("serve.main", "--mesh"): "multi-device serving raises: ROADMAP Queue 1 item 19",
 }
 
 
@@ -74,9 +84,9 @@ class _Parsed(Exception):
     pass
 
 
-def _cli_flags(module, monkeypatch):
-    """The flags ``module.cli`` declares, {option: default}, captured at its
-    parse_args call (which is stopped there)."""
+def _cli_flags(entry, monkeypatch):
+    """The flags a command-line entry point declares, {option: default},
+    captured at its parse_args call (which is stopped there)."""
     seen = {}
 
     def capture(parser, *args, **kwargs):
@@ -87,16 +97,37 @@ def _cli_flags(module, monkeypatch):
 
     monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
     with pytest.raises(_Parsed):
-        module.cli()
+        entry()
     monkeypatch.undo()
     return seen
 
 
 def test_cli_signature_and_flags_match(monkeypatch):
     assert _params(jtranscribe.cli) == _params(ttranscribe.cli) == {}
-    ref, port = _cli_flags(jtranscribe, monkeypatch), _cli_flags(ttranscribe, monkeypatch)
+    ref, port = _cli_flags(jtranscribe.cli, monkeypatch), _cli_flags(ttranscribe.cli, monkeypatch)
     assert "--word_timestamps" in port and "--beam_size" in port
     assert _diff("cli", ref, port) == []
+
+
+@pytest.mark.parametrize("name", ["BatchingTranscriber", "make_server", "serve"])
+def test_serving_signatures_match(name):
+    ref, port = _params(getattr(jserve, name)), _params(getattr(tserve, name))
+    assert _diff(name, ref, port) == []
+    assert list(ref) == list(port), "parameter order"
+
+
+def test_streaming_transcriber_signature_matches():
+    ref = _params(whisper_tpu.StreamingTranscriber)
+    port = _params(whisper_tpu_torch.StreamingTranscriber)
+    assert _diff("StreamingTranscriber", ref, port) == [] and list(ref) == list(port)
+    assert "StreamingTranscriber" in whisper_tpu_torch.__all__
+
+
+def test_serve_main_flags_match(monkeypatch):
+    assert _params(jserve.main) == _params(tserve.main)
+    ref, port = _cli_flags(jserve.main, monkeypatch), _cli_flags(tserve.main, monkeypatch)
+    assert "--quantize" in port and port["--device"] == "cuda"
+    assert _diff("serve.main", ref, port) == []
 
 
 def test_many_file_entry_points_are_model_methods():

@@ -16,10 +16,13 @@ row, at grouped rows (bf16 above one row on the tensor cores), and at
 per-row positions for A audios of G rows (A = B up to 16, 3 x 5 and 16 x 5
 = 80 rows).  K2 with int8 weights and/or int8 cross K/V, and K5 (its MLP
 stage on its own, bf16/f32 or int8): the same bounds as K2, against their
-plain versions on the same int8 values.  The int8 logits: max error 1e-5
-of max |plain| (both sum exact products in f32; only the order differs).
-K3 and K4 select: their outputs must equal the plain versions' bit for
-bit.
+plain versions on the same int8 values.  K2 with a pending block (W = 8,
+0, 3 or 7 columns valid, block starts per row past the cache for some):
+K2's bounds.  The int8 logits: max error 1e-5 of max |plain| (both sum
+exact products in f32; only the order differs).  K3 and K4 select: their
+outputs must equal the plain versions' bit for bit.  A wide decoder's
+batch decodes in write blocks, through K2's pending variant, the tokens of
+per-step writes.
 """
 
 import numpy as np
@@ -229,6 +232,40 @@ def test_k2_int8_at_width_1280(cuda, dtype, B):
     assert max(_k2_rel_errors(out, ref)) <= K2_REL_TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["", "int8+kv_int8"])
+@pytest.mark.parametrize("A,G,per_row", [(1, 1, False), (16, 1, True), (3, 5, True), (2, 1, False)])
+@pytest.mark.parametrize("pend_w", [0, 3, 7])
+def test_k2_pending_matches_plain(cuda, dtype, form, A, G, per_row, pend_w):
+    """K2's pending variant: each row attends its cache positions < its
+    block start, the first pend_w of its 8 pending columns and its new
+    token; counted under its layout with the "pending" tag."""
+    B, T, W = A * G, 64, 8
+    blocks, H, x, caches = _k2_inputs(cuda, dtype, L=2, T=T, B=B, A=A)
+    if form:
+        blocks, caches = _int8_form(blocks, caches, form)
+    gen = torch.Generator(device=cuda).manual_seed(B + pend_w)
+    pend = [torch.randn((2, B, H, 64, W), generator=gen, device=cuda).to(dtype) for _ in range(2)]
+    start = 40
+    if per_row:  # some blocks start at or past the cache's end
+        start = torch.randint(0, T + W, (B,), generator=gen, device=cuda)
+        start[0], start[-1] = 0, T + 3
+    key = (A, G, "+".join(filter(None, (form, "pending"))))
+    layout = k2.fused_decoder_layers.launches_by_layout[key]
+    out = k2.fused_decoder_layers(blocks, H, x, start, *caches, *pend, pend_w)
+    assert k2.fused_decoder_layers.launches_by_layout[key] == layout + 1
+    ref = k2.fused_decoder_layers_plain(blocks, H, x, start, *caches, *pend, pend_w)
+    assert max(_k2_rel_errors(out, ref)) <= K2_REL_TOL[dtype]
+
+
+def test_k2_pending_refuses_a_bad_block(cuda):
+    blocks, H, x, caches = _k2_inputs(cuda, torch.float32, L=1, T=8, Ta=16, B=2)
+    pk = torch.zeros((1, 2, H, 64, 8), device=cuda)
+    for pend in ((pk, pk.to(torch.bfloat16), 1), (pk, pk, 9), (pk[:, :1], pk[:, :1], 0)):
+        with pytest.raises(ValueError):
+            k2.fused_decoder_layers(blocks, H, x, 3, *caches, *pend)
+
+
 def test_k2_refuses_a_mixed_int8_form(cuda):
     blocks, H, x, caches = _k2_inputs(cuda, torch.bfloat16, L=1, T=8, Ta=16, B=2)
     blocks["q_w"] = quantize_weight(blocks["q_w"])
@@ -388,3 +425,32 @@ def test_int8_path_runs_the_int8_kernels(cuda):
     assert set(layout) == {(1, 1, "int8+kv_int8"), (1, 5, "int8+kv_int8")}
     assert k2.int8_logits.launches > 0
     assert k5.mlp_fused.launches == dims.n_text_layer * sum(layout.values())
+
+
+def test_wide_batch_decodes_in_write_blocks(cuda):
+    """A decoder 1024 wide: run_with_prompts on three windows (two prompt
+    lengths) runs K2's pending variant at (3, 1), and in f32 decodes the
+    tokens of per-step writes (log-prob sums within 1e-5)."""
+    import whisper_tpu_torch
+    from whisper_tpu_torch.decoding import DecodingOptions, DecodingTask
+    from whisper_tpu_torch.models import ModelDimensions
+    from whisper_tpu_torch.models.whisper import init_params
+
+    dims = ModelDimensions(n_mels=80, n_audio_ctx=1500, n_audio_state=1024, n_audio_head=16,
+                           n_audio_layer=1, n_vocab=51866, n_text_ctx=448, n_text_state=1024,
+                           n_text_head=16, n_text_layer=2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    model = whisper_tpu_torch.Whisper(dims, init_params(dims, gen, torch.float32, cuda))
+    mels = torch.from_numpy(np.random.RandomState(0).randn(3, 80, 3000).astype(np.float32)).to(cuda)
+    task = DecodingTask(model, DecodingOptions(language="en", temperature=0.0, sample_len=21))
+    assert task.write_block(3) == 8 and task.write_block(1) == 0
+    prompts = [[], [1000] * 5, []]
+    k2.fused_decoder_layers.launches_by_layout.clear()
+    block = task.run_with_prompts(mels, prompts)
+    layout = dict(k2.fused_decoder_layers.launches_by_layout)
+    assert set(layout) == {(3, 1, "pending")} and layout[(3, 1, "pending")] % 8 == 0  # whole blocks
+    task.write_block = lambda n_audio: 0
+    per_step = task.run_with_prompts(mels, prompts)
+    for a, b in zip(block, per_step):
+        assert a.tokens == b.tokens
+        assert abs(a.avg_logprob - b.avg_logprob) <= 1e-5 * max(1.0, abs(b.avg_logprob))

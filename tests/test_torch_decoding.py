@@ -211,7 +211,7 @@ def test_import_pulls_in_no_jax():
         "whisper_tpu_torch.ops.kernels.mlp, "
         "whisper_tpu_torch.timing, whisper_tpu_torch.__main__, whisper_tpu_torch.ops.kernels.median, "
         "whisper_tpu_torch.ops.kernels.dtw, whisper_tpu_torch.batch, whisper_tpu_torch.chunked, "
-        "whisper_tpu_torch.align; "
+        "whisper_tpu_torch.align, whisper_tpu_torch.serve, whisper_tpu_torch.streaming; "
         "from whisper_tpu_torch.transcribe import cli; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisper_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"

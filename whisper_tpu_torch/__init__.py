@@ -6,14 +6,16 @@ Public API parity target: ``whisper_tpu/__init__.py`` (reference
 log_mel_spectrogram / pad_or_trim / transcribe / decode / detect_language /
 DecodingOptions / DecodingResult / ModelDimensions / Whisper, whisper_tpu's
 many-file entry points transcribe_batch / transcribe_chunked / align, and
-the command line (``python -m whisper_tpu_torch``, with ``--chunked``).  It
+the command line (``python -m whisper_tpu_torch``, with ``--chunked``), the
+streaming transcriber (StreamingTranscriber) and the batching HTTP server
+(``python -m whisper_tpu_torch.serve``, :mod:`whisper_tpu_torch.serve`).  It
 runs ``load_model`` -> ``transcribe`` with greedy decoding, best-of
 sampling, beam search and word timestamps, and batches of files at per-row
-positions, with the encoder's self-attention (K1), the decode step (K2),
-the median filter (K3), the DTW trace (K4) and the decoder MLP (K5) as
-hand-written CUDA kernels; with int8 weights (``load_model(...,
-quantize="int8" | "int8+logits")``) and int8 cross K/V
-(``kv_cache_dtype="int8"``) too.
+positions in 8-step write blocks, with the encoder's self-attention (K1),
+the decode step (K2, with its pending block), the median filter (K3), the
+DTW trace (K4) and the decoder MLP (K5) as hand-written CUDA kernels; with
+int8 weights (``load_model(..., quantize="int8" | "int8+logits")``) and
+int8 cross K/V (``kv_cache_dtype="int8"``) too.
 """
 
 import hashlib
@@ -30,6 +32,7 @@ from .batch import transcribe_batch
 from .chunked import transcribe_chunked
 from .decoding import DecodingOptions, DecodingResult, decode, detect_language
 from .models import ModelDimensions, Whisper
+from .streaming import StreamingTranscriber
 from .transcribe import transcribe
 
 # attach the high-level entry points as methods (reference model.py:343-345,
@@ -199,6 +202,7 @@ __all__ = [
     "DecodingOptions",
     "DecodingResult",
     "ModelDimensions",
+    "StreamingTranscriber",
     "Whisper",
     "align",
     "available_models",

@@ -147,3 +147,33 @@ def log_mel_spectrogram(
     peak = log_spec.amax(dim=(-2, -1), keepdim=True)
     log_spec = torch.maximum(log_spec, peak - 8.0)
     return (log_spec + 4.0) / 4.0
+
+
+def log_mel_frames(
+    samples: Union[np.ndarray, torch.Tensor],
+    n_mels: int = 80,
+    device: Union[str, torch.device, None] = None,
+) -> torch.Tensor:
+    """Log-Mel frames (n_mels, n_frames) of a slice of samples that carries
+    its own margins (the streaming path's; whisper_tpu/audio.py:228-269):
+    frame i reads samples [i * HOP_LENGTH, i * HOP_LENGTH + N_FFT), so the
+    caller supplies the N_FFT // 2 samples on each side (real neighbours
+    inside a stream, reflected or zero ones at its edges), and every frame is
+    kept.  The numerics are :func:`log_mel_spectrogram`'s, except that the
+    dynamic-range floor (max - 8) is taken over these frames only: a stream
+    cannot see the whole file's maximum."""
+    if isinstance(samples, np.ndarray):
+        samples = torch.from_numpy(np.ascontiguousarray(samples))
+    if device is not None:
+        samples = samples.to(device)
+    if samples.dtype == torch.int16:
+        samples = samples.float() * (1.0 / 32768.0)
+    else:
+        samples = samples.float()
+    window = torch.hann_window(N_FFT, device=samples.device)
+    stft = torch.stft(samples, N_FFT, HOP_LENGTH, window=window, center=False,
+                      return_complex=True)
+    filters = torch.from_numpy(mel_filters(n_mels)).to(samples.device)
+    log_spec = torch.clamp(torch.matmul(filters, stft.abs() ** 2), min=1e-10).log10()
+    log_spec = torch.maximum(log_spec, log_spec.max() - 8.0)
+    return (log_spec + 4.0) / 4.0

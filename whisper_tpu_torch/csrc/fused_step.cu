@@ -2,9 +2,10 @@
 // each row at its own position; and K5, its MLP stage on its own.
 //
 // Replaces whisper_tpu/ops/kernels/fused_step_pallas.py:fused_decoder_layers
-// in its variants without a pending block, unquantized and int8, and the XLA step it
-// leaves beam and best-of groups of several audios to
-// (models/whisper.decoder_step(..., n_group=G)): B rows with their own
+// in all its variants, unquantized and int8, with and without a pending
+// block, and the XLA steps it leaves beam and best-of groups of several
+// audios to (models/whisper.decoder_step(..., n_group=G) and
+// decoder_step_pending(..., n_group=G)): B rows with their own
 // self-KV caches and positions t[b] (a device int32 vector, or one host
 // int shared by every row), A audios with
 // A | B, G = B / A rows per audio, group-major (row b reads audio b / G's
@@ -94,6 +95,24 @@
 // then the fc2 + residual GEMV), so one implementation serves both.  The
 // int8 logits projection is the same GEMV with an unrounded f32 epilogue
 // acc * s[v] (int8_logits).
+//
+// The pending block (fused_step_pallas.py:312-314, pend_k/pend_v/pend_w;
+// models/whisper.decoder_step_pending and decoder_step_fused_pending): the
+// write-block engine defers each step's K/V column to a small (L, B, H, D,
+// W) buffer of the block's W steps, time last like the cache, and copies it
+// into the cache once per block.  With it, row b's self-attention keys are
+// its cache positions < t[b] (t is then the block's start), the first
+// pend_w pending columns, and the new token.  Only the self-attention
+// launch changes (decode_attention_kernel<..., PEND = true>): the cluster's
+// 8 blocks split the cache and pending keys as one sequence of t[b] +
+// pend_w keys, the scores and the rank-ordered exchange of maxima, sums and
+// partial outputs as before (deterministic); the other seven launches of a
+// layer are those of the step without a block.  The block adds 2 * L * B *
+// H * D * W elements to read, 2.6 MB at B = 16 and W = 8 in bf16, beside
+// the 183.5 MB of turbo's decoder weights; on a GPU the cache column is
+// written in place either way, so the block saves no device bytes here: it
+// lets the engine read its stop flag once per block instead of once per
+// step.
 
 #include <cooperative_groups.h>
 
@@ -113,6 +132,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int ROWS_PER_BLOCK = WARPS;  // one output row per warp
 constexpr int CLUSTER = 8;             // blocks per (row, head) in decode_attention
 constexpr int MAX_ROWS = 128;          // B at most
+constexpr int MAX_PEND = 64;           // a pending block's columns at most
 constexpr int TILE_ROWS = 16;          // GEMV input rows per block (a row tile)
 // GEMV input rows per block: 47 KB, which leaves room for the kernel's
 // static shared memory inside the 48 KB a launch gets without opting in
@@ -553,15 +573,23 @@ __device__ __forceinline__ void block_reduce_n(float* v, float* red) {
 // k_scale/v_scale + (audio * n_head + h) * HD, as the plain version's int8
 // branch: the query is round(q * scale * k_scale[d]) with scale = D^-0.5,
 // the keys enter unscaled, and the output is round(PV * v_scale[d]).
-template <typename T, typename KT, int NQ>
+// PEND (self-attention with a pending block): after the n cache keys come
+// the first pend_w of the row's W pending columns, (H, D, W) per row at
+// pend_k/pend_v + row * H * D * W, taken as keys n .. n + pend_w - 1 of one
+// sequence that the cluster splits; the scores' shared memory holds a
+// chunk of t_cap + W keys.
+template <typename T, typename KT, int NQ, bool PEND = false>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 decode_attention_kernel(const T* __restrict__ q, const KT* __restrict__ k,
                         const KT* __restrict__ v, const T* __restrict__ k_new,
                         const T* __restrict__ v_new, T* __restrict__ out, int n_head, int C,
                         size_t kv_stride, int rows_per_kv, const int* __restrict__ lens,
                         int n_max, int t_cap, float scale, const float* __restrict__ k_scale,
-                        const float* __restrict__ v_scale) {
+                        const float* __restrict__ v_scale, const T* __restrict__ pend_k,
+                        const T* __restrict__ pend_v, int pend_W, int pend_w) {
   constexpr bool Q8 = std::is_same<KT, int8_t>::value;
+  static_assert(!PEND || (NQ == 1 && std::is_same<KT, T>::value),
+                "a pending block is self-attention's: one query, keys of the compute dtype");
   extern __shared__ float4 sc4[];
   float* sc = reinterpret_cast<float*>(sc4);  // (NQ, chunk)
   __shared__ float qs[NQ][HD];
@@ -575,12 +603,17 @@ decode_attention_kernel(const T* __restrict__ q, const KT* __restrict__ k,
   const int g = gh / n_head, h = gh - g * n_head;
   const size_t row0 = (size_t)g * NQ;
   const int n = lens != nullptr ? min(max(lens[row0], 0), n_max) : n_max;
-  const int chunk = (n + CLUSTER - 1) / CLUSTER;
-  const int t0 = rank * chunk, t1 = min(n, t0 + chunk);
+  const int n_keys = n + (PEND ? pend_w : 0);  // cache keys, then pending ones
+  const int chunk = (n_keys + CLUSTER - 1) / CLUSTER;
+  const int t0 = rank * chunk, t1 = min(n_keys, t0 + chunk);
   const size_t audio = row0 / rows_per_kv;
   const size_t kv = audio * kv_stride + (size_t)h * HD * t_cap;
   const KT* kh = k + kv;
   const KT* vh = v + kv;
+  // key (or value) t: cache column t of rows t_cap apart, or with PEND
+  // pending column t - n of rows pend_W apart; chosen once per key, outside
+  // the loops over its HD elements
+  const size_t pend = (row0 * n_head + h) * (size_t)HD * pend_W;
   const float* ks = Q8 ? k_scale + (audio * n_head + h) * HD : nullptr;
   for (int i = threadIdx.x; i < NQ * HD; i += THREADS) {
     const int j = i / HD, d = i - j * HD;
@@ -593,13 +626,18 @@ decode_attention_kernel(const T* __restrict__ q, const KT* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < NQ; ++j) m[j] = -INFINITY;
   for (int t = t0 + threadIdx.x; t < t1; t += THREADS) {
+    const KT* kt = kh + t;
+    size_t ld = t_cap;
+    if constexpr (PEND) {
+      if (t >= n) kt = pend_k + pend + (t - n), ld = pend_W;
+    }
     float s[NQ];
 #pragma unroll
     for (int j = 0; j < NQ; ++j) s[j] = 0.f;
 #pragma unroll 16
     for (int d = 0; d < HD; ++d) {
-      const float kv = Q8 ? to_f(kh[(size_t)d * t_cap + t])
-                          : round_to<T>(to_f(kh[(size_t)d * t_cap + t]) * scale);
+      const float raw = to_f(kt[(size_t)d * ld]);
+      const float kv = Q8 ? raw : round_to<T>(raw * scale);
 #pragma unroll
       for (int j = 0; j < NQ; ++j) s[j] = fmaf(qs[j][d], kv, s[j]);
     }
@@ -673,12 +711,17 @@ decode_attention_kernel(const T* __restrict__ q, const KT* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NQ; ++j) acc[i][j] = 0.f;
   for (int t = t0 + lane; t < t1; t += 32) {
+    const KT* vt = vh + t;
+    size_t ld = t_cap;
+    if constexpr (PEND) {
+      if (t >= n) vt = pend_v + pend + (t - n), ld = pend_W;
+    }
     float w[NQ];
 #pragma unroll
     for (int j = 0; j < NQ; ++j) w[j] = sc[j * chunk + t - t0];
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
-      const float vv = to_f(vh[(size_t)(warp + WARPS * i) * t_cap + t]);
+      const float vv = to_f(vt[(size_t)(warp + WARPS * i) * ld]);
 #pragma unroll
       for (int j = 0; j < NQ; ++j) acc[i][j] = fmaf(w[j], vv, acc[i][j]);
     }
@@ -789,7 +832,7 @@ void cross_attention(int G, int A, size_t stride, int n_head, int C, int ta,
 #define CROSS(NQ)                                                                              \
   decode_attention_kernel<T, KT, NQ><<<blocks, THREADS, smem, stream>>>(                       \
       q, k, v, nullptr, nullptr, out, n_head, C, stride, G, nullptr, ta, ta, scale, k_scale,  \
-      v_scale)
+      v_scale, nullptr, nullptr, 0, 0)
   switch (per) {
     case 1: CROSS(1); break;
     case 2: CROSS(2); break;
@@ -819,6 +862,8 @@ void mlp_stage(T* x, T* ff, int B, int C, int F, const T* ln_g, const T* ln_b, c
 // one step's arguments, as fused_decoder_layers takes them
 struct Step {
   int L, B, A, C, H, t_cap, t, ta;
+  int W, pend_w;                    // pending block: W columns, pend_w valid (W = 0: none)
+  const void *pend_k, *pend_v;      // (L, B, H, D, W) each, or null
   const int* positions;
   const void *x, *self_k, *self_v, *cross_k, *cross_v;
   const float *cross_k_scale, *cross_v_scale;  // (L, A, H, D) each, int8 K/V
@@ -850,9 +895,13 @@ int run(const Step& a, cudaStream_t stream) {
   const size_t self_row = (size_t)H * HD * t_cap, cross_row = (size_t)H * HD * ta;
   // self-attention: every row at t, or row b at positions[b] clamped to
   // [0, t_cap]; each block of a cluster holds its chunk of the scores,
-  // sized for the whole cache (at most 228 bytes at t_cap = 448)
+  // sized for the whole cache and the pending block (at most 260 bytes at
+  // t_cap = 448, W = 8)
   const int n_max = a.positions != nullptr ? t_cap : a.t;
-  const size_t self_smem = (size_t)((t_cap + CLUSTER - 1) / CLUSTER + 1) * sizeof(float);
+  const size_t self_smem = (size_t)((t_cap + a.W + CLUSTER - 1) / CLUSTER + 1) * sizeof(float);
+  const size_t pend_row = (size_t)H * HD * a.W;
+  const T* pend_k = static_cast<const T*>(a.pend_k);
+  const T* pend_v = static_cast<const T*>(a.pend_v);
 
   cudaError_t e = cudaMemcpyAsync(out, x, (size_t)B * C * sizeof(T), cudaMemcpyDeviceToDevice, stream);
   if (e != cudaSuccess) return (int)e;
@@ -875,9 +924,15 @@ int run(const Step& a, cudaStream_t stream) {
                              {q, kn, vn}};
     gemv<T, WT, true, false, false>(out, B, C, p(ATTN_LN_G, C), p(ATTN_LN_B, C), s_qkv, C, 3 * C,
                                     stream);
-    decode_attention_kernel<T, T, 1><<<B * H * CLUSTER, THREADS, self_smem, stream>>>(
-        q, self_k + l * B * self_row, self_v + l * B * self_row, kn, vn, attn, H, C, self_row, 1,
-        a.positions, n_max, t_cap, scale, nullptr, nullptr);
+    if (pend_k != nullptr)
+      decode_attention_kernel<T, T, 1, true><<<B * H * CLUSTER, THREADS, self_smem, stream>>>(
+          q, self_k + l * B * self_row, self_v + l * B * self_row, kn, vn, attn, H, C, self_row, 1,
+          a.positions, n_max, t_cap, scale, nullptr, nullptr, pend_k + l * B * pend_row,
+          pend_v + l * B * pend_row, a.W, a.pend_w);
+    else
+      decode_attention_kernel<T, T, 1><<<B * H * CLUSTER, THREADS, self_smem, stream>>>(
+          q, self_k + l * B * self_row, self_v + l * B * self_row, kn, vn, attn, H, C, self_row, 1,
+          a.positions, n_max, t_cap, scale, nullptr, nullptr, nullptr, nullptr, 0, 0);
     Segments<T, WT> s_o = {{w(O_W, cc)}, {sc(P_O, C)}, {p(O_B, C)}, {out}};
     gemv<T, WT, false, false, true>(attn, B, C, nullptr, nullptr, s_o, C, C, stream);
 
@@ -911,20 +966,28 @@ int run_weights(int w_int8, int kv_int8, const Step& a, cudaStream_t stream) {
 // positions: the rows' positions t[b], int32 in device memory, or null for
 // one position t (0 <= t <= t_cap) shared by every row.  w_int8: the eight
 // projections are int8 with their scales in scale_table (N_PROJ pointers);
-// kv_int8: the cross K/V are int8 with scales (L, A, H, D) each.
+// kv_int8: the cross K/V are int8 with scales (L, A, H, D) each.  pend_k,
+// pend_v: a pending block (L, B, H, D, W) of the compute dtype, both or
+// neither (W = 0, pend_w = 0); with it the positions are the block's start
+// and the first pend_w of its W columns are attended (0 <= pend_w <= W).
 extern "C" int fused_decoder_layers(int dtype, int w_int8, int kv_int8, int L, int B, int A,
-                                    int C, int H, int t_cap, int t, int ta,
+                                    int C, int H, int t_cap, int t, int ta, int W, int pend_w,
                                     const void* positions, const void* x, void* out,
                                     void* k_new, void* v_new, const void* self_k,
                                     const void* self_v, const void* cross_k, const void* cross_v,
                                     const void* cross_k_scale, const void* cross_v_scale,
-                                    const void* table, const void* scale_table, void* scratch,
+                                    const void* table, const void* scale_table,
+                                    const void* pend_k, const void* pend_v, void* scratch,
                                     void* stream) {
+  const bool pending = pend_k != nullptr;
   if (C != H * HD || C % 16 != 0 || B < 1 || B > MAX_ROWS || A < 1 || B % A != 0 ||
       t < 0 || t > t_cap || ta <= 0 || (w_int8 && scale_table == nullptr) ||
-      (kv_int8 && (cross_k_scale == nullptr || cross_v_scale == nullptr)))
+      (kv_int8 && (cross_k_scale == nullptr || cross_v_scale == nullptr)) ||
+      pending != (pend_v != nullptr) || (pending ? W < 1 || W > MAX_PEND : W != 0) ||
+      pend_w < 0 || pend_w > W)
     return (int)cudaErrorInvalidValue;
-  const Step a = {L, B, A, C, H, t_cap, t, ta, static_cast<const int*>(positions), x, self_k,
+  const Step a = {L, B, A, C, H, t_cap, t, ta, W, pend_w, pend_k, pend_v,
+                  static_cast<const int*>(positions), x, self_k,
                   self_v, cross_k, cross_v, static_cast<const float*>(cross_k_scale),
                   static_cast<const float*>(cross_v_scale), out, k_new, v_new, scratch,
                   static_cast<const void* const*>(table),

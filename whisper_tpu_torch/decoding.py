@@ -206,7 +206,28 @@ class DecodingTask:
             no_timestamps=tokenizer.no_timestamps,
             timestamp_begin=tokenizer.timestamp_begin,
             kv_int8=options.kv_cache_dtype == "int8",
+            # greedy/sampling rows of a decoder at least 1024 wide may defer
+            # their self-K/V writes in 8-step blocks; write_block() decides
+            # per decode (whisper_tpu/decoding.py:310-319)
+            write_block=0 if beam or model.dims.n_text_state < 1024 else 8,
         )
+
+    def write_block(self, n_audio: int) -> int:
+        """The write block of a decode of n_audio audios: as whisper_tpu
+        resolves it on its kernel path (whisper_tpu/decoding.py:676-684),
+        since every decode here runs kernel K2.  0 (a K/V column per step)
+        for beam search, for a decoder narrower than 1024, and for one audio
+        with its weights and cross K/V unquantized or with a group of rows;
+        else the spec's 8, for several audios (best-of groups among them)
+        and for one row of an int8 configuration."""
+        from .quantize import Int8Weight
+
+        wb = self.spec.write_block
+        if n_audio > 1:
+            return wb
+        all_dense = (not isinstance(self.model.params["decoder"]["blocks"]["q_w"], Int8Weight)
+                     and self.options.kv_cache_dtype != "int8")
+        return 0 if all_dense or self.n_group > 1 else wb
 
     # -- option/token assembly (parity with decoding.py:572-642) -----------
 
@@ -310,7 +331,7 @@ class DecodingTask:
         return decode_engine(
             self.model.params,
             self.model.dims,
-            spec,
+            replace(spec, write_block=self.write_block(len(initial_rows))),
             mel,
             initial_block.to(self.model.device),
             sample_begin,

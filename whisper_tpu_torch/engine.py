@@ -1,17 +1,21 @@
 """Segment decoding engine: encoder, cross K/V, prompt prefill and the token
 loop (greedy, best-of sampling, beam search).
 
-Counterpart of ``whisper_tpu/engine.py`` for its per-step branch.  The JAX
-engine runs the token loop as one ``lax.while_loop`` on the device; here it
-is a Python loop that queues each step's work (logit filters, selection,
-the decode step through kernel K2, the logits) on the device and reads the
-stop flag back once per step.  The filters are vectorised masks recomputed
-from the token buffer every step, as there, so beam reordering carries no
-extra state.  A batch holds n_audio audios of n_group rows each (a beam or
-best-of group, or one greedy row), group-major, sharing their audio's cross
-K/V; each audio's window carries its own prompt length, so every row runs
-at its own position, held on the device.  The deferred write block and the
-speculative engine are later slices.
+Counterpart of ``whisper_tpu/engine.py``, its per-step branch and its
+write-block branch.  The JAX engine runs the token loop as one
+``lax.while_loop`` on the device; here it is a Python loop that queues each
+step's work (logit filters, selection, the decode step through kernel K2,
+the logits) on the device and reads the stop flag back once per step, or,
+with ``EngineSpec.write_block`` W > 1 (greedy and sampled rows), once per
+block of W steps: each step's K/V goes to a small pending block that is
+copied into the cache at the block's end, and the steps of a block past the
+stop run inactive, changing nothing that is kept (whisper_tpu/engine.py:
+599-662).  The filters are vectorised masks recomputed from the token
+buffer every step, as there, so beam reordering carries no extra state.  A
+batch holds n_audio audios of n_group rows each (a beam or best-of group,
+or one greedy row), group-major, sharing their audio's cross K/V; each
+audio's window carries its own prompt length, so every row runs at its own
+position, held on the device.  The speculative engine is a later slice.
 """
 
 from dataclasses import dataclass
@@ -27,7 +31,9 @@ from .models.whisper import (
     decoder_forward,
     decoder_prefill,
     decoder_step_fused,
+    decoder_step_fused_pending,
     encoder_apply,
+    flush_pending,
     init_kv_cache,
     project_logits,
 )
@@ -67,6 +73,9 @@ class EngineSpec:
     n_group: int = 1  # beam_size or best_of or 1
     max_candidates: int = 0  # beam finished-buffer size (round(beam * patience))
     kv_int8: bool = False  # the token loop's cross K/V in int8 (kv_cache_dtype="int8")
+    # greedy/sampling: defer the self-K/V writes in blocks of this many steps
+    # (0 or 1: a cache column per step); beam search always writes per step
+    write_block: int = 0
 
 
 class FilterArgs(NamedTuple):
@@ -206,11 +215,16 @@ def _greedy_update(
     temperature: float,
     generator: Optional[torch.Generator],
     forced: Optional[List[int]] = None,
+    active: Optional[torch.Tensor] = None,
 ) -> _LoopState:
     """GreedyDecoder.update parity (reference decoding.py:277-293).
 
     A row whose buffer is full (t > n_ctx) is "capped": its tokens and
-    logprob sum freeze.  ``forced`` (benchmark hook): sampling step s < F
+    logprob sum freeze.  ``active`` (a () bool tensor, write-block mode
+    only): when False the step is an overrun past the stop inside a block,
+    and everything except the step counter freezes, so the kept state is the
+    per-step engine's; the sampling generator still draws, as whisper_tpu's
+    key still splits.  ``forced`` (benchmark hook): sampling step s < F
     commits ``forced[s]`` in every row instead of the argmax/sample; every
     per-step computation still runs, so random weights can be driven through
     production-shaped token sequences.
@@ -235,14 +249,22 @@ def _greedy_update(
     sum_logprobs = state.sum_logprobs + current * not_finished
     next_tokens = torch.where(prev != spec.eot, next_tokens, spec.eot)
 
-    # write at t; a capped row's write is dropped (rewrites what is there)
+    # write at t; a capped row's write is dropped (rewrites what is there),
+    # as is every write of an inactive step
     col = t.clamp(max=n_ctx1 - 1)[:, None]
     kept = tokens.gather(1, col)[:, 0]
-    tokens.scatter_(1, col, torch.where(capped, kept, next_tokens)[:, None])
+    dropped = capped if active is None else capped | ~active
+    tokens.scatter_(1, col, torch.where(dropped, kept, next_tokens)[:, None])
     completed = ((next_tokens == spec.eot) | capped).all()
+    if active is not None:
+        t = t + active.long()
+        sum_logprobs = torch.where(active, sum_logprobs, state.sum_logprobs)
+        completed = torch.where(active, completed, state.completed)
+    else:
+        t = t + 1
     return state._replace(
         tokens=tokens,
-        t=t + 1,
+        t=t,
         step=state.step + 1,
         sum_logprobs=sum_logprobs,
         completed=completed,
@@ -405,8 +427,9 @@ def decode_engine(
     step needs no per-row gather or scatter.  The token loop reads
     ``completed`` back to the host once per step, after queueing that
     step's decode step, so the host's launches overlap the device's work on
-    the step before.  Its last decode step is computed and never used, as in
-    the JAX engine.
+    the step before; with ``spec.write_block`` (:func:`_block_loop`) once per
+    block.  Its last decode step is computed and never used, as in the JAX
+    engine.
     """
     n_audio = mel_or_features.shape[0]
     G = spec.n_group
@@ -474,24 +497,28 @@ def decode_engine(
         fin_count=torch.zeros(n_audio, dtype=torch.int64, device=device),
     )
 
-    while state.step < sample_len:
-        filtered = apply_logit_filters(spec, cur_logits, state.tokens, state.t, filter_args)
-        if spec.beam_size > 0:
-            state = _beam_update(spec, state, filtered)
-        else:
-            state = _greedy_update(spec, state, filtered, temperature, generator, forced_tokens)
-        # the step for the tokens just chosen, each row at its own position
-        if uniform:
-            pos = lens[0] + state.step - 1
-            prev = state.tokens[:, min(pos, n_ctx)]
-        else:
-            pos = state.t - 1
-            prev = state.tokens.gather(1, pos.clamp(0, n_ctx)[:, None])[:, 0]
-        h, cache = decoder_step_fused(params, dims, prev, pos, state.cache)
-        state = state._replace(cache=cache)
-        cur_logits = project_logits(params, h)
-        if bool(state.completed):  # the loop's one host sync per step
-            break
+    if spec.write_block > 1 and spec.beam_size == 0:
+        state = _block_loop(params, dims, spec, state, cur_logits, lens[0] if uniform else None,
+                            sample_len, temperature, filter_args, generator, forced_tokens)
+    else:
+        while state.step < sample_len:
+            filtered = apply_logit_filters(spec, cur_logits, state.tokens, state.t, filter_args)
+            if spec.beam_size > 0:
+                state = _beam_update(spec, state, filtered)
+            else:
+                state = _greedy_update(spec, state, filtered, temperature, generator, forced_tokens)
+            # the step for the tokens just chosen, each row at its own position
+            if uniform:
+                pos = lens[0] + state.step - 1
+                prev = state.tokens[:, min(pos, n_ctx)]
+            else:
+                pos = state.t - 1
+                prev = state.tokens.gather(1, pos.clamp(0, n_ctx)[:, None])[:, 0]
+            h, cache = decoder_step_fused(params, dims, prev, pos, state.cache)
+            state = state._replace(cache=cache)
+            cur_logits = project_logits(params, h)
+            if bool(state.completed):  # the loop's one host sync per step
+                break
 
     return EngineResult(
         tokens=state.tokens,
@@ -503,6 +530,57 @@ def decode_engine(
         fin_scores=state.fin_scores[:, :n_fin],
         fin_count=state.fin_count,
     )
+
+
+def _block_loop(
+    params,
+    dims: ModelDimensions,
+    spec: EngineSpec,
+    state: _LoopState,
+    cur_logits: torch.Tensor,
+    base: Optional[int],  # every row's prompt length when they share it, else None
+    sample_len: int,
+    temperature: float,
+    filter_args: FilterArgs,
+    generator: Optional[torch.Generator],
+    forced_tokens: Optional[List[int]],
+) -> _LoopState:
+    """The greedy/sampled token loop in blocks of W = spec.write_block
+    steps (whisper_tpu/engine.py:599-662).  A block zeroes the pending
+    buffers, runs W steps whose K/V go to pending column w (each step
+    attends [cache < block start | pending columns < w | new]), then copies
+    the block into the cache.  The block starts at base + step (a host
+    int) when the rows share their prompt length, else at each row's t.  A
+    step of a block past sample_len or past every row's stop runs with
+    active False and keeps nothing; the stop flag is read once per block."""
+    cache = state.cache
+    L, B, H, D, n_ctx = cache.self_k.shape
+    W = spec.write_block
+    pend_k = torch.zeros((L, B, H, D, W), dtype=cache.self_k.dtype, device=cache.self_k.device)
+    pend_v = torch.zeros_like(pend_k)
+    inactive = torch.zeros((), dtype=torch.bool, device=cache.self_k.device)
+    while state.step < sample_len:
+        block_start = base + state.step if base is not None else state.t
+        pend_k.zero_()
+        pend_v.zero_()
+        for w in range(W):
+            active = ~state.completed if state.step < sample_len else inactive
+            filtered = apply_logit_filters(spec, cur_logits, state.tokens, state.t, filter_args)
+            state = _greedy_update(spec, state, filtered, temperature, generator, forced_tokens,
+                                   active=active)
+            if base is not None:
+                pos = base + state.step - 1
+                prev = state.tokens[:, min(pos, n_ctx)]
+            else:
+                pos = state.t - 1
+                prev = state.tokens.gather(1, pos.clamp(0, n_ctx)[:, None])[:, 0]
+            h, pend_k, pend_v = decoder_step_fused_pending(
+                params, dims, prev, pos, block_start, w, pend_k, pend_v, cache)
+            cur_logits = project_logits(params, h)
+        flush_pending(cache, pend_k, pend_v, block_start)
+        if bool(state.completed):  # the loop's one host sync per block
+            break
+    return state
 
 
 @torch.inference_mode()

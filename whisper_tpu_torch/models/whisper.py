@@ -327,6 +327,101 @@ def decoder_step_fused(
     return _step(fused_decoder_layers, params, dims, tokens, t, cache)
 
 
+def _step_pending(
+    layers, params: Params, dims: ModelDimensions, tokens: torch.Tensor, t: Position,
+    block_start: Position, w: int, pend_k: torch.Tensor, pend_v: torch.Tensor, cache: KVCache,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    dec = params["decoder"]
+    x = _embed_step(params, dims, tokens, t)
+    hidden, k_new, v_new = layers(
+        dec["blocks"], dims.n_text_head, x, block_start,
+        cache.self_k, cache.self_v, cache.cross_k, cache.cross_v, pend_k, pend_v, w,
+    )
+    L, B, H, D, _ = pend_k.shape
+    pend_k[..., w] = k_new.view(L, B, H, D)
+    pend_v[..., w] = v_new.view(L, B, H, D)
+    return layer_norm(hidden, dec["ln_g"], dec["ln_b"]), pend_k, pend_v
+
+
+def decoder_step_pending(
+    params: Params,
+    dims: ModelDimensions,
+    tokens: torch.Tensor,  # (B,) — the tokens at position t
+    t: Position,  # position of this step: shared by the rows, or (B,) per row
+    block_start: Position,  # cache position of pending column 0: shared, or (B,) per row
+    w: int,  # this step's column in the pending block
+    pend_k: torch.Tensor,  # (L, B, H, D, W) — the block's uncommitted K
+    pend_v: torch.Tensor,
+    cache: KVCache,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`decoder_step` with deferred self-K/V writes, the plain
+    reference (whisper_tpu/models/whisper.py:556-680).
+
+    Row b attends over [its cache positions < block_start[b] | pending
+    columns < w | its new token] and puts this step's K/V into pending
+    column w, in place; the cache is not touched (the engine commits the
+    block with :func:`flush_pending` once per W steps).  Pending column w of
+    row b holds its position block_start[b] + w.  Returns (hidden (B, C)
+    after the final LayerNorm, pend_k, pend_v).  Beam and best-of groups of
+    several audios share their audio's cross K/V, as in
+    :func:`decoder_step`.
+    """
+    from ..ops.kernels.fused_step import fused_decoder_layers_plain
+
+    return _step_pending(fused_decoder_layers_plain, params, dims, tokens, t, block_start, w,
+                         pend_k, pend_v, cache)
+
+
+def decoder_step_fused_pending(
+    params: Params,
+    dims: ModelDimensions,
+    tokens: torch.Tensor,
+    t: Position,
+    block_start: Position,
+    w: int,
+    pend_k: torch.Tensor,
+    pend_v: torch.Tensor,
+    cache: KVCache,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`decoder_step_pending` with the layers through kernel K2's
+    pending variant (whisper_tpu/models/whisper.py:502-553); on a CPU
+    tensor the wrapper takes the plain version."""
+    from ..ops.kernels.fused_step import fused_decoder_layers
+
+    return _step_pending(fused_decoder_layers, params, dims, tokens, t, block_start, w,
+                         pend_k, pend_v, cache)
+
+
+def flush_pending(cache: KVCache, pend_k: torch.Tensor, pend_v: torch.Tensor,
+                  block_start: Position) -> KVCache:
+    """Commit a pending block of W columns into the self-K/V cache, in
+    place: row b's column w goes to cache position block_start[b] + w, and
+    columns at or past the cache's capacity are dropped, as whisper_tpu's
+    ``flush_pending`` (whisper_tpu/models/whisper.py:683-710), which rewrites
+    the whole cache through a mask.  Here it is one indexed copy: a slice for
+    a shared start, else per row a gather and scatter of the W cache columns
+    the block overlaps (shifted left of the capacity, so that the indices of
+    a row are distinct and the copy is deterministic)."""
+    L, B, H, D, n_ctx = cache.self_k.shape
+    W = pend_k.shape[-1]
+    if W > n_ctx:
+        raise ValueError(f"a pending block of {W} columns for a cache of {n_ctx}")
+    if isinstance(block_start, int):
+        n = min(W, n_ctx - block_start)
+        if n > 0:
+            cache.self_k[..., block_start:block_start + n] = pend_k[..., :n]
+            cache.self_v[..., block_start:block_start + n] = pend_v[..., :n]
+        return cache
+    first = block_start.clamp(max=n_ctx - W)  # (B,): W distinct columns in the cache
+    cols = first[:, None] + torch.arange(W, device=first.device)  # (B, W)
+    fresh = (cols >= block_start[:, None]).view(1, B, 1, 1, W)
+    cols = cols.view(1, B, 1, 1, W).expand(L, B, H, D, W)
+    src = (cols - block_start.view(1, B, 1, 1, 1)).clamp(0, W - 1)
+    for buf, pend in ((cache.self_k, pend_k), (cache.self_v, pend_v)):
+        buf.scatter_(-1, cols, torch.where(fresh, pend.gather(-1, src), buf.gather(-1, cols)))
+    return cache
+
+
 def project_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     """hidden (..., C) -> float32 logits (..., n_vocab) (tied embeddings).
 

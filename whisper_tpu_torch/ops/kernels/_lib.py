@@ -40,11 +40,12 @@ SIGNATURES = {
     # dtype, q, k, v, out, batch*heads, T, head_dim, stream
     "encoder_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
     # dtype, int8 weights, int8 cross K/V, L, B, A, C, H, T_cap, t (shared),
-    # Ta, positions (B,) int32 or null (every row at t), x, out, k_new,
-    # v_new, self_k, self_v, cross_k, cross_v, cross K/V scales (or null),
-    # weight pointer table (host), scale pointer table (host, or null),
-    # scratch, stream
-    "fused_decoder_layers": [_I] * 11 + [_P] * 15,
+    # Ta, pending columns W (0: none), valid pending columns, positions (B,)
+    # int32 or null (every row at t), x, out, k_new, v_new, self_k, self_v,
+    # cross_k, cross_v, cross K/V scales (or null), weight pointer table
+    # (host), scale pointer table (host, or null), pending K and V (or
+    # null), scratch, stream
+    "fused_decoder_layers": [_I] * 13 + [_P] * 17,
     # dtype, int8 weights, B, C, F, x, out, ln_g, ln_b, w1, s1, b1, w2, s2,
     # b2, scratch, stream
     "mlp_fused": [_I] * 5 + [_P] * 12,
@@ -139,6 +140,20 @@ def check(err: int, name: str) -> None:
     if err != 0:
         text = lib().kernel_error_string(err).decode(errors="replace")
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {err} ({text})")
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, n: int = 1, layout=None) -> None:
+    """Add n to a kernel wrapper's ``launches`` (and to
+    ``launches_by_layout[layout]``), under a lock: a server's batching
+    worker and its streaming handlers launch kernels from several threads,
+    and ``+=`` on an attribute is not atomic."""
+    with _count_lock:
+        wrapper.launches += n
+        if layout is not None:
+            wrapper.launches_by_layout[layout] += n
 
 
 def stream_ptr(device) -> int:

@@ -55,7 +55,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
         b * h, t, d, _lib.stream_ptr(q.device),
     )
     _lib.check(err, "encoder_attention")
-    attention.launches += 1
+    _lib.count_launch(attention)
     return out
 
 

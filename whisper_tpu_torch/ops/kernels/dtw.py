@@ -63,7 +63,7 @@ def dtw_trace(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
     err = _lib.lib().dtw_trace(x.data_ptr(), trace.data_ptr(), x.shape[0], n, m,
                                _lib.stream_ptr(x.device))
     _lib.check(err, "dtw_trace")
-    dtw_trace.launches += 1
+    _lib.count_launch(dtw_trace)
     return trace
 
 

@@ -1,12 +1,14 @@
 """K2: all decoder layers of one decode step as hand-written Hopper kernels.
 
 Replaces ``whisper_tpu/ops/kernels/fused_step_pallas.py:fused_decoder_layers``
-in the variants without a pending write block, unquantized and int8: B rows
-of A audios (A divides B, G = B / A rows per audio, group-major: row = audio * G
-+ g), each row at its own position.  That covers one greedy row, a beam or
-best-of group of one audio, one row per audio of a batch (the TPU kernel's
-"multi" layout), and the beam or best-of groups of several audios, which
-whisper_tpu leaves to XLA's ``decoder_step(..., n_group=G)``.  The kernels
+in all its variants, unquantized and int8, with and without a pending write
+block: B rows of A audios (A divides B, G = B / A rows per audio,
+group-major: row = audio * G + g), each row at its own position.  That
+covers one greedy row, a beam or best-of group of one audio, one row per
+audio of a batch (the TPU kernel's "multi" layout), and the beam or best-of
+groups of several audios, which whisper_tpu leaves to XLA's
+``decoder_step(..., n_group=G)`` and ``decoder_step_pending(...,
+n_group=G)``.  The kernels
 are ``whisper_tpu_torch/csrc/fused_step.cu`` (its header says what bounds
 them and how they are laid out); :func:`fused_decoder_layers_plain` is the
 same function in PyTorch, a loop over layers in ``decoder_step``'s op order.
@@ -25,11 +27,18 @@ LayerNorm; k_new, v_new (L, B, C)).  Self-attention reads row b's cache
 positions < t[b] (all of them for t[b] past the cache) plus its new token;
 cross-attention reads audio b // G's K/V; the caller writes the new K/V
 into column t[b].
+
+The pending block (``pend_k, pend_v`` (L, B, H, D, W) and ``pend_w``, the
+write-block engine's, ``whisper_tpu_torch.models.whisper.
+decoder_step_fused_pending``): t[b] is then the block's start, and row b's
+self-attention reads its cache positions < t[b], its first ``pend_w``
+pending columns and its new token, one softmax over the three in f32.  The
+caller puts the new K/V into pending column ``pend_w``.
 """
 
 import collections
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +52,7 @@ from .mlp import mlp_fused, mlp_fused_plain
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64
 MAX_ROWS = 128  # csrc/fused_step.cu MAX_ROWS
+MAX_PEND = 64  # csrc/fused_step.cu MAX_PEND: a pending block's columns
 
 # the kernel's weight table order (csrc/fused_step.cu enum W)
 WEIGHTS = (
@@ -99,12 +109,17 @@ def fused_decoder_layers_plain(
     self_v: torch.Tensor,
     cross_k,  # (L, A, H, D, Ta), A divides B; or Int8Weight
     cross_v,
+    pend_k: Optional[torch.Tensor] = None,  # (L, B, H, D, W)
+    pend_v: Optional[torch.Tensor] = None,
+    pend_w: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The layers of ``decoder_step`` in PyTorch: the softmax runs over
     [row b's cache positions < t[b] | its new token], in f32, and the
-    weights round to the compute dtype before PV.  Cross-attention folds
-    each audio's rows into its query axis (``_cross_attention``).  int8
-    weights go through ``_linear``'s int8 branch."""
+    weights round to the compute dtype before PV.  With a pending block, as
+    whisper_tpu's ``decoder_step_pending``, over [cache positions < t[b] |
+    pending columns < pend_w | new token].  Cross-attention folds each
+    audio's rows into its query axis (``_cross_attention``).  int8 weights
+    go through ``_linear``'s int8 branch."""
     L = self_k.shape[0]
     n_ctx = self_k.shape[-1]
     A = _values(cross_k).shape[1]
@@ -115,6 +130,14 @@ def fused_decoder_layers_plain(
         pos_mask = torch.where(positions < t, 0.0, NEG_INF).float()
     else:  # (B, 1, 1, T): each row its own length
         pos_mask = torch.where(positions < t[:, None], 0.0, NEG_INF).float()[:, None, None, :]
+    if pend_k is not None:
+        W = pend_k.shape[-1]
+        pend_mask = torch.where(torch.arange(W, device=x.device) < pend_w, 0.0, NEG_INF).float()
+        # the pending columns after the cache's
+        pos_mask = torch.cat([pos_mask, pend_mask.expand(*pos_mask.shape[:-1], W)], dim=-1)
+        self_k = torch.cat([self_k, pend_k], dim=-1)
+        self_v = torch.cat([self_v, pend_v], dim=-1)
+        n_ctx += W
     x = x[:, None, :]  # (B, 1, C)
     k_news, v_news = [], []
     for i in range(L):
@@ -164,10 +187,21 @@ def _check_int8(leaf: Int8Weight, device) -> None:
         )
 
 
-def _check_args(blocks, n_head, x, positions, self_k, self_v, cross_k, cross_v) -> Tuple[bool, bool]:
+def _check_args(blocks, n_head, x, positions, self_k, self_v, cross_k, cross_v,
+                pend_k, pend_v, pend_w) -> Tuple[bool, bool]:
     """Raise on what the kernels do not take; (int8 weights, int8 cross K/V)."""
     B, C = x.shape
     L, _, H, D, T = self_k.shape
+    if (pend_k is None) != (pend_v is None):
+        raise ValueError("fused decode-step kernel: a pending block has its K and its V")
+    if pend_k is not None:
+        W = pend_k.shape[-1]
+        if (pend_v.shape != pend_k.shape or tuple(pend_k.shape[:4]) != (L, B, H, D)
+                or not 1 <= W <= MAX_PEND or not 0 <= pend_w <= W):
+            raise ValueError(
+                f"fused decode-step kernel: pending block {tuple(pend_k.shape)} with {pend_w} "
+                f"columns valid; (L, B, H, D, W) with 1 <= W <= {MAX_PEND} expected"
+            )
     if not 1 <= B <= MAX_ROWS:
         raise ValueError(f"fused decode-step kernel: at most {MAX_ROWS} rows, got {B}")
     if D != HEAD_DIM or H != n_head or C != H * D or C % 16:
@@ -188,7 +222,8 @@ def _check_args(blocks, n_head, x, positions, self_k, self_v, cross_k, cross_v) 
     if x.dtype not in _DTYPES:
         raise ValueError(f"fused decode-step kernel: dtype {x.dtype} (bf16 or f32)")
     int8 = ([blocks[n] for n in PROJECTIONS] if w8 else []) + ([cross_k, cross_v] if kv8 else [])
-    dense = [self_k, self_v] + ([] if kv8 else [cross_k, cross_v]) + [
+    dense = [self_k, self_v] + ([] if pend_k is None else [pend_k, pend_v]) + (
+        [] if kv8 else [cross_k, cross_v]) + [
         blocks[n] for n in WEIGHTS if not (w8 and n in PROJECTIONS)
     ]
     for a in [x] + dense:
@@ -204,10 +239,11 @@ def _check_args(blocks, n_head, x, positions, self_k, self_v, cross_k, cross_v) 
     return w8, kv8
 
 
-def _layout(A: int, G: int, w8: bool, kv8: bool) -> tuple:
-    """launches_by_layout's key: (A, G), with a tag for the int8 forms:
-    "int8" (weights), "kv_int8" (cross K/V) or "int8+kv_int8"."""
-    tag = "+".join(name for name, on in (("int8", w8), ("kv_int8", kv8)) if on)
+def _layout(A: int, G: int, w8: bool, kv8: bool, pending: bool = False) -> tuple:
+    """launches_by_layout's key: (A, G), with a tag for the int8 forms and
+    the pending block: "int8" (weights), "kv_int8" (cross K/V) and
+    "pending", joined by "+" (e.g. "int8+kv_int8+pending")."""
+    tag = "+".join(name for name, on in (("int8", w8), ("kv_int8", kv8), ("pending", pending)) if on)
     return (A, G, tag) if tag else (A, G)
 
 
@@ -220,20 +256,25 @@ def fused_decoder_layers(
     self_v: torch.Tensor,
     cross_k,
     cross_v,
+    pend_k: Optional[torch.Tensor] = None,
+    pend_v: Optional[torch.Tensor] = None,
+    pend_w: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """All decoder layers of one step for B rows.  A CPU tensor takes
     :func:`fused_decoder_layers_plain`; a CUDA tensor launches the kernels
     (1 <= B <= 128 rows of A audios, A dividing B; head_dim 64; bf16 or
     f32; the projections and the cross K/V each in the compute dtype or
-    int8) or raises.
+    int8; with or without a pending block of at most 64 columns) or raises.
 
     ``t``: one position for every row (a host int, a kernel argument), or
     a (B,) integer tensor on x's device, one per row, which the kernel
-    reads there.  A position past the cache reads the whole cache.
+    reads there.  A position past the cache reads the whole cache.  With
+    ``pend_k, pend_v`` (L, B, H, D, W) in x's dtype, ``t`` is the block's
+    start and the first ``pend_w`` (a host int) columns are attended too.
     """
     if x.device.type == "cpu":
         return fused_decoder_layers_plain(
-            blocks, n_head, x, t, self_k, self_v, cross_k, cross_v
+            blocks, n_head, x, t, self_k, self_v, cross_k, cross_v, pend_k, pend_v, pend_w
         )
     if x.device.type != "cuda":
         raise ValueError(f"fused decode-step kernel: unsupported device {x.device}")
@@ -243,7 +284,9 @@ def fused_decoder_layers(
     else:
         shared, positions = 0, t.to(torch.int32).contiguous()
         positions_ptr = positions.data_ptr()
-    w8, kv8 = _check_args(blocks, n_head, x, positions, self_k, self_v, cross_k, cross_v)
+    w8, kv8 = _check_args(blocks, n_head, x, positions, self_k, self_v, cross_k, cross_v,
+                          pend_k, pend_v, pend_w)
+    pending = pend_k is not None
     xk, xv = _values(cross_k), _values(cross_v)
     A, C = xk.shape[1], x.shape[1]
     hidden = torch.empty_like(x)
@@ -254,22 +297,24 @@ def fused_decoder_layers(
     scales = (ctypes.c_void_p * len(PROJECTIONS))(*(blocks[n].s.data_ptr() for n in PROJECTIONS)) if w8 else None
     err = _lib.lib().fused_decoder_layers(
         _DTYPES[x.dtype], int(w8), int(kv8), L, B, A, C, H, T, shared, xk.shape[-1],
+        pend_k.shape[-1] if pending else 0, pend_w if pending else 0,
         positions_ptr, x.data_ptr(), hidden.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), self_k.data_ptr(), self_v.data_ptr(), xk.data_ptr(), xv.data_ptr(),
         cross_k.s.data_ptr() if kv8 else None, cross_v.s.data_ptr() if kv8 else None,
         ctypes.cast(table, ctypes.c_void_p), ctypes.cast(scales, ctypes.c_void_p) if w8 else None,
+        pend_k.data_ptr() if pending else None, pend_v.data_ptr() if pending else None,
         scratch.data_ptr(),
         _lib.stream_ptr(x.device),
     )
     _lib.check(err, "fused_decoder_layers")
-    fused_decoder_layers.launches += 1
-    fused_decoder_layers.launches_by_layout[_layout(A, B // A, w8, kv8)] += 1
-    mlp_fused.launches += L  # its MLP stage, K5's code, once per layer
+    _lib.count_launch(fused_decoder_layers, layout=_layout(A, B // A, w8, kv8, pending))
+    _lib.count_launch(mlp_fused, L)  # its MLP stage, K5's code, once per layer
     return hidden, k_new, v_new
 
 
 fused_decoder_layers.launches = 0
-# (A, G) -> launches; the int8 forms as (A, G, tag), see _layout
+# (A, G) -> launches; the int8 forms and the pending block as (A, G, tag),
+# see _layout
 fused_decoder_layers.launches_by_layout = collections.Counter()
 
 
@@ -300,7 +345,7 @@ def int8_logits(hidden: torch.Tensor, w: Int8Weight) -> torch.Tensor:
         w.s.data_ptr(), out.data_ptr(), _lib.stream_ptr(hidden.device),
     )
     _lib.check(err, "int8_logits")
-    int8_logits.launches += 1
+    _lib.count_launch(int8_logits)
     return out.reshape(*hidden.shape[:-1], V)
 
 

@@ -60,7 +60,7 @@ def median_filter(x: torch.Tensor, width: int) -> torch.Tensor:
         x.data_ptr(), out.data_ptr(), x.numel() // T, T, width, _lib.stream_ptr(x.device)
     )
     _lib.check(err, "median_filter")
-    median_filter.launches += 1
+    _lib.count_launch(median_filter)
     return out
 
 

@@ -94,7 +94,7 @@ def mlp_fused(
         _ptr(w2.s) if int8 else None, _ptr(b2), scratch.data_ptr(), _lib.stream_ptr(x.device),
     )
     _lib.check(err, "mlp_fused")
-    mlp_fused.launches += 1
+    _lib.count_launch(mlp_fused)
     return out
 
 

@@ -1,0 +1,574 @@
+"""Dynamic-batching transcription server.
+
+Counterpart of ``whisper_tpu/serve.py``: the serving layer.  The decode
+step reads every weight once for all of a batch's rows, so the cost per
+audio second falls with the batch, and a server coalesces concurrent
+requests into ``transcribe_batch`` calls rather than decoding them one by
+one.
+
+Two layers:
+
+- :class:`BatchingTranscriber`: in-process request coalescing.  ``submit``
+  returns a Future; a worker thread groups compatible requests (same decode
+  options) into batches of up to ``batch_size``, waiting at most
+  ``max_wait_s`` after the first request of a group (or after the engine
+  became free) before dispatching a partial batch.  A partial batch decodes
+  just its own files: nothing here compiles per shape, so whisper_tpu's
+  padding of a dispatch with empty files is not needed, and the results are
+  those the padded batch gives.
+- :func:`serve` / ``python -m whisper_tpu_torch.serve``: a stdlib
+  ThreadingHTTPServer front-end.  ``POST /v1/audio/transcriptions`` (or
+  ``/transcribe``) with the audio file as the request body (WAV/FLAC
+  natively; anything ffmpeg reads where it is installed), options as query
+  parameters; ``stream=true`` answers NDJSON, one line per finalized
+  segment, from :class:`~whisper_tpu_torch.streaming.StreamingTranscriber`
+  (or, with ``chunked=true``, from the chunks as their batches land);
+  ``GET /healthz`` for liveness.
+
+The batcher's worker and each streaming request's handler thread run the
+model at the same time, each on the device's current stream;
+``torch.inference_mode`` is per thread and set by the engine's entry points.
+Multi-device serving (``mesh``) is not in the port yet.
+"""
+
+import argparse
+import json
+import os
+import tempfile
+import threading
+import time
+from collections import OrderedDict, deque
+from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutureTimeoutError
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+__all__ = ["BatchingTranscriber", "make_server", "serve"]
+
+_MESH = "multi-device serving (mesh): ROADMAP.md, Queue 1, item 19"
+
+# the fields of a segment that a response carries
+_SEGMENT_KEYS = ("id", "start", "end", "text", "words", "avg_logprob", "no_speech_prob")
+
+
+def _freeze(v):
+    """Hashable stand-in for an option value (lists/tuples -> tuples);
+    transcribe takes a tuple wherever it takes a list."""
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    return v
+
+
+class BatchingTranscriber:
+    """Coalesces concurrent transcription requests into device batches.
+
+    ``submit(..., priority=True)`` puts a request in the priority lane: it
+    is batched ahead of every queued normal request of its options group,
+    and groups with priority work are dispatched first.
+    """
+
+    def __init__(
+        self,
+        model,
+        batch_size: int = 16,
+        max_wait_s: float = 0.25,
+        mesh=None,
+        **transcribe_options,
+    ):
+        from .batch import transcribe_batch  # local import: avoid cycles
+
+        if mesh is not None:
+            raise NotImplementedError(_MESH)
+        self._transcribe_batch = transcribe_batch
+        self.model = model
+        self.batch_size = int(batch_size)
+        self.max_wait_s = float(max_wait_s)
+        self.defaults = transcribe_options
+        # option-key -> {"p": priority deque, "n": normal deque} of
+        # (audio, future, enqueue_time); key insertion order approximates
+        # request order across groups
+        self._groups: "OrderedDict[tuple, Dict[str, deque]]" = OrderedDict()
+        self._cv = threading.Condition()
+        self._closed = False
+        # when the engine last became free: a batch's fill window runs from
+        # max(its oldest request, engine free), so requests that queued
+        # during a decode still get max_wait_s to coalesce with the re-sends
+        # of the clients that decode just answered
+        self._engine_free_t = 0.0
+        self.stats: Dict[str, int] = {"requests": 0, "batches": 0, "errors": 0}
+        self._worker = threading.Thread(target=self._run, name="whisper-tpu-torch-batcher",
+                                        daemon=True)
+        self._worker.start()
+
+    # -- client API ---------------------------------------------------------
+
+    def submit(self, audio, priority: bool = False, **overrides) -> Future:
+        """Queue one audio (float32 PCM @16 kHz, or a file path) for
+        transcription; returns a Future resolving to the transcribe() dict."""
+        fut: Future = Future()
+        # overrides equal to the server defaults don't fragment batching
+        overrides = {
+            k: v for k, v in overrides.items() if not (k in self.defaults and self.defaults[k] == v)
+        }
+        key = tuple(sorted((k, _freeze(v)) for k, v in overrides.items()))
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("BatchingTranscriber is closed")
+            lanes = self._groups.setdefault(key, {"p": deque(), "n": deque()})
+            lanes["p" if priority else "n"].append((audio, fut, time.monotonic()))
+            self.stats["requests"] += 1
+            self._cv.notify()
+        return fut
+
+    def transcribe(self, audio, timeout: Optional[float] = None, **overrides):
+        """Synchronous convenience wrapper over submit()."""
+        return self.submit(audio, **overrides).result(timeout)
+
+    def submit_chunk_futures(self, audio, chunk_overlap: float = 5.0, priority: bool = False,
+                             **overrides):
+        """Split ONE long audio into fixed overlapping 30 s chunks and queue
+        each as its own request; returns ``(offsets_sec, futures)``.
+
+        The chunks share one options group, so they coalesce into the same
+        device batches as each other (and as concurrent requests with the
+        same options).  Ownership boundaries are fixed by the offsets
+        (chunked.owned_segments), so chunk i's stitched segments can go out
+        as soon as futures[i] resolves.
+        """
+        from .audio import SAMPLE_RATE, load_audio
+        from .chunked import chunk_offsets, detect_file_language
+
+        if overrides.pop("condition_on_previous_text", False):
+            raise ValueError(
+                "chunked requests decode chunks independently; "
+                "condition_on_previous_text=True requires a non-chunked request"
+            )
+        wave = load_audio(audio) if isinstance(audio, str) else np.asarray(audio)
+        if wave.ndim != 1:
+            wave = wave.reshape(-1)
+        language = overrides.get("language", self.defaults.get("language"))
+        if language is None:
+            language = detect_file_language(self.model, wave)
+        offsets = chunk_offsets(wave.shape[0], chunk_overlap)
+        chunk_samples = 30 * SAMPLE_RATE
+        futures = [
+            self.submit(
+                wave[o : o + chunk_samples],
+                priority=priority,
+                condition_on_previous_text=False,
+                language=language,
+                **{k: v for k, v in overrides.items() if k != "language"},
+            )
+            for o in offsets
+        ]
+        return [o / SAMPLE_RATE for o in offsets], futures
+
+    def submit_chunked(self, audio, chunk_overlap: float = 5.0, priority: bool = False,
+                       **overrides) -> Future:
+        """Queue one long audio as parallel chunks; returns a Future of the
+        stitched ``{"text", "segments", "language"}`` dict (the
+        ``transcribe_chunked`` result shape)."""
+        from .chunked import merge_chunk_segments
+
+        offsets_sec, futures = self.submit_chunk_futures(
+            audio, chunk_overlap=chunk_overlap, priority=priority, **overrides
+        )
+        out: Future = Future()
+        lock = threading.Lock()
+        remaining = [len(futures)]
+
+        def _done(_):
+            with lock:
+                remaining[0] -= 1
+                if remaining[0] > 0:
+                    return
+            try:
+                results = [f.result() for f in futures]
+                if len(results) == 1:
+                    merged = results[0]["segments"]
+                else:
+                    merged = merge_chunk_segments([r["segments"] for r in results], offsets_sec)
+                out.set_result(dict(text="".join(s["text"] for s in merged), segments=merged,
+                                    language=results[0]["language"]))
+            except BaseException as exc:  # the first chunk's failure
+                out.set_exception(exc)
+
+        for f in futures:
+            f.add_done_callback(_done)
+        return out
+
+    def close(self, drain: bool = True):
+        """Stop the worker; with drain=True, first finish queued requests."""
+        if drain:
+            while self._worker.is_alive():
+                with self._cv:
+                    if not any(lanes["p"] or lanes["n"] for lanes in self._groups.values()):
+                        break
+                time.sleep(0.01)
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._worker.join(timeout=30)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -- worker -------------------------------------------------------------
+
+    def _pick_group(self):
+        """Group to serve next: the oldest priority head wins over any normal."""
+        best_key, best_t = None, None
+        for key, lanes in self._groups.items():
+            if lanes["p"] and (best_t is None or lanes["p"][0][2] < best_t):
+                best_key, best_t = key, lanes["p"][0][2]
+        if best_key is not None:
+            return best_key
+        for key, lanes in self._groups.items():
+            if lanes["n"] and (best_t is None or lanes["n"][0][2] < best_t):
+                best_key, best_t = key, lanes["n"][0][2]
+        return best_key
+
+    def _run(self):
+        while True:
+            with self._cv:
+                key = self._pick_group()
+                while key is None and not self._closed:
+                    self._cv.wait()
+                    key = self._pick_group()
+                if key is None and self._closed:
+                    return
+                lanes = self._groups[key]
+
+                def count():
+                    return len(lanes["p"]) + len(lanes["n"])
+
+                def oldest():
+                    return min(dq[0][2] for dq in lanes.values() if dq)
+
+                # wait for the batch to fill, up to max_wait after the group's
+                # oldest request arrived or the engine became free, whichever
+                # is later; an idle engine with a lone request pays max_wait_s
+                deadline = max(oldest(), self._engine_free_t) + self.max_wait_s
+                while count() < self.batch_size and not self._closed and time.monotonic() < deadline:
+                    self._cv.wait(timeout=max(deadline - time.monotonic(), 0.001))
+                items = []
+                for dq in (lanes["p"], lanes["n"]):  # priority lane first
+                    while dq and len(items) < self.batch_size:
+                        items.append(dq.popleft())
+                if not (lanes["p"] or lanes["n"]):
+                    del self._groups[key]  # drained groups don't accumulate
+            if not items:
+                continue
+            options = dict(self.defaults)
+            options.update(dict(key))
+            self._dispatch(items, options)
+            self._engine_free_t = time.monotonic()
+
+    def _dispatch(self, items, options):
+        audios = [a for a, _, _ in items]
+        futures = [f for _, f, _ in items]
+        try:
+            results = self._transcribe_batch(self.model, audios, batch_size=self.batch_size,
+                                             **options)
+            with self._cv:
+                self.stats["batches"] += 1
+            for fut, res in zip(futures, results):
+                try:
+                    fut.set_result(res)
+                except Exception:  # cancelled by the client: drop the result
+                    pass
+        except Exception as exc:
+            with self._cv:
+                self.stats["errors"] += 1
+            if len(items) > 1:
+                # one bad item (unreadable path, undecodable audio) must not
+                # fail its co-batched neighbours: retry each alone
+                for item in items:
+                    self._dispatch([item], options)
+            else:
+                try:
+                    futures[0].set_exception(exc)
+                except Exception:  # cancelled by the client
+                    pass
+
+
+# ---------------------------------------------------------------------------
+# HTTP front-end
+# ---------------------------------------------------------------------------
+
+# per-request ceiling of the HTTP layer: a wedged device answers 503
+REQUEST_TIMEOUT_S = float(os.environ.get("WHISPER_TPU_REQUEST_TIMEOUT", "1200"))
+
+_BOOL = {"true": True, "1": True, "false": False, "0": False}
+_OPTION_TYPES = {
+    "language": str,
+    "task": str,
+    "temperature": float,
+    "beam_size": int,
+    "best_of": int,
+    "patience": float,
+    "length_penalty": float,
+    "initial_prompt": str,
+    "condition_on_previous_text": bool,
+    "word_timestamps": bool,
+    "no_speech_threshold": float,
+    "logprob_threshold": float,
+    "compression_ratio_threshold": float,
+    "hallucination_silence_threshold": float,
+}
+
+
+def _parse_options(query: str) -> Dict[str, Any]:
+    from urllib.parse import parse_qsl
+
+    out: Dict[str, Any] = {}
+    for k, v in parse_qsl(query):
+        # request-routing flags, not transcribe options
+        if k in ("priority", "stream", "chunked"):
+            out[k] = _BOOL[v.lower()]
+            continue
+        if k == "chunk_overlap":
+            out[k] = float(v)
+            continue
+        typ = _OPTION_TYPES.get(k)
+        if typ is None:
+            raise ValueError(f"unknown option {k!r}")
+        out[k] = _BOOL[v.lower()] if typ is bool else typ(v)
+    return out
+
+
+def _segment_json(seg: dict) -> dict:
+    return {k: v for k, v in seg.items() if k in _SEGMENT_KEYS}
+
+
+def _make_handler(batcher: BatchingTranscriber):
+    from http.server import BaseHTTPRequestHandler
+
+    from .audio import load_audio
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def _send_json(self, code: int, obj):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _start_ndjson(self):
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+
+        def _write_chunk(self, obj):
+            body = (json.dumps(obj) + "\n").encode()
+            self.wfile.write(f"{len(body):x}\r\n".encode() + body + b"\r\n")
+            self.wfile.flush()
+
+        def do_GET(self):
+            if self.path.split("?")[0] in ("/healthz", "/health"):
+                self._send_json(200, {"status": "ok", **batcher.stats})
+            else:
+                self._send_json(404, {"error": "not found"})
+
+        def do_POST(self):
+            # drain the body before any response, or the keep-alive
+            # connection breaks mid-pipeline on error paths
+            length = int(self.headers.get("Content-Length", 0))
+            data = self.rfile.read(length) if length > 0 else b""
+            path, _, query = self.path.partition("?")
+            if path not in ("/v1/audio/transcriptions", "/transcribe"):
+                self._send_json(404, {"error": "not found"})
+                return
+            try:
+                options = _parse_options(query)
+            except (ValueError, KeyError) as exc:
+                self._send_json(400, {"error": str(exc)})
+                return
+            if not data:
+                self._send_json(400, {"error": "empty request body"})
+                return
+            priority = bool(options.pop("priority", False))
+            stream = bool(options.pop("stream", False))
+            chunked = bool(options.pop("chunked", False))
+            chunk_overlap = float(options.pop("chunk_overlap", 5.0))
+            try:
+                # the decoders read files (native WAV/FLAC, or ffmpeg):
+                # spool the body to a temporary file
+                with tempfile.NamedTemporaryFile(suffix=".audio", delete=False) as f:
+                    f.write(data)
+                    tmp = f.name
+                try:
+                    audio = load_audio(tmp)
+                finally:
+                    os.unlink(tmp)
+                if stream:
+                    if chunked:
+                        self._stream_chunked_response(audio, options, chunk_overlap, priority)
+                    else:
+                        self._stream_response(audio, options)
+                    return
+                if chunked:
+                    try:
+                        fut = batcher.submit_chunked(audio, chunk_overlap=chunk_overlap,
+                                                     priority=priority, **options)
+                    except ValueError as exc:  # contradictory chunked options
+                        self._send_json(400, {"error": str(exc)})
+                        return
+                else:
+                    fut = batcher.submit(audio, priority=priority, **options)
+                # a bounded wait: a wedged device surfaces as an error, not as
+                # blocked HTTP threads piling up
+                try:
+                    result = fut.result(timeout=REQUEST_TIMEOUT_S)
+                except (TimeoutError, FutureTimeoutError):
+                    fut.cancel()
+                    self._send_json(503, {"error": "transcription timed out; server busy"})
+                    return
+            except Exception as exc:
+                self._send_json(500, {"error": f"{type(exc).__name__}: {exc}"})
+                return
+            self._send_json(200, {"text": result["text"], "language": result["language"],
+                                  "segments": [_segment_json(s) for s in result["segments"]]})
+
+        def _stream_response(self, audio, options):
+            """NDJSON, one line per finalized segment, from a
+            StreamingTranscriber in this handler's thread: the first
+            window's segments go out while later windows still decode."""
+            from .streaming import StreamingTranscriber
+
+            merged = dict(batcher.defaults)
+            merged.update(options)
+            merged.pop("batch_size", None)
+            st = StreamingTranscriber(batcher.model, **merged)
+            self._start_ndjson()
+            try:
+                # ~5 s slices, so that segments stream out per window
+                step = 5 * 16000
+                for off in range(0, len(audio), step):
+                    for seg in st.push(audio[off : off + step]):
+                        self._write_chunk(_segment_json(seg))
+                for seg in st.flush():
+                    self._write_chunk(_segment_json(seg))
+                final = st.result
+                self._write_chunk({"done": True, "text": final["text"],
+                                   "language": final["language"]})
+            except Exception as exc:
+                self._write_chunk({"error": f"{type(exc).__name__}: {exc}"})
+            self.wfile.write(b"0\r\n\r\n")
+
+        def _stream_chunked_response(self, audio, options, chunk_overlap, priority):
+            """NDJSON for a chunked request: the chunks decode through the
+            batcher, and chunk i's owned segments go out as soon as its
+            future resolves (in order)."""
+            from .chunked import owned_segments
+
+            self._start_ndjson()
+            try:
+                offsets_sec, futures = batcher.submit_chunk_futures(
+                    audio, chunk_overlap=chunk_overlap, priority=priority, **options
+                )
+                texts, language, next_id = [], None, 0
+                for i, fut in enumerate(futures):
+                    result = fut.result(timeout=REQUEST_TIMEOUT_S)
+                    language = result["language"]
+                    for seg in owned_segments(result["segments"], i, offsets_sec):
+                        seg = dict(seg, id=next_id)
+                        next_id += 1
+                        texts.append(seg["text"])
+                        self._write_chunk(_segment_json(seg))
+                self._write_chunk({"done": True, "text": "".join(texts), "language": language})
+            except Exception as exc:
+                self._write_chunk({"error": f"{type(exc).__name__}: {exc}"})
+            self.wfile.write(b"0\r\n\r\n")
+
+        def log_message(self, fmt, *args):  # quiet by default
+            pass
+
+    return Handler
+
+
+def serve(
+    model,
+    host: str = "127.0.0.1",
+    port: int = 9000,
+    batch_size: int = 16,
+    max_wait_s: float = 0.25,
+    mesh=None,
+    **transcribe_options,
+):
+    """Start the HTTP server (blocking).  Returns never; raises on bind error."""
+    server = make_server(model, host, port, batch_size, max_wait_s, mesh=mesh, **transcribe_options)
+    print(f"whisper_tpu_torch serving on http://{host}:{server.server_port} "
+          f"(batch_size={batch_size}, max_wait={max_wait_s}s, device={model.device})")
+    try:
+        server.serve_forever()
+    finally:
+        server.batcher.close(drain=False)
+
+
+def make_server(
+    model,
+    host: str = "127.0.0.1",
+    port: int = 0,
+    batch_size: int = 16,
+    max_wait_s: float = 0.25,
+    mesh=None,
+    **transcribe_options,
+):
+    """Build (without starting) the ThreadingHTTPServer; port 0 = ephemeral.
+
+    The server carries its ``batcher``; a caller that embeds the server runs
+    ``serve_forever`` in a thread, and on teardown calls ``shutdown`` and
+    ``batcher.close()``.
+    """
+    from http.server import ThreadingHTTPServer
+
+    batcher = BatchingTranscriber(model, batch_size=batch_size, max_wait_s=max_wait_s, mesh=mesh,
+                                  **transcribe_options)
+    server = ThreadingHTTPServer((host, port), _make_handler(batcher))
+    server.batcher = batcher
+    return server
+
+
+def main(argv: Optional[List[str]] = None):
+    parser = argparse.ArgumentParser(
+        prog="python -m whisper_tpu_torch.serve",
+        description="Batching transcription HTTP server",
+    )
+    parser.add_argument("--model", default="turbo",
+                        help="model name or checkpoint path (.pt, or whisper_tpu's .npz)")
+    parser.add_argument("--device", default="cuda", help="torch device to run on, e.g. 'cuda' or 'cpu'")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=9000)
+    parser.add_argument("--batch-size", type=int, default=16)
+    parser.add_argument("--max-wait", type=float, default=0.25)
+    parser.add_argument("--language", default=None)
+    parser.add_argument("--task", default="transcribe")
+    parser.add_argument("--quantize", default=None, choices=[None, "int8", "int8+logits"])
+    parser.add_argument("--mesh", default=None, metavar="SPEC",
+                        help="multi-device serving (not in this port yet: ROADMAP.md, Queue 1, "
+                        "item 19)")
+    args = parser.parse_args(argv)
+    if args.mesh is not None:
+        raise NotImplementedError(f"--mesh: {_MESH}")
+
+    from . import load_model
+
+    model = load_model(args.model, device=args.device, quantize=args.quantize)
+    options = {"task": args.task}
+    if args.language:
+        options["language"] = args.language
+    serve(model, host=args.host, port=args.port, batch_size=args.batch_size,
+          max_wait_s=args.max_wait, **options)
+
+
+if __name__ == "__main__":
+    main()
