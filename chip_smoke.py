@@ -102,7 +102,26 @@ Phases, each of which must pass (any failure exits non-zero):
      in "done"; time to the first line against the whole answer);
  24. StreamingTranscriber on phase 18's int8 model with
      kv_cache_dtype="int8", fed jfk tiled to 44 s in 5 s pushes: K2's
-     one-row int8 pending instance launched.
+     one-row int8 pending instance launched;
+ 25. K1 at head dim 128 against its plain version at (1, 10, 1500, 128) and
+     (16, 10, 1500, 128), bf16 and f32, K1's tolerances (with the other
+     kernel checks); then the encoder at turbo's widths with 10 heads of
+     128 (the turbo weights, bf16) on jfk's mel: K1 launched once per layer
+     (32), the features finite, its wall beside the 20-head encoder's;
+ 26. E1 (matmul with the residual epilogue) against its plain version at
+     large-v3's encoder fc2 at batch 16 (24000 x 5120 x 1280) in bf16 and
+     at (3000, 1280, 640) in f32, beside addmm + add;
+ 27. E2 (the streamed logits) in both weight layouts against its plain
+     version at B = 1, 5 and 16 of turbo's vocabulary, beside bf16 torch.mm;
+ 28. E3 (the packing experiment's pairs) unpacked and packed against their
+     plain versions at g = 320, reps 2 and 64, and packed against unpacked;
+     times at reps = 64 and packed/unpacked (26-28 with the other kernel
+     checks); then the three experiments' entry points at their defaults
+     on the card (encoder_ops at --d 128), each kernel launched;
+ 29. K2 above 128 rows: 32 x 5 and 160 x 1 at per-row positions against
+     its plain version (with the other kernel checks); then
+     transcribe_batch on 32 files cut from jfk with batch_size 32 and beam
+     5: well-formed results, K2 launched in slices of 25 and 7 audios.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -118,7 +137,13 @@ import sys
 import tempfile
 import time
 
+import torch
+
+# bound: each kernel's least time on an H100; time_ms: mean CUDA-event time after a warm-up
+from whisper_tpu_torch.experiments._common import bound, time_ms
+
 REPO = os.path.dirname(os.path.abspath(__file__))
+CUDA = torch.device("cuda")
 AUDIO = os.path.join(REPO, "tests", "jfk.flac")
 
 # kernel against plain, as tests/test_torch_cuda.py holds them.  K1 f32: max
@@ -137,40 +162,19 @@ K2_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # error relative to max |plain|; both sum exact products in f32, only the
 # order differs.
 INT8_LOGITS_REL_TOL = 1e-5
-
-# an H100 SXM's published peaks (NVIDIA's data sheet; dense, at 700 W), for
-# each kernel's bound: the larger of its bytes over the memory rate and its
-# operations over the peak rate of their type
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 outside them
-
-
-def bound(n_bytes: float, n_ops: float, dtype: str) -> dict:
-    """The least time the card could take for work that moves n_bytes and
-    does n_ops operations of dtype: {"bound_ms", "bound_by"}."""
-    by_bytes = 1e3 * n_bytes / PEAK_BYTES_PER_S
-    by_ops = 1e3 * n_ops / PEAK_OPS_PER_S[dtype]
-    return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations")
-
+# E2 (the streamed logits) is held to the int8 logits' bound: exact bf16
+# products summed in f32.  E1: max error relative to max |plain|, f32 1e-4
+# (sums over K = 5120 in another order); bf16 8e-3, one bf16 ulp of the
+# largest output (bf16 keeps 8 significant bits, so an ulp is at most 2^-7
+# = 7.8e-3 of a value): the f32 sum may round to a neighbouring bf16 value
+# before the bias and the residual add.  E3: the same 8e-3 (a score rounded
+# to bf16 may land one ulp apart and move an output across a rounding
+# boundary).
+E1_REL_TOL = {"bfloat16": 8e-3, "float32": 1e-4}
+E3_REL_TOL = 8e-3
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def time_ms(fn, iters: int = 20) -> float:
-    """Mean device time of fn() over iters launches, after one warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def ptxas_summary(log: str) -> list:
@@ -213,7 +217,7 @@ def graph_ms(fn, iters: int = 50) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
-    return time_ms(graph.replay, iters=iters)
+    return time_ms(graph.replay, CUDA, iters=iters)
 
 
 def card_line() -> str:
@@ -241,11 +245,11 @@ def check_k1(gen, device):
         err = diff.abs().max().item()
         rel_rms = diff.norm().item() / ref.norm().item()
         rel_max = err / ref.abs().max().item()
-        ms = time_ms(lambda: attention(q, k, v))
-        plain_ms = time_ms(lambda: attention_plain(q, k, v))
+        ms = time_ms(lambda: attention(q, k, v), CUDA)
+        plain_ms = time_ms(lambda: attention_plain(q, k, v), CUDA)
         # one PyTorch call of the same function: SDPA's default scale D^-0.5
         # is the kernel's D^-0.25 on q and on k (the port never calls it)
-        library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+        library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), CUDA)
         B, H, T, D = q.shape
         name = str(dtype).split(".")[-1]
         # q, k, v read and the output written once; QK^T and PV
@@ -263,6 +267,166 @@ def check_k1(gen, device):
             raise RuntimeError(f"K1 {name} disagrees with its plain version: "
                                f"{err}, {rel_rms}, {rel_max}")
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **kb)
+    return rows
+
+
+def check_k1_d128(gen, device):
+    """K1's head-dim-128 instance against its plain version at (1, 10, 1500,
+    128) and (16, 10, 1500, 128), bf16 and f32, with K1's tolerances;
+    beside SDPA (never called by the port).  Returns the rows by (batch,
+    dtype)."""
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.attention import attention, attention_plain
+
+    rows = {}
+    for b in (1, 16):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn((b, 10, 1500, 128), generator=gen, device=device).to(dtype)
+                       for _ in range(3))
+            out, ref = attention(q, k, v).float(), attention_plain(q, k, v).float()
+            diff = out - ref
+            err = diff.abs().max().item()
+            rel_rms, rel_max = diff.norm().item() / ref.norm().item(), err / ref.abs().max().item()
+            ms = time_ms(lambda: attention(q, k, v), CUDA)
+            plain_ms = time_ms(lambda: attention_plain(q, k, v), CUDA, iters=5)
+            library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), CUDA)
+            name = str(dtype).split(".")[-1]
+            kb = bound(4 * q.numel() * q.element_size(), 4 * b * 10 * 1500 * 1500 * 128, name)
+            ok = (err <= K1_F32_ATOL if dtype == torch.float32
+                  else rel_rms <= K1_BF16_REL_RMS and rel_max <= K1_BF16_REL_MAX)
+            log(f"K1 encoder_attention D=128 ({b},10,1500,128) {name}: max_abs_err {err:.3e}; relative "
+                f"errors rms/max {rel_rms:.3e}/{rel_max:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                f"library (SDPA) {library_ms:.4f} ms bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}")
+            if not ok:
+                raise RuntimeError(f"K1 D=128 {name} disagrees with its plain version: {err}, {rel_rms}, {rel_max}")
+            rows[b, name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **kb)
+    return rows
+
+
+def check_e1(gen, device):
+    """E1 against its plain version at large-v3's encoder fc2 at batch 16
+    (M = 24000, K = 5120, N = 1280) in bf16 and at (3000, 1280, 640) in f32,
+    beside addmm + add (the library's fc2 with its residual).  Returns the
+    bf16 row."""
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.matmul_residual import matmul_residual, matmul_residual_plain
+
+    rows = {}
+    for (M, K, N), dtype in (((24000, 5120, 1280), torch.bfloat16), ((3000, 1280, 640), torch.float32)):
+        def randn(*shape, scale):
+            return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+        x, w, bias, res = randn(M, K, scale=0.3), randn(K, N, scale=0.02), randn(N, scale=0.1), randn(M, N, scale=0.3)
+        out, ref = matmul_residual(x, w, bias, res), matmul_residual_plain(x, w, bias, res)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = err / ref.float().abs().max().item()
+        name = str(dtype).split(".")[-1]
+        ms = time_ms(lambda: matmul_residual(x, w, bias, res), CUDA)
+        plain_ms = time_ms(lambda: matmul_residual_plain(x, w, bias, res), CUDA)
+        library_ms = time_ms(lambda: torch.addmm(bias, x, w) + res, CUDA)
+        size = x.element_size()
+        kb = bound((M * K + K * N + N + 2 * M * N) * size, 2 * M * K * N, name)
+        log(f"E1 matmul_residual M={M} K={K} N={N} {name}: max_abs_err {err:.3e}, relative {rel:.3e} "
+            f"(tol {E1_REL_TOL[name]:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms library (addmm + add) "
+            f"{library_ms:.4f} ms bound {kb['bound_ms']:.4f} ms by {kb['bound_by']} "
+            f"({2 * M * K * N / ms / 1e9:.1f} TFLOP/s)")
+        if not rel <= E1_REL_TOL[name]:
+            raise RuntimeError(f"E1 {name} disagrees with its plain version: {rel}")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **kb)
+    return rows["bfloat16"]
+
+
+def check_e2(gen, device):
+    """E2 in both layouts against its plain version at B = 1, 5 and 16 of
+    turbo's vocabulary (51866 x 1280, bf16), beside the bf16 torch.mm the
+    unquantized path calls (f32 out).  Returns the rows by (layout, B)."""
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.logits import logits_streamed, logits_streamed_plain
+
+    V, C = 51866, 1280
+    emb = (torch.randn((V, C), generator=gen, device=device) * 0.02).to(torch.bfloat16)
+    weights = {"vc": emb, "cv": emb.t().contiguous()}
+    rows = {}
+    for B in (1, 5, 16):
+        x = torch.randn((B, C), generator=gen, device=device).to(torch.bfloat16)
+        library_ms = time_ms(lambda: torch.mm(x, emb.t(), out_dtype=torch.float32), CUDA)
+        library_device_ms = graph_ms(lambda: torch.mm(x, emb.t(), out_dtype=torch.float32))
+        for layout, w in weights.items():
+            out, ref = logits_streamed(x, w, layout), logits_streamed_plain(x, w, layout)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            ms = time_ms(lambda: logits_streamed(x, w, layout), CUDA)
+            device_ms = graph_ms(lambda: logits_streamed(x, w, layout))
+            plain_ms = time_ms(lambda: logits_streamed_plain(x, w, layout), CUDA)
+            kb = bound(2 * (V * C + B * C) + 4 * B * V, 2 * B * V * C, "bfloat16")
+            log(f"E2 logits_streamed {layout} V={V} C={C} B={B} bf16: max_abs_err {err:.3e}, relative "
+                f"{rel:.3e} (tol {INT8_LOGITS_REL_TOL:.0e}) kernel {ms:.4f} ms ({device_ms:.4f} ms "
+                f"replayed from a CUDA graph) plain {plain_ms:.4f} ms, bf16 torch.mm logits "
+                f"{library_ms:.4f} ms ({library_device_ms:.4f} ms replayed), bound {kb['bound_ms']:.4f} ms "
+                f"by {kb['bound_by']}")
+            if not rel <= INT8_LOGITS_REL_TOL:
+                raise RuntimeError(f"E2 {layout} B={B} disagrees with its plain version: {rel}")
+            rows[layout, B] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **kb)
+    return rows
+
+
+def check_e3(gen, device):
+    """E3 unpacked and packed against their plain versions at g = 320, Q =
+    128, T = 1536, D = 64, reps 2 and 64, packed against unpacked on
+    block-diagonal operands; the times at reps = 64 and packed/unpacked.
+    Returns the rows by variant (reps = 64)."""
+    import torch
+
+    from whisper_tpu_torch.experiments.attn_packed import block_diagonal
+    from whisper_tpu_torch.ops.kernels import attn_packed as e3
+
+    g, Q, T, D = 320, 128, 1536, 64
+
+    def randn(*shape):
+        return (torch.randn(shape, generator=gen, device=device) * 0.1).to(torch.bfloat16)
+
+    q2 = randn(g, Q, 2 * D)
+    k1, v1, k2, v2 = (randn(g, T, D) for _ in range(4))
+    kp, vp = block_diagonal(k1, k2), block_diagonal(v1, v2)
+    variants = {
+        "unpacked": (lambda r: e3.attn_pairs_unpacked(q2, k1, v1, k2, v2, r),
+                     lambda r: e3.attn_pairs_unpacked_plain(q2, k1, v1, k2, v2, r), 1),
+        "packed": (lambda r: e3.attn_pairs_packed(q2, kp, vp, r),
+                   lambda r: e3.attn_pairs_packed_plain(q2, kp, vp, r), 2),
+    }
+    rows, outs = {}, {}
+    for name, (kernel, plain, work) in variants.items():
+        for reps in (2, 64):
+            out, ref = kernel(reps), plain(reps)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            log(f"E3 attn_pairs_{name} g={g} Q={Q} T={T} D={D} reps={reps} bf16: max_abs_err {err:.3e}, "
+                f"relative {rel:.3e} (tol {E3_REL_TOL:.0e})")
+            if not rel <= E3_REL_TOL:
+                raise RuntimeError(f"E3 {name} reps={reps} disagrees with its plain version: {rel}")
+        outs[name] = out
+        ms = time_ms(lambda: kernel(64), CUDA, iters=5)
+        plain_ms = time_ms(lambda: plain(64), CUDA, iters=2)
+        # 4 Q T D products per head pair per rep (packed: 4x one (Q, 2T, 2D) pair's
+        # worth, the zero blocks included); K/V and q read, the output written
+        ops = work * 8 * g * Q * T * D * 64
+        kv_bytes = 2 * (4 * g * T * D) * work
+        kb = bound(kv_bytes + 2 * 2 * g * Q * 2 * D, ops, "bfloat16")
+        log(f"E3 attn_pairs_{name} reps=64: kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+            f"{kb['bound_ms']:.4f} ms by {kb['bound_by']} ({ops / ms / 1e9:.1f} TFLOP/s)")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **kb)
+    rel = ((outs["packed"].float() - outs["unpacked"].float()).abs().max().item()
+           / outs["unpacked"].float().abs().max().item())
+    log(f"E3 packed/unpacked at reps=64: {rows['packed']['ms'] / rows['unpacked']['ms']:.3f}; packed "
+        f"against unpacked on block-diagonal operands: relative {rel:.3e} (tol {E3_REL_TOL:.0e})")
+    if not rel <= E3_REL_TOL:
+        raise RuntimeError(f"E3 packed departs from unpacked on block-diagonal operands: {rel}")
     return rows
 
 
@@ -357,9 +521,9 @@ def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = "", form: 
         errs = []
         for a, b in zip(out, ref):
             errs.append((a.float() - b.float()).abs().max().item() / b.float().abs().max().item())
-        ms = time_ms(lambda: fused_decoder_layers(*args))
+        ms = time_ms(lambda: fused_decoder_layers(*args), CUDA)
         device_ms = graph_ms(lambda: fused_decoder_layers(*args))
-        plain_ms = time_ms(lambda: fused_decoder_layers_plain(*args))
+        plain_ms = time_ms(lambda: fused_decoder_layers_plain(*args), CUDA)
         err_abs = (out[0].float() - ref[0].float()).abs().max().item()
         kb = k2_bound(blocks, (L, B, A, C, T, Ta), positions, name, xk, xv, pend_w or 0)
         where = f"t={t}" if isinstance(t, int) else f"{len(set(positions))} positions in [{min(positions)}, {max(positions)}]"
@@ -410,14 +574,14 @@ def check_k3(gen, device):
     torch.cuda.synchronize()
     mismatches = int((out.view(torch.int32) != ref.view(torch.int32)).sum().item())
     err = (out - ref).abs().max().item()
-    ms = time_ms(lambda: median_filter(x, 7))
-    plain_ms = time_ms(lambda: median_filter_plain(x, 7), iters=5)
+    ms = time_ms(lambda: median_filter(x, 7), CUDA)
+    plain_ms = time_ms(lambda: median_filter_plain(x, 7), CUDA, iters=5)
 
     def library():  # one PyTorch call chain: reflect pad, windows, median
         rows = torch.nn.functional.pad(x.reshape(-1, 1, x.shape[-1]), (3, 3), mode="reflect")
         return torch.median(rows.unfold(-1, 7, 1), -1).values
 
-    library_ms = time_ms(library, iters=5)
+    library_ms = time_ms(library, CUDA, iters=5)
     # read once, written once; per output the 21 compare-exchanges (42
     # min/max) of a 7-wide odd-even transposition sort, in f32
     kb = bound(2 * x.numel() * 4, 42 * x.numel(), "float32")
@@ -450,8 +614,8 @@ def check_k4(gen, device):
             raise RuntimeError(f"K4 disagrees with its plain version in {mismatches} codes")
         rows[kind] = x
     x = rows["random"]
-    ms = time_ms(lambda: dtw_trace(x, n, m))
-    plain_ms = time_ms(lambda: dtw_trace_plain(x, n, m), iters=2)
+    ms = time_ms(lambda: dtw_trace(x, n, m), CUDA)
+    plain_ms = time_ms(lambda: dtw_trace_plain(x, n, m), CUDA, iters=2)
     # the cost matrix read once, the (n+m+1, n+1) int32 trace written once;
     # three adds and two compares per cell
     kb = bound(4 * n * m + 4 * (n + m + 1) * (n + 1), 5 * n * m, "float32")
@@ -485,9 +649,9 @@ def check_k5(gen, device):
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             rel = err / ref.float().abs().max().item()
-            ms = time_ms(lambda: mlp_fused(*args))
+            ms = time_ms(lambda: mlp_fused(*args), CUDA)
             device_ms = graph_ms(lambda: mlp_fused(*args))
-            plain_ms = time_ms(lambda: mlp_fused_plain(*args))
+            plain_ms = time_ms(lambda: mlp_fused_plain(*args), CUDA)
             # weights (and scales) read once, x read, out written; two GEMVs
             kb = bound(nbytes(w1) + nbytes(w2) + 2 * (2 * F + 3 * C) + 2 * 2 * B * C,
                        2 * B * 2 * F * C, "bfloat16")
@@ -521,10 +685,10 @@ def check_int8_logits(gen, device):
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         rel = err / ref.abs().max().item()
-        ms = time_ms(lambda: int8_logits(hidden, w))
+        ms = time_ms(lambda: int8_logits(hidden, w), CUDA)
         device_ms = graph_ms(lambda: int8_logits(hidden, w))
-        plain_ms = time_ms(lambda: int8_logits_plain(hidden, w))
-        library_ms = time_ms(lambda: torch.mm(hidden, emb.t(), out_dtype=torch.float32))
+        plain_ms = time_ms(lambda: int8_logits_plain(hidden, w), CUDA)
+        library_ms = time_ms(lambda: torch.mm(hidden, emb.t(), out_dtype=torch.float32), CUDA)
         library_device_ms = graph_ms(lambda: torch.mm(hidden, emb.t(), out_dtype=torch.float32))
         kb = bound(nbytes(w) + 2 * B * C + 4 * B * V, 2 * B * V * C, "bfloat16")
         log(f"int8 logits V={V} C={C} B={B} bf16: max_abs_err {err:.3e}, relative {rel:.3e} "
@@ -539,7 +703,16 @@ def check_int8_logits(gen, device):
 
 
 def reset_launches():
-    from whisper_tpu_torch.ops.kernels import attention, dtw, fused_step, median, mlp
+    from whisper_tpu_torch.ops.kernels import (
+        attention,
+        attn_packed,
+        dtw,
+        fused_step,
+        logits,
+        matmul_residual,
+        median,
+        mlp,
+    )
 
     attention.attention.launches = 0
     fused_step.fused_decoder_layers.launches = 0
@@ -548,6 +721,11 @@ def reset_launches():
     mlp.mlp_fused.launches = 0
     median.median_filter.launches = 0
     dtw.dtw_trace.launches = 0
+    matmul_residual.matmul_residual.launches = 0
+    logits.logits_streamed.launches = 0
+    logits.logits_streamed.launches_by_layout.clear()
+    attn_packed.attn_pairs_unpacked.launches = 0
+    attn_packed.attn_pairs_packed.launches = 0
 
 
 @contextlib.contextmanager
@@ -1147,11 +1325,11 @@ def column_write(device):
     def uniform():
         _write_kv_column(cache, k_new, v_new, 200)
 
-    eager = {name: time_ms(fn, iters=50) for name, fn in (("per_row", per_row), ("uniform", uniform))}
+    eager = {name: time_ms(fn, CUDA, iters=50) for name, fn in (("per_row", per_row), ("uniform", uniform))}
     device_only = {name: graph_ms(fn) for name, fn in (("per_row", per_row), ("uniform", uniform))}
     shapes = {"fc1_w": (4 * C, C), "fc2_w": (C, 4 * C), "fc1_b": (4 * C,)}
     blocks = {n: randn(L, *shapes.get(n, (C, C) if n.endswith("_w") else (C,))) for n in WEIGHTS}
-    step_ms = time_ms(lambda: fused_decoder_layers(blocks, H, randn(B, C), pos, *cache), iters=50)
+    step_ms = time_ms(lambda: fused_decoder_layers(blocks, H, randn(B, C), pos, *cache), CUDA, iters=50)
     log(f"K/V column write at B=16, T=448, bf16: per-row positions {device_only['per_row']:.4f} ms "
         f"of device time (graph replay; {eager['per_row']:.4f} ms eager, paced by the host's "
         f"launches), one shared position {device_only['uniform']:.4f} ms ({eager['uniform']:.4f} ms "
@@ -1411,6 +1589,92 @@ def int8_streaming(qmodel, audio):
     return launches
 
 
+def encoder_d128(model, audio):
+    """The encoder at large-v3-turbo's widths with 10 audio heads (head dim
+    128; the weights are the turbo model's, whose shapes do not depend on
+    the head count) on jfk's mel: K1's D = 128 instance once per layer, the
+    features finite; its wall beside the turbo encoder's (D = 64)."""
+    import dataclasses
+
+    import torch
+
+    from whisper_tpu_torch import log_mel_spectrogram, pad_or_trim
+    from whisper_tpu_torch.models.whisper import encoder_apply
+    from whisper_tpu_torch.ops.kernels import attention
+
+    dims = dataclasses.replace(model.dims, n_audio_head=10)
+    mel = log_mel_spectrogram(pad_or_trim(audio), dims.n_mels, device=model.device)[None]
+    walls = {}
+    for name, d in (("D=128", dims), ("D=64", model.dims)) * 2:  # the first of each is a warm-up
+        reset_launches()
+        t0 = time.perf_counter()
+        features = encoder_apply(model.params, d, mel)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        if name == "D=128":
+            launches, finite = attention.attention.launches, bool(torch.isfinite(features).all())
+    log(f"encoder at turbo's widths, 10 heads of 128 (jfk's mel, bf16): {launches} K1 launches, features "
+        f"{tuple(features.shape)} finite {finite}, wall {1e3 * walls['D=128']:.3f} ms (20 heads of 64: "
+        f"{1e3 * walls['D=64']:.3f} ms)")
+    if launches != dims.n_audio_layer or not finite:
+        raise RuntimeError(f"the D=128 encoder ran K1 {launches} times or gave non-finite features")
+    return launches
+
+
+def experiments_path():
+    """The experiments' entry points as a user runs them (python -m
+    whisper_tpu_torch.experiments.<name>), at their defaults on the card
+    (encoder_ops at --d 128): E1, E2 in both layouts and E3 launched.
+    Returns their launches."""
+    from whisper_tpu_torch.experiments import attn_packed, encoder_ops, logits
+    from whisper_tpu_torch.ops.kernels import attn_packed as e3
+    from whisper_tpu_torch.ops.kernels import logits as e2
+    from whisper_tpu_torch.ops.kernels import matmul_residual as e1
+
+    reset_launches()
+    for name, module, argv in (("encoder_ops", encoder_ops, ["--d", "128"]), ("logits", logits, []),
+                               ("attn_packed", attn_packed, [])):
+        log(f"python -m whisper_tpu_torch.experiments.{name} {' '.join(argv)}".rstrip() + ":")
+        module.main(argv)
+    launches = {"matmul_residual": e1.matmul_residual.launches,
+                "logits_streamed_vc": e2.logits_streamed.launches_by_layout["vc"],
+                "logits_streamed_cv": e2.logits_streamed.launches_by_layout["cv"],
+                "attn_pairs_unpacked": e3.attn_pairs_unpacked.launches,
+                "attn_pairs_packed": e3.attn_pairs_packed.launches}
+    log(f"experiments' launches: {launches}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"an experiment did not launch its kernel: {launches}")
+    return launches
+
+
+def batch_beam_160(model, audio):
+    """transcribe_batch on 32 files cut from jfk (4-26 s, phase 12's way)
+    with batch_size 32 and beam 5 at T = 0: one round of 160 rows, which K2
+    takes in launches of 25 and 7 audios of five rows."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch.ops.kernels import fused_step
+
+    tiled = np.tile(audio, 3)
+    files = [tiled[int(0.37 * 16000 * i):][: 16000 * (4 + (i * 7) % 23)] for i in range(32)]
+    reset_launches()
+    t0 = time.perf_counter()
+    results = model.transcribe_batch(files, batch_size=32, beam_size=5, temperature=0.0, language="en")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    layout = dict(fused_step.fused_decoder_layers.launches_by_layout)
+    log(f"transcribe_batch(32 files, batch_size=32, beam_size=5, T=0): wall {wall:.3f} s, "
+        f"{sum(len(r['segments']) for r in results)} segments, K2 launches by (audios, rows per "
+        f"audio) {layout}")
+    if len(results) != 32 or not all(_well_formed(r, len(f), model.dims.n_vocab) for r, f in zip(results, files)):
+        raise RuntimeError("transcribe_batch at 160 rows gave a malformed result")
+    # a later round of fewer files may slice as 25 + fewer: (7, 5) counts the 160-row steps
+    if not 0 < layout.get((7, 5), 0) <= layout.get((25, 5), 0):
+        raise RuntimeError(f"the 160-row steps did not run K2 in slices of 25 and 7 audios: {layout}")
+    return layout[(25, 5)] + layout[(7, 5)]
+
+
 def host_split(fn, steps: int, label: str) -> None:
     """cProfile's host time per token step of one decode (which it slows:
     its shares, not its sums, carry over)."""
@@ -1553,6 +1817,13 @@ def main() -> int:
     k2p = check_k2_pending(gen, device)
     k3 = check_k3(gen, device)
     k4 = check_k4(gen, device)
+    # this slice's kernels: K1 at head dim 128, E1-E3; K2 above 128 rows
+    k1_128 = check_k1_d128(gen, device)
+    e1 = check_e1(gen, device)
+    e2 = check_e2(gen, device)
+    e3 = check_e3(gen, device)
+    k2_160 = check_k2(gen, device, A=32, G=5, t=[(37 * i) % 257 for i in range(160)], label=" slices")
+    check_k2(gen, device, A=160, t=[(53 * i) % 257 for i in range(160)], label=" slices")
     launches, model, audio, forced = end_to_end(device)
     cli_launches = cli_default_path(model)
     beam = beam_window(model, audio)
@@ -1579,6 +1850,9 @@ def main() -> int:
                                     dict(beam=beam[2], prompts=prompts_ms, batch=batch_wall))
     server_launches = server_path(model, audio, profile=args.profile)
     stream_launches = int8_streaming(int8[0], audio)
+    d128_launches = encoder_d128(model, audio)
+    experiment_launches = experiments_path()
+    k2_slice_launches = batch_beam_160(model, audio)
     if args.profile:
         profile_window(model, audio, forced, beam, prompts, int8)
 
@@ -1640,7 +1914,35 @@ def main() -> int:
              launches=stream_launches["fused_decoder_layers_pending_int8"], **k2p["int8"]["bfloat16"]),
         dict(name="fused_decoder_layers_pending_groups", **pending,
              launches=chunked_launches["fused_decoder_layers_pending_groups"], **k2p["groups"]["bfloat16"]),
+        # more than 128 rows: 32 x 5 in launches of 25 and 7 audios, timed as
+        # one step; launches: transcribe_batch's 160-row steps (each two)
+        dict(name="fused_decoder_layers_160", **fused, launches=k2_slice_launches, **k2_160["bfloat16"]),
+        # K1 at head dim 128: timed at the encoder pass's (1, 10, 1500, 128)
+        dict(name="encoder_attention_d128", route="cuda", source="whisper_tpu_torch/csrc/attention.cu",
+             replaces="whisper_tpu/ops/kernels/attention_pallas.py:62", launches=d128_launches,
+             **k1_128[1, "bfloat16"]),
+        # E1-E3, launched by the experiments' entry points at their defaults
+        dict(name="matmul_residual", route="cuda", source="whisper_tpu_torch/csrc/matmul_residual.cu",
+             replaces="scripts/_matmul_pallas_experiment.py:44",
+             launches=experiment_launches["matmul_residual"], **e1),
+        dict(name="logits_streamed_vc", route="cuda", source="whisper_tpu_torch/csrc/logits.cu",
+             replaces="scripts/_logits_experiment.py:109",
+             launches=experiment_launches["logits_streamed_vc"], **e2["vc", 16]),
+        dict(name="logits_streamed_cv", route="cuda", source="whisper_tpu_torch/csrc/logits.cu",
+             replaces="scripts/_logits_experiment.py:144",
+             launches=experiment_launches["logits_streamed_cv"], **e2["cv", 16]),
+        dict(name="attn_pairs_unpacked", route="cuda", source="whisper_tpu_torch/csrc/attn_packed.cu",
+             replaces="scripts/_attn_packed_experiment.py:51",
+             launches=experiment_launches["attn_pairs_unpacked"], **e3["unpacked"]),
+        dict(name="attn_pairs_packed", route="cuda", source="whisper_tpu_torch/csrc/attn_packed.cu",
+             replaces="scripts/_attn_packed_experiment.py:75",
+             launches=experiment_launches["attn_pairs_packed"], **e3["packed"]),
     ]
+    # no card beats its bound: a kernel timed below it skipped part of the
+    # work, which a numeric comparison cannot always see (E3's reps)
+    fast = [(k["name"], k["ms"], k["bound_ms"]) for k in kernels if k["ms"] < k["bound_ms"]]
+    if fast:
+        raise RuntimeError(f"kernels timed below their bound (name, ms, bound_ms): {fast}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

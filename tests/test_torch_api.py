@@ -140,3 +140,17 @@ def test_transcribe_takes_the_word_timing_parameters():
     params = inspect.signature(whisper_tpu_torch.transcribe).parameters
     for name in ("prepend_punctuations", "append_punctuations", "hallucination_silence_threshold"):
         assert params[name].kind is inspect.Parameter.KEYWORD_ONLY
+
+
+def test_all_matches_whisper_tpu():
+    port = set(whisper_tpu_torch.__all__)
+    assert port == set(whisper_tpu.__all__)
+    for name in port:
+        assert hasattr(whisper_tpu_torch, name), name
+
+
+def test_version_matches_whisper_tpu():
+    from whisper_tpu_torch.version import __version__
+
+    assert whisper_tpu_torch.__version__ == __version__ == whisper_tpu.__version__
+    assert isinstance(__version__, str) and __version__.count(".") == 2

@@ -22,7 +22,18 @@ K2's bounds.  The int8 logits: max error 1e-5 of max |plain| (both sum
 exact products in f32; only the order differs).  K3 and K4 select: their
 outputs must equal the plain versions' bit for bit.  A wide decoder's
 batch decodes in write blocks, through K2's pending variant, the tokens of
-per-step writes.
+per-step writes.  K1 at head dim 128 takes K1's bounds.  K2 above 128 rows
+(launched in slices of whole audios): K2's bounds.  E1 (matmul with the
+residual epilogue): f32 max error 1e-4 of max |plain| (f32 sums in another
+order over K up to 5120); bf16 max error 8e-3 of max |plain|, one bf16
+ulp of the largest output (bf16 keeps 8 significant bits: an ulp is at
+most 2^-7 = 7.8e-3 of a value), since the product's f32 sums may round to
+a neighbouring bf16 value before the bias and the residual add.  E2
+(streamed logits): max error 1e-5 of max |plain| (exact bf16 products, f32
+sums in another order).  E3 (score + PV pairs): max error 8e-3 of max
+|plain|, one bf16 ulp of the largest output (a bf16-rounded score may land
+one ulp apart and move an output across a rounding boundary; an H100 reads
+3.8e-3 at g = 320).
 """
 
 import numpy as np
@@ -30,8 +41,11 @@ import pytest
 import torch
 
 from whisper_tpu_torch.ops.kernels import attention as k1
+from whisper_tpu_torch.ops.kernels import attn_packed as e3
 from whisper_tpu_torch.ops.kernels import dtw as k4
 from whisper_tpu_torch.ops.kernels import fused_step as k2
+from whisper_tpu_torch.ops.kernels import logits as e2
+from whisper_tpu_torch.ops.kernels import matmul_residual as e1
 from whisper_tpu_torch.ops.kernels import median as k3
 from whisper_tpu_torch.ops.kernels import mlp as k5
 from whisper_tpu_torch.quantize import Int8Weight, quantize_kv, quantize_weight
@@ -42,6 +56,8 @@ K1_F32_ATOL = 1e-5
 K1_BF16_REL_RMS, K1_BF16_REL_MAX = 5e-3, 1e-2
 K2_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LOGITS_REL_TOL = 1e-5
+E1_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+E3_REL_TOL = 8e-3
 
 
 @pytest.fixture
@@ -55,7 +71,8 @@ def cuda():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "shape", [(1, 2, 1500, 64), (1, 4, 577, 64), (2, 3, 100, 64), (1, 1, 1, 64)]
+    "shape", [(1, 2, 1500, 64), (1, 4, 577, 64), (2, 3, 100, 64), (1, 1, 1, 64),
+              (1, 2, 1500, 128), (1, 4, 577, 128), (2, 3, 100, 128), (1, 1, 1, 128)]
 )
 def test_k1_kernel_matches_plain(cuda, dtype, shape):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -174,15 +191,49 @@ def test_k2_kernel_at_per_row_positions_matches_plain(cuda, dtype, A, G):
 
 
 def test_k2_kernel_refuses_what_it_does_not_take(cuda):
-    blocks, H, x, caches = _k2_inputs(cuda, torch.float32, L=1, T=8, Ta=16, B=k2.MAX_ROWS + 1)
-    with pytest.raises(ValueError, match=f"at most {k2.MAX_ROWS} rows"):
-        k2.fused_decoder_layers(blocks, H, x, 3, *caches)
     blocks, H, x, caches = _k2_inputs(cuda, torch.float32, B=4, A=3)
     with pytest.raises(ValueError, match="audios must divide"):
         k2.fused_decoder_layers(blocks, H, x, 3, *caches)
     blocks, H, x, caches = _k2_inputs(cuda, torch.float32, B=2)
     with pytest.raises(ValueError, match="contiguous"):
         k2.fused_decoder_layers(blocks, H, x.to(torch.bfloat16), 3, *caches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("A,G", [(32, 5), (160, 1), (27, 5), (129, 1)])
+def test_k2_kernel_above_128_rows_matches_plain(cuda, dtype, A, G):
+    """More than 128 rows at per-row positions launch in slices of whole
+    audios (32 x 5: 25 audios, then 7), each counted under its layout."""
+    B, T = A * G, 64
+    blocks, H, x, caches = _k2_inputs(cuda, dtype, L=2, T=T, B=B, A=A)
+    t = torch.randint(0, T + 1, (B,), generator=torch.Generator(device=cuda).manual_seed(B), device=cuda)
+    t[0], t[-1] = 0, T
+    slices = k2.row_slices(B, A)
+    before = dict(k2.fused_decoder_layers.launches_by_layout)
+    launches = k2.fused_decoder_layers.launches
+    out = k2.fused_decoder_layers(blocks, H, x, t, *caches)
+    assert k2.fused_decoder_layers.launches == launches + len(slices) > launches + 1
+    for (_, _), (a0, a1) in slices:
+        assert k2.fused_decoder_layers.launches_by_layout[(a1 - a0, G)] > before.get((a1 - a0, G), 0)
+    ref = k2.fused_decoder_layers_plain(blocks, H, x, t, *caches)
+    assert max(_k2_rel_errors(out, ref)) <= K2_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["", "int8+kv_int8"])
+def test_k2_pending_above_128_rows_matches_plain(cuda, dtype, form):
+    """A pending block at 32 x 5 rows (two slices), block starts per row."""
+    A, G, T, W = 32, 5, 64, 8
+    B = A * G
+    blocks, H, x, caches = _k2_inputs(cuda, dtype, L=2, T=T, B=B, A=A)
+    if form:
+        blocks, caches = _int8_form(blocks, caches, form)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    pend = [torch.randn((2, B, H, 64, W), generator=gen, device=cuda).to(dtype) for _ in range(2)]
+    start = torch.randint(0, T + W, (B,), generator=gen, device=cuda)
+    out = k2.fused_decoder_layers(blocks, H, x, start, *caches, *pend, 5)
+    ref = k2.fused_decoder_layers_plain(blocks, H, x, start, *caches, *pend, 5)
+    assert max(_k2_rel_errors(out, ref)) <= K2_REL_TOL[dtype]
 
 
 def _int8_form(blocks, caches, form):
@@ -314,6 +365,71 @@ def test_int8_logits_match_plain(cuda, dtype, rows):
     assert out.shape == ref.shape == (*rows, 51865) and out.dtype == torch.float32
     rel = (out - ref).abs().max().item() / ref.abs().max().item()
     assert rel <= LOGITS_REL_TOL
+
+
+def _randn(cuda, seed, *shape, scale=1.0, dtype=torch.bfloat16):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=cuda) * scale).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(300, 1024, 256), (24000, 5120, 1280), (1, 32, 8), (129, 96, 136)])
+def test_e1_kernel_matches_plain(cuda, dtype, M, K, N):
+    """Any M (a ragged last row tile), K a multiple of 32, N of 8 (136: a
+    ragged column tile)."""
+    x, w = _randn(cuda, 1, M, K, scale=0.3, dtype=dtype), _randn(cuda, 2, K, N, scale=0.02, dtype=dtype)
+    bias, res = _randn(cuda, 3, N, scale=0.1, dtype=dtype), _randn(cuda, 4, M, N, scale=0.3, dtype=dtype)
+    launches = e1.matmul_residual.launches
+    out = e1.matmul_residual(x, w, bias, res)
+    assert e1.matmul_residual.launches == launches + 1
+    ref = e1.matmul_residual_plain(x, w, bias, res)
+    assert out.shape == ref.shape and out.dtype == ref.dtype == dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= E1_REL_TOL[dtype] * ref.float().abs().max().item()
+
+
+def test_e1_kernel_refuses_what_it_does_not_take(cuda):
+    x, w = torch.zeros(4, 48, device=cuda), torch.zeros(48, 8, device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        e1.matmul_residual(x, w, torch.zeros(8, device=cuda), torch.zeros(4, 8, device=cuda))
+
+
+@pytest.mark.parametrize("layout", ["vc", "cv"])
+@pytest.mark.parametrize("B,V,C", [(1, 51866, 1280), (5, 51866, 1280), (16, 51866, 1280),
+                                   (17, 1000, 128), (3, 1001, 64), (16, 1024, 32)])
+def test_e2_kernel_matches_plain(cuda, layout, B, V, C):
+    """Any V (51866 and 1001: the (C, V) copy's rows not 16-byte aligned;
+    1000: not a multiple of the row tiles), more than 16 rows (a second
+    row tile)."""
+    x, emb = _randn(cuda, 5, B, C), _randn(cuda, 6, V, C, scale=0.02)
+    w = emb if layout == "vc" else emb.t().contiguous()
+    key = e2.logits_streamed.launches_by_layout[layout]
+    out = e2.logits_streamed(x, w, layout)
+    assert e2.logits_streamed.launches_by_layout[layout] == key + 1
+    ref = e2.logits_streamed_plain(x, w, layout)
+    assert out.shape == ref.shape == (B, V) and out.dtype == torch.float32
+    assert (out - ref).abs().max().item() <= LOGITS_REL_TOL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("g,Q,T,reps", [(2, 128, 1536, 2), (3, 32, 96, 3), (1, 80, 40, 1), (2, 64, 64, 0)])
+def test_e3_kernels_match_plain(cuda, g, Q, T, reps):
+    """Both variants against their plain versions (Q and T not multiples of
+    the kernel's tiles for some), and packed against unpacked on
+    block-diagonal operands."""
+    from whisper_tpu_torch.experiments.attn_packed import block_diagonal
+
+    q2 = _randn(cuda, 7, g, Q, 128, scale=0.1)
+    k1, v1, k2_, v2 = (_randn(cuda, 8 + i, g, T, 64, scale=0.1) for i in range(4))
+    kp, vp = block_diagonal(k1, k2_), block_diagonal(v1, v2)
+    counts = e3.attn_pairs_unpacked.launches, e3.attn_pairs_packed.launches
+    unpacked = e3.attn_pairs_unpacked(q2, k1, v1, k2_, v2, reps)
+    packed = e3.attn_pairs_packed(q2, kp, vp, reps)
+    assert (e3.attn_pairs_unpacked.launches, e3.attn_pairs_packed.launches) == (counts[0] + 1, counts[1] + 1)
+    refs = (e3.attn_pairs_unpacked_plain(q2, k1, v1, k2_, v2, reps), e3.attn_pairs_packed_plain(q2, kp, vp, reps))
+    for out, ref in zip((unpacked, packed, packed), refs + (unpacked,)):
+        assert out.shape == ref.shape == (g, Q, 128) and out.dtype == torch.bfloat16
+        scale = max(ref.float().abs().max().item(), 1e-30)
+        assert (out.float() - ref.float()).abs().max().item() <= E3_REL_TOL * scale
 
 
 @pytest.mark.parametrize("width", [3, 5, 7, 13])

@@ -211,15 +211,23 @@ def test_import_pulls_in_no_jax():
         "whisper_tpu_torch.ops.kernels.mlp, "
         "whisper_tpu_torch.timing, whisper_tpu_torch.__main__, whisper_tpu_torch.ops.kernels.median, "
         "whisper_tpu_torch.ops.kernels.dtw, whisper_tpu_torch.batch, whisper_tpu_torch.chunked, "
-        "whisper_tpu_torch.align, whisper_tpu_torch.serve, whisper_tpu_torch.streaming; "
+        "whisper_tpu_torch.align, whisper_tpu_torch.serve, whisper_tpu_torch.streaming, "
+        "whisper_tpu_torch.experiments.encoder_ops, whisper_tpu_torch.experiments.logits, "
+        "whisper_tpu_torch.experiments.attn_packed, whisper_tpu_torch.ops.kernels.matmul_residual, "
+        "whisper_tpu_torch.ops.kernels.logits, whisper_tpu_torch.ops.kernels.attn_packed; "
         "from whisper_tpu_torch.transcribe import cli; "
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisper_tpu')]; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisper_tpu', 'scripts') "
+        f"or m in {_SCRIPT_MODULES!r}]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# the modules under scripts/, importable by name once scripts/ is on sys.path
+_SCRIPT_MODULES = sorted(f[:-3] for f in os.listdir(os.path.join(REPO, "scripts")) if f.endswith(".py"))
 
 
 def _port_sources():
@@ -232,8 +240,9 @@ def _port_sources():
 
 def test_port_reads_no_path_under_whisper_tpu():
     """No module of the port, nor chip_smoke.py or chip_compare.py, imports
-    whisper_tpu or builds a path into its tree: no "whisper_tpu" path
-    component, no "whisper_tpu/..." string in code.  Docstrings that cite a
+    whisper_tpu or a module of scripts/, or builds a path into either tree:
+    no "whisper_tpu" path component, no "whisper_tpu/..." or "scripts/..."
+    string in code.  Docstrings that cite a
     counterpart, and chip_smoke's ``replaces=`` (which names the TPU kernel
     a CUDA kernel replaces and is never opened), are not paths."""
     bad = []
@@ -249,9 +258,11 @@ def test_port_reads_no_path_under_whisper_tpu():
         for node in ast.walk(tree):
             if isinstance(node, (ast.Import, ast.ImportFrom)):
                 names = [a.name for a in node.names] if isinstance(node, ast.Import) else [node.module or ""]
-                bad += [(path, n) for n in names if n.split(".")[0] == "whisper_tpu"]
+                bad += [(path, n) for n in names
+                        if n.split(".")[0] in ("whisper_tpu", "scripts") or n in _SCRIPT_MODULES]
             elif isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in cited:
-                if node.value == "whisper_tpu" or node.value.startswith("whisper_tpu/") or "/whisper_tpu/" in node.value:
+                if (node.value == "whisper_tpu" or node.value.startswith(("whisper_tpu/", "scripts/"))
+                        or "/whisper_tpu/" in node.value or "/scripts/" in node.value):
                     bad.append((os.path.relpath(path, REPO), node.value[:60]))
     assert bad == []
 

@@ -1,8 +1,9 @@
 """The plain versions of whisper_tpu_torch's kernels against whisper_tpu.
 
-K1 (encoder attention): ``attention_plain`` against ``qkv_attention``, the
-oracle the JAX encoder takes off the TPU (``attention_pallas`` has no
-interpret switch).  K2 (fused decode step): the port's step against
+K1 (encoder attention): ``attention_plain`` against ``attention_pallas``'s
+real body under ``force_tpu_interpret_mode`` at both head dims the kernel
+takes (64 and 128), and against ``qkv_attention``, the oracle the JAX
+encoder takes off the TPU.  K2 (fused decode step): the port's step against
 ``decoder_step`` and against ``decoder_step_fused`` with the real Pallas
 kernel body under the interpreter, at tests/test_fused_step.py's DIMS and
 bounds.  On a CPU tensor each wrapper takes its plain version and counts no
@@ -15,10 +16,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 import whisper_tpu.models.whisper as jw
 from whisper_tpu.models.dims import ModelDimensions as JDims
 from whisper_tpu.ops.attention import qkv_attention
+from whisper_tpu.ops.kernels.attention_pallas import attention_pallas
 from whisper_tpu.ops.kernels.fused_step_pallas import pack_fused_weights, pad_cross_kv
 
 import whisper_tpu_torch.models.whisper as tw
@@ -72,6 +75,47 @@ def test_k1_plain_matches_qkv_attention(shape, dtype, atol):
     assert got.dtype == td and got.shape == shape
     err = np.abs(got.float().numpy() - np.asarray(ref, np.float32)).max()
     assert err <= atol
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,atol",
+    [
+        # f32: the same function, summed in another order
+        ((1, 2, 300, 128), "float32", 1e-5),
+        ((1, 2, 300, 64), "float32", 1e-5),
+        ((2, 1, 130, 128), "float32", 1e-5),
+        # bf16: the same rounding points (exp weights rounded before PV, the
+        # denominator from them); only the f32 sums' order differs, which
+        # may move an exp weight to a neighbouring bf16 value
+        ((1, 2, 300, 128), "bfloat16", 1e-2),
+        ((1, 2, 300, 64), "bfloat16", 1e-2),
+    ],
+)
+def test_k1_plain_matches_the_pallas_body(shape, dtype, atol):
+    """T = 300 and 130 leave a ragged last 128-row query block, which the
+    Pallas kernel masks on store."""
+    rng = np.random.RandomState(2)
+    q, k, v = (rng.randn(*shape).astype(np.float32) for _ in range(3))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        ref = attention_pallas(*(jnp.asarray(a, jd) for a in (q, k, v)))
+    got = k1.attention(*(torch.from_numpy(a).to(td) for a in (q, k, v)))
+    assert got.dtype == td and got.shape == shape
+    assert np.abs(got.float().numpy() - np.asarray(ref, np.float32)).max() <= atol
+
+
+def test_encoder_attention_dispatches_on_the_head_dim():
+    """ops.attention.encoder_attention follows whisper_tpu's rule: head dims
+    64 and 128 take K1 (its plain version on a CPU tensor), any other takes
+    qkv_attention."""
+    from whisper_tpu_torch.ops import attention as tattn
+
+    rng = np.random.RandomState(3)
+    for d in (32, 64, 128):
+        q, k, v = (torch.from_numpy(rng.randn(1, 2, 40, d).astype(np.float32)) for _ in range(3))
+        want = k1.attention_plain(q, k, v) if d in k1.HEAD_DIMS else tattn.qkv_attention(q, k, v)[0]
+        torch.testing.assert_close(tattn.encoder_attention(q, k, v), want, rtol=0, atol=0)
+    assert k1.HEAD_DIMS == (64, 128)
 
 
 def test_k1_plain_masks_nothing_at_an_odd_length():
@@ -210,3 +254,53 @@ def test_k2_grouped_step_matches_jax(jparams, tparams, step_inputs):
     np.testing.assert_allclose(h.numpy(), np.asarray(ref_h), atol=3e-5, rtol=1e-4)
     np.testing.assert_allclose(tcache.self_k.numpy(), np.asarray(ref_cache.self_k), atol=1e-5)
     np.testing.assert_allclose(tcache.self_v.numpy(), np.asarray(ref_cache.self_v), atol=1e-5)
+
+
+# -- K2's row slices (more than 128 rows) -------------------------------------
+
+
+@pytest.mark.parametrize("audios,G", [(160, 1), (32, 5), (27, 5), (128, 1), (3, 5), (1, 128)])
+def test_k2_row_slices_hold_whole_audios(audios, G):
+    """Each launch holds at most 128 rows of whole audios, as many as fit,
+    in order; together they cover every row and audio once."""
+    rows = audios * G
+    slices = k2.row_slices(rows, audios)
+    assert slices[0][0][0] == 0 and slices[-1][0][1] == rows and slices[-1][1][1] == audios
+    for i, ((r0, r1), (a0, a1)) in enumerate(slices):
+        assert 0 < r1 - r0 <= k2.MAX_ROWS and (r0, r1) == (a0 * G, a1 * G)
+        if i + 1 < len(slices):
+            assert slices[i + 1][0][0] == r1 and r1 - r0 == (k2.MAX_ROWS // G) * G
+    assert len(slices) == -(-audios // (k2.MAX_ROWS // G))
+
+
+def test_k2_row_slices_refuse_a_group_wider_than_a_launch():
+    with pytest.raises(ValueError, match="exceed"):
+        k2.row_slices(129, 1)
+    with pytest.raises(ValueError, match="divide"):
+        k2.row_slices(10, 3)
+
+
+def test_k2_step_in_row_slices_equals_the_whole():
+    """27 audios of 5 rows (135) at per-row positions: the plain step run
+    slice by slice, on each slice's rows, cache rows and audios, equals the
+    step of all 135 rows at once: a slice holds every input its rows read."""
+    gen = torch.Generator().manual_seed(0)
+    L, C, H, T, Ta, A, G = 1, 64, 1, 8, 16, 27, 5
+    B = A * G
+
+    def randn(*shape, scale=0.1):
+        return torch.randn(shape, generator=gen) * scale
+
+    sizes = {"fc1_w": (4 * C, C), "fc2_w": (C, 4 * C), "fc1_b": (4 * C,)}
+    blocks = {n: randn(L, *sizes.get(n, (C, C) if n.endswith("_w") else (C,))) for n in k2.WEIGHTS}
+    x, t = randn(B, C), torch.randint(0, T + 1, (B,), generator=gen)
+    sk, sv, xk, xv = randn(L, B, H, 64, T), randn(L, B, H, 64, T), randn(L, A, H, 64, Ta), randn(L, A, H, 64, Ta)
+    whole = k2.fused_decoder_layers(blocks, H, x, t, sk, sv, xk, xv)
+    parts = [
+        k2.fused_decoder_layers(blocks, H, x[r0:r1], t[r0:r1], sk[:, r0:r1], sv[:, r0:r1], xk[:, a0:a1],
+                                xv[:, a0:a1])
+        for (r0, r1), (a0, a1) in k2.row_slices(B, A)
+    ]
+    torch.testing.assert_close(torch.cat([p[0] for p in parts]), whole[0], rtol=0, atol=1e-6)
+    for i in (1, 2):
+        torch.testing.assert_close(torch.cat([p[i] for p in parts], dim=1), whole[i], rtol=0, atol=1e-6)

@@ -199,3 +199,20 @@ def _flatten(tree, prefix=""):
         key = f"{prefix}/{k}" if prefix else k
         out.update(_flatten(v, key) if isinstance(v, dict) else {key: v})
     return out
+
+
+def test_encoder_apply_at_head_dim_128():
+    """An encoder of head dim 128 (n_audio_state 256, 2 heads; the text side
+    at 64): K1's D = 128 instance on the card, its plain version here,
+    against whisper_tpu's encoder; activations within 5e-4."""
+    kw = dict(TINY_DIMS, n_audio_state=256, n_audio_head=2, n_audio_layer=1, n_text_state=128,
+              n_text_head=2, n_text_layer=1)
+    dims, jdims = ModelDimensions(**kw), JDims(**kw)
+    jp = jw.init_params(jdims, jax.random.PRNGKey(1), jnp.float32)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), dims)
+    mel = np.random.RandomState(4).randn(1, 80, 3000).astype(np.float32)
+    ref = np.array(jw.encoder_apply(jp, jdims, jnp.asarray(mel)))
+    got = tw.encoder_apply(tp, dims, torch.from_numpy(mel)).numpy()
+    assert dims.n_audio_state // dims.n_audio_head == 128
+    assert got.shape == ref.shape == (1, 1500, 256)
+    assert np.abs(got - ref).max() <= 5e-4

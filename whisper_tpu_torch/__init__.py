@@ -34,6 +34,7 @@ from .decoding import DecodingOptions, DecodingResult, decode, detect_language
 from .models import ModelDimensions, Whisper
 from .streaming import StreamingTranscriber
 from .transcribe import transcribe
+from .version import __version__
 
 # attach the high-level entry points as methods (reference model.py:343-345,
 # plus whisper_tpu's many-file ones)
@@ -215,4 +216,5 @@ __all__ = [
     "transcribe",
     "transcribe_batch",
     "transcribe_chunked",
+    "__version__",
 ]

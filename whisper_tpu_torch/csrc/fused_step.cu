@@ -96,6 +96,18 @@
 // int8 logits projection is the same GEMV with an unrounded f32 epilogue
 // acc * s[v] (int8_logits).
 //
+// More than MAX_ROWS = 128 rows: the wrapper launches the step in slices
+// of at most 128 rows that hold whole audios (ops/kernels/fused_step.py
+// row_slices), each slice one call of fused_decoder_layers with the first
+// row of its slice (row0) and the tensors' full row count (B_total).  The
+// entry point indexes from those two: x, the hidden state, the positions,
+// k_new/v_new (L, B_total, C), the self cache and the pending block (L,
+// B_total, ...) start at row row0 of each layer, the cross K/V and their
+// scales (L, B_total / G, ...) at audio row0 / G, and every layer stride
+// counts B_total rows (B_total / G audios).  No slice of a cache is
+// copied: a slice's launches read and write the full tensors in place.
+// One slice is the whole step at B <= 128 (row0 = 0, B_total = B).
+//
 // The pending block (fused_step_pallas.py:312-314, pend_k/pend_v/pend_w;
 // models/whisper.decoder_step_pending and decoder_step_fused_pending): the
 // write-block engine defers each step's K/V column to a small (L, B, H, D,
@@ -862,6 +874,7 @@ void mlp_stage(T* x, T* ff, int B, int C, int F, const T* ln_g, const T* ln_b, c
 // one step's arguments, as fused_decoder_layers takes them
 struct Step {
   int L, B, A, C, H, t_cap, t, ta;
+  int row0, B_total;                // this slice's first row; the tensors' rows
   int W, pend_w;                    // pending block: W columns, pend_w valid (W = 0: none)
   const void *pend_k, *pend_v;      // (L, B, H, D, W) each, or null
   const int* positions;
@@ -878,14 +891,15 @@ int run(const Step& a, cudaStream_t stream) {
   const int L = a.L, B = a.B, A = a.A, C = a.C, H = a.H, t_cap = a.t_cap, ta = a.ta;
   constexpr bool W8 = std::is_same<WT, int8_t>::value;
   constexpr bool KV8 = std::is_same<KT, int8_t>::value;
-  const T* x = static_cast<const T*>(a.x);
-  T* out = static_cast<T*>(a.out);
-  T* k_new = static_cast<T*>(a.k_new);
-  T* v_new = static_cast<T*>(a.v_new);
-  const T* self_k = static_cast<const T*>(a.self_k);
-  const T* self_v = static_cast<const T*>(a.self_v);
-  const KT* cross_k = static_cast<const KT*>(a.cross_k);
-  const KT* cross_v = static_cast<const KT*>(a.cross_v);
+  // this slice's rows [row0, row0 + B) of B_total, audios [a0, a0 + A) of
+  // A_total; layer strides count every row (audio) of the tensors
+  const size_t row0 = a.row0, Bt = a.B_total;
+  const size_t a0 = row0 / (B / A), At = Bt / (B / A);
+  const T* x = static_cast<const T*>(a.x) + row0 * C;
+  T* out = static_cast<T*>(a.out) + row0 * C;
+  T* k_new = static_cast<T*>(a.k_new) + row0 * C;
+  T* v_new = static_cast<T*>(a.v_new) + row0 * C;
+  const int* positions = a.positions != nullptr ? a.positions + row0 : nullptr;
   T* q = static_cast<T*>(a.scratch);     // (B, C): q (self, then cross)
   T* attn = q + (size_t)B * C;           // (B, C): attention output, merged heads
   T* ff = attn + (size_t)B * C;          // (B, 4C): fc1 + GELU output
@@ -893,15 +907,19 @@ int run(const Step& a, cudaStream_t stream) {
   const float scale = (float)pow((double)HD, -0.25);
   const size_t cc = (size_t)C * C;
   const size_t self_row = (size_t)H * HD * t_cap, cross_row = (size_t)H * HD * ta;
+  const T* self_k = static_cast<const T*>(a.self_k) + row0 * self_row;
+  const T* self_v = static_cast<const T*>(a.self_v) + row0 * self_row;
+  const KT* cross_k = static_cast<const KT*>(a.cross_k) + a0 * cross_row;
+  const KT* cross_v = static_cast<const KT*>(a.cross_v) + a0 * cross_row;
   // self-attention: every row at t, or row b at positions[b] clamped to
   // [0, t_cap]; each block of a cluster holds its chunk of the scores,
   // sized for the whole cache and the pending block (at most 260 bytes at
   // t_cap = 448, W = 8)
-  const int n_max = a.positions != nullptr ? t_cap : a.t;
+  const int n_max = positions != nullptr ? t_cap : a.t;
   const size_t self_smem = (size_t)((t_cap + a.W + CLUSTER - 1) / CLUSTER + 1) * sizeof(float);
   const size_t pend_row = (size_t)H * HD * a.W;
-  const T* pend_k = static_cast<const T*>(a.pend_k);
-  const T* pend_v = static_cast<const T*>(a.pend_v);
+  const T* pend_k = a.pend_k != nullptr ? static_cast<const T*>(a.pend_k) + row0 * pend_row : nullptr;
+  const T* pend_v = a.pend_v != nullptr ? static_cast<const T*>(a.pend_v) + row0 * pend_row : nullptr;
 
   cudaError_t e = cudaMemcpyAsync(out, x, (size_t)B * C * sizeof(T), cudaMemcpyDeviceToDevice, stream);
   if (e != cudaSuccess) return (int)e;
@@ -915,8 +933,8 @@ int run(const Step& a, cudaStream_t stream) {
     auto sc = [&](PROJ j, size_t per_layer) -> const float* {  // their scales
       return W8 ? a.scales[j] + l * per_layer : nullptr;
     };
-    T* kn = k_new + (size_t)l * B * C;
-    T* vn = v_new + (size_t)l * B * C;
+    T* kn = k_new + (size_t)l * Bt * C;
+    T* vn = v_new + (size_t)l * Bt * C;
 
     Segments<T, WT> s_qkv = {{w(Q_W, cc), w(K_W, cc), w(V_W, cc)},
                              {sc(P_Q, C), sc(P_K, C), sc(P_V, C)},
@@ -926,22 +944,22 @@ int run(const Step& a, cudaStream_t stream) {
                                     stream);
     if (pend_k != nullptr)
       decode_attention_kernel<T, T, 1, true><<<B * H * CLUSTER, THREADS, self_smem, stream>>>(
-          q, self_k + l * B * self_row, self_v + l * B * self_row, kn, vn, attn, H, C, self_row, 1,
-          a.positions, n_max, t_cap, scale, nullptr, nullptr, pend_k + l * B * pend_row,
-          pend_v + l * B * pend_row, a.W, a.pend_w);
+          q, self_k + l * Bt * self_row, self_v + l * Bt * self_row, kn, vn, attn, H, C, self_row, 1,
+          positions, n_max, t_cap, scale, nullptr, nullptr, pend_k + l * Bt * pend_row,
+          pend_v + l * Bt * pend_row, a.W, a.pend_w);
     else
       decode_attention_kernel<T, T, 1><<<B * H * CLUSTER, THREADS, self_smem, stream>>>(
-          q, self_k + l * B * self_row, self_v + l * B * self_row, kn, vn, attn, H, C, self_row, 1,
-          a.positions, n_max, t_cap, scale, nullptr, nullptr, nullptr, nullptr, 0, 0);
+          q, self_k + l * Bt * self_row, self_v + l * Bt * self_row, kn, vn, attn, H, C, self_row, 1,
+          positions, n_max, t_cap, scale, nullptr, nullptr, nullptr, nullptr, 0, 0);
     Segments<T, WT> s_o = {{w(O_W, cc)}, {sc(P_O, C)}, {p(O_B, C)}, {out}};
     gemv<T, WT, false, false, true>(attn, B, C, nullptr, nullptr, s_o, C, C, stream);
 
     Segments<T, WT> s_xq = {{w(XQ_W, cc)}, {sc(P_XQ, C)}, {p(XQ_B, C)}, {q}};
     gemv<T, WT, true, false, false>(out, B, C, p(XATTN_LN_G, C), p(XATTN_LN_B, C), s_xq, C, C,
                                     stream);
-    const size_t kv_scales = (size_t)l * A * C;  // (L, A, H, D) scales
-    cross_attention<T, KT>(B / A, A, cross_row, H, C, ta, stream, q, cross_k + l * A * cross_row,
-                           cross_v + l * A * cross_row,
+    const size_t kv_scales = ((size_t)l * At + a0) * C;  // (L, A_total, H, D) scales
+    cross_attention<T, KT>(B / A, A, cross_row, H, C, ta, stream, q, cross_k + l * At * cross_row,
+                           cross_v + l * At * cross_row,
                            KV8 ? a.cross_k_scale + kv_scales : nullptr,
                            KV8 ? a.cross_v_scale + kv_scales : nullptr, attn);
     Segments<T, WT> s_xo = {{w(XO_W, cc)}, {sc(P_XO, C)}, {p(XO_B, C)}, {out}};
@@ -963,6 +981,10 @@ int run_weights(int w_int8, int kv_int8, const Step& a, cudaStream_t stream) {
 
 }  // namespace
 
+// One slice of the step: rows [row0, row0 + B) (1 <= B <= 128, A audios
+// of G = B / A rows, row0 a multiple of G) of tensors that hold B_total
+// rows, indexed from row0 and B_total (see the header); row0 = 0 and
+// B_total = B for a whole step.
 // positions: the rows' positions t[b], int32 in device memory, or null for
 // one position t (0 <= t <= t_cap) shared by every row.  w_int8: the eight
 // projections are int8 with their scales in scale_table (N_PROJ pointers);
@@ -971,6 +993,7 @@ int run_weights(int w_int8, int kv_int8, const Step& a, cudaStream_t stream) {
 // neither (W = 0, pend_w = 0); with it the positions are the block's start
 // and the first pend_w of its W columns are attended (0 <= pend_w <= W).
 extern "C" int fused_decoder_layers(int dtype, int w_int8, int kv_int8, int L, int B, int A,
+                                    int row0, int B_total,
                                     int C, int H, int t_cap, int t, int ta, int W, int pend_w,
                                     const void* positions, const void* x, void* out,
                                     void* k_new, void* v_new, const void* self_k,
@@ -981,12 +1004,13 @@ extern "C" int fused_decoder_layers(int dtype, int w_int8, int kv_int8, int L, i
                                     void* stream) {
   const bool pending = pend_k != nullptr;
   if (C != H * HD || C % 16 != 0 || B < 1 || B > MAX_ROWS || A < 1 || B % A != 0 ||
+      row0 < 0 || row0 % (B / A) != 0 || B_total % (B / A) != 0 || row0 + B > B_total ||
       t < 0 || t > t_cap || ta <= 0 || (w_int8 && scale_table == nullptr) ||
       (kv_int8 && (cross_k_scale == nullptr || cross_v_scale == nullptr)) ||
       pending != (pend_v != nullptr) || (pending ? W < 1 || W > MAX_PEND : W != 0) ||
       pend_w < 0 || pend_w > W)
     return (int)cudaErrorInvalidValue;
-  const Step a = {L, B, A, C, H, t_cap, t, ta, W, pend_w, pend_k, pend_v,
+  const Step a = {L, B, A, C, H, t_cap, t, ta, row0, B_total, W, pend_w, pend_k, pend_v,
                   static_cast<const int*>(positions), x, self_k,
                   self_v, cross_k, cross_v, static_cast<const float*>(cross_k_scale),
                   static_cast<const float*>(cross_v_scale), out, k_new, v_new, scratch,

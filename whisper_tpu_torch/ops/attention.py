@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .kernels.attention import HEAD_DIMS
 from .kernels.attention import attention as _attention_kernel
 
 
@@ -54,9 +55,14 @@ def qkv_attention_kt(
 
 
 def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Self-attention over the encoder's 1500-frame context: kernel K1 on a
-    CUDA tensor, its plain version on a CPU tensor."""
-    return _attention_kernel(q, k, v)
+    """Self-attention over the encoder's 1500-frame context.  At a head dim
+    K1 takes (64 or 128), as whisper_tpu's dispatch (``ops/attention.py``
+    ``encoder_attention``): kernel K1 on a CUDA tensor, its plain version on
+    a CPU tensor.  Any other head dim takes :func:`qkv_attention`, as
+    whisper_tpu's XLA path does for it.  The choice is the shape's."""
+    if q.shape[-1] in HEAD_DIMS:
+        return _attention_kernel(q, k, v)
+    return qkv_attention(q, k, v)[0]
 
 
 def split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:

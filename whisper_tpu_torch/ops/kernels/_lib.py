@@ -22,8 +22,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libwhisper_kernels.so")
-SOURCES = ("attention.cu", "fused_step.cu", "median.cu", "dtw.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("attention.cu", "fused_step.cu", "median.cu", "dtw.cu", "matmul_residual.cu",
+           "logits.cu", "attn_packed.cu")
+HEADERS = ("common.cuh", "mma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo",
@@ -39,13 +40,14 @@ _I = ctypes.c_int
 SIGNATURES = {
     # dtype, q, k, v, out, batch*heads, T, head_dim, stream
     "encoder_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
-    # dtype, int8 weights, int8 cross K/V, L, B, A, C, H, T_cap, t (shared),
+    # dtype, int8 weights, int8 cross K/V, L, B, A (this launch's rows and
+    # audios), its first row, the tensors' rows, C, H, T_cap, t (shared),
     # Ta, pending columns W (0: none), valid pending columns, positions (B,)
     # int32 or null (every row at t), x, out, k_new, v_new, self_k, self_v,
     # cross_k, cross_v, cross K/V scales (or null), weight pointer table
     # (host), scale pointer table (host, or null), pending K and V (or
     # null), scratch, stream
-    "fused_decoder_layers": [_I] * 13 + [_P] * 17,
+    "fused_decoder_layers": [_I] * 15 + [_P] * 17,
     # dtype, int8 weights, B, C, F, x, out, ln_g, ln_b, w1, s1, b1, w2, s2,
     # b2, scratch, stream
     "mlp_fused": [_I] * 5 + [_P] * 12,
@@ -55,6 +57,12 @@ SIGNATURES = {
     "median_filter": [_P, _P, ctypes.c_longlong, _I, _I, _P],
     # x, trace, batch, n, m, stream
     "dtw_trace": [_P, _P, _I, _I, _I, _P],
+    # dtype, x, w, bias, res, out, M, K, N, stream
+    "matmul_residual": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # layout (0: (V, C), 1: (C, V)), B, C, V, x, emb, out, stream
+    "logits_streamed": [_I] * 4 + [_P] * 4,
+    # packed, g, Q, T, reps, eps (float), q, k0, v0, k1, v1, out, stream
+    "attn_pairs": [_I] * 5 + [ctypes.c_float] + [_P] * 7,
 }
 
 

@@ -1,6 +1,7 @@
 """K1: encoder self-attention as a hand-written Hopper kernel.
 
-Replaces ``whisper_tpu/ops/kernels/attention_pallas.py:attention_pallas``.
+Replaces ``whisper_tpu/ops/kernels/attention_pallas.py:attention_pallas``
+at the head dims it takes, 64 (every Whisper model) and 128.
 The kernel is ``whisper_tpu_torch/csrc/attention.cu`` (its header says what
 bounds it and how it is built); :func:`attention_plain` is the same function
 in PyTorch, with the TPU kernel's exact softmax and deferred normalisation.
@@ -11,7 +12,7 @@ import torch
 from . import _lib
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 64
+HEAD_DIMS = (64, 128)  # csrc/attention.cu's instances
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -33,7 +34,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     """Non-causal attention (B, H, T, D) -> (B, H, T, D).
 
     A CPU tensor takes :func:`attention_plain`; a CUDA tensor launches the
-    kernel (bf16 or f32, D = 64, contiguous) or raises.
+    kernel (bf16 or f32, D = 64 or 128, contiguous) or raises.
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
@@ -42,8 +43,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     if not (q.shape == k.shape == v.shape and q.dim() == 4):
         raise ValueError(f"encoder attention: shapes {q.shape}, {k.shape}, {v.shape}")
     b, h, t, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"encoder attention kernel takes head_dim {HEAD_DIM}, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"encoder attention kernel takes head_dim {HEAD_DIMS}, got {d}")
     for x in (q, k, v):
         if x.dtype != q.dtype or x.dtype not in _DTYPES:
             raise ValueError(f"encoder attention: dtype {x.dtype} (bf16 or f32, all equal)")

@@ -34,11 +34,17 @@ decoder_step_fused_pending``): t[b] is then the block's start, and row b's
 self-attention reads its cache positions < t[b], its first ``pend_w``
 pending columns and its new token, one softmax over the three in f32.  The
 caller puts the new K/V into pending column ``pend_w``.
+
+Any number of rows: one launch takes at most 128 (``MAX_ROWS``), so a CUDA
+step of more rows launches once per slice of :func:`row_slices`, each
+slice whole audios; every launch reads and writes the full tensors in
+place from its first row (``csrc/fused_step.cu``'s header), so nothing is
+copied per step.
 """
 
 import collections
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,7 +57,7 @@ from .mlp import mlp_fused, mlp_fused_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64
-MAX_ROWS = 128  # csrc/fused_step.cu MAX_ROWS
+MAX_ROWS = 128  # csrc/fused_step.cu MAX_ROWS: a launch's rows
 MAX_PEND = 64  # csrc/fused_step.cu MAX_PEND: a pending block's columns
 
 # the kernel's weight table order (csrc/fused_step.cu enum W)
@@ -168,6 +174,22 @@ def fused_decoder_layers_plain(
     return x[:, 0], torch.stack(k_news), torch.stack(v_news)
 
 
+def row_slices(rows: int, audios: int) -> List[Tuple[Tuple[int, int], Tuple[int, int]]]:
+    """The launches of a step of ``rows`` rows of ``audios`` audios (G =
+    rows / audios rows each, group-major): ((first row, end row), (first
+    audio, end audio)) per launch, each of at most ``MAX_ROWS`` rows and
+    whole audios, as many audios to a launch as fit, in order (32 x 5:
+    25 audios, then 7).  Raises where an audio's G rows exceed MAX_ROWS."""
+    if audios < 1 or rows < 1 or rows % audios:
+        raise ValueError(f"{audios} audios do not divide {rows} rows")
+    G = rows // audios
+    per = MAX_ROWS // G
+    if per < 1:
+        raise ValueError(f"fused decode-step kernel: an audio's {G} rows exceed {MAX_ROWS}")
+    return [((a0 * G, min(a0 + per, audios) * G), (a0, min(a0 + per, audios)))
+            for a0 in range(0, audios, per)]
+
+
 def _int8_form(leaves, what: str) -> bool:
     """True when every leaf is int8, False when none is; raises otherwise."""
     int8 = [isinstance(a, Int8Weight) for a in leaves]
@@ -202,8 +224,6 @@ def _check_args(blocks, n_head, x, positions, self_k, self_v, cross_k, cross_v,
                 f"fused decode-step kernel: pending block {tuple(pend_k.shape)} with {pend_w} "
                 f"columns valid; (L, B, H, D, W) with 1 <= W <= {MAX_PEND} expected"
             )
-    if not 1 <= B <= MAX_ROWS:
-        raise ValueError(f"fused decode-step kernel: at most {MAX_ROWS} rows, got {B}")
     if D != HEAD_DIM or H != n_head or C != H * D or C % 16:
         raise ValueError(f"fused decode-step kernel: C={C}, H={H}, D={D} unsupported")
     if self_v.shape != self_k.shape or self_k.shape[1] != B:
@@ -262,7 +282,8 @@ def fused_decoder_layers(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """All decoder layers of one step for B rows.  A CPU tensor takes
     :func:`fused_decoder_layers_plain`; a CUDA tensor launches the kernels
-    (1 <= B <= 128 rows of A audios, A dividing B; head_dim 64; bf16 or
+    (B rows of A audios, A dividing B, in launches of at most 128 rows of
+    whole audios (:func:`row_slices`); head_dim 64; bf16 or
     f32; the projections and the cross K/V each in the compute dtype or
     int8; with or without a pending block of at most 64 columns) or raises.
 
@@ -292,23 +313,27 @@ def fused_decoder_layers(
     hidden = torch.empty_like(x)
     k_new = torch.empty((L, B, C), dtype=x.dtype, device=x.device)
     v_new = torch.empty_like(k_new)
-    scratch = torch.empty(6 * B * C, dtype=x.dtype, device=x.device)
+    slices = row_slices(B, A)
+    # one scratch for every slice: the launches queue on one stream
+    scratch = torch.empty(6 * max(r1 - r0 for (r0, r1), _ in slices) * C, dtype=x.dtype, device=x.device)
     table = (ctypes.c_void_p * len(WEIGHTS))(*(_values(blocks[n]).data_ptr() for n in WEIGHTS))
     scales = (ctypes.c_void_p * len(PROJECTIONS))(*(blocks[n].s.data_ptr() for n in PROJECTIONS)) if w8 else None
-    err = _lib.lib().fused_decoder_layers(
-        _DTYPES[x.dtype], int(w8), int(kv8), L, B, A, C, H, T, shared, xk.shape[-1],
-        pend_k.shape[-1] if pending else 0, pend_w if pending else 0,
-        positions_ptr, x.data_ptr(), hidden.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), self_k.data_ptr(), self_v.data_ptr(), xk.data_ptr(), xv.data_ptr(),
-        cross_k.s.data_ptr() if kv8 else None, cross_v.s.data_ptr() if kv8 else None,
-        ctypes.cast(table, ctypes.c_void_p), ctypes.cast(scales, ctypes.c_void_p) if w8 else None,
-        pend_k.data_ptr() if pending else None, pend_v.data_ptr() if pending else None,
-        scratch.data_ptr(),
-        _lib.stream_ptr(x.device),
-    )
-    _lib.check(err, "fused_decoder_layers")
-    _lib.count_launch(fused_decoder_layers, layout=_layout(A, B // A, w8, kv8, pending))
-    _lib.count_launch(mlp_fused, L)  # its MLP stage, K5's code, once per layer
+    G = B // A
+    for (r0, r1), (a0, a1) in slices:
+        err = _lib.lib().fused_decoder_layers(
+            _DTYPES[x.dtype], int(w8), int(kv8), L, r1 - r0, a1 - a0, r0, B, C, H, T, shared,
+            xk.shape[-1], pend_k.shape[-1] if pending else 0, pend_w if pending else 0,
+            positions_ptr, x.data_ptr(), hidden.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), self_k.data_ptr(), self_v.data_ptr(), xk.data_ptr(), xv.data_ptr(),
+            cross_k.s.data_ptr() if kv8 else None, cross_v.s.data_ptr() if kv8 else None,
+            ctypes.cast(table, ctypes.c_void_p), ctypes.cast(scales, ctypes.c_void_p) if w8 else None,
+            pend_k.data_ptr() if pending else None, pend_v.data_ptr() if pending else None,
+            scratch.data_ptr(),
+            _lib.stream_ptr(x.device),
+        )
+        _lib.check(err, "fused_decoder_layers")
+        _lib.count_launch(fused_decoder_layers, layout=_layout(a1 - a0, G, w8, kv8, pending))
+        _lib.count_launch(mlp_fused, L)  # its MLP stage, K5's code, once per layer
     return hidden, k_new, v_new
 
 

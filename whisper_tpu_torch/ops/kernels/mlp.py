@@ -7,6 +7,8 @@ stage in ``whisper_tpu_torch/csrc/fused_step.cu`` (``mlp_stage``: the
 LayerNorm-prologue fc1 + GELU GEMV, then the fc2 + residual GEMV), so the
 decode step runs this code in every layer of every step and there is one
 implementation; :func:`mlp_fused_plain` is the same function in PyTorch.
+No model path calls it on its own: the decode step runs its code inside
+K2, whose launches hold at most 128 rows (K2's ``row_slices``).
 
 Weights in the port's layout: w1 (4C, C), w2 (C, 4C), tensors of x's
 dtype or :class:`~whisper_tpu_torch.quantize.Int8Weight`.  Numerics as
