@@ -6,9 +6,13 @@
 Phases, each of which must pass (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from whisper_tpu_torch/csrc (nvcc, sm_90a, one
-     process per source), with ptxas's registers and spills in short;
+     process per source), with ptxas's registers and spills in short; K1's
+     and E1's bf16 instances (TMA + wgmma) must use wgmma (HGMMA in the
+     SASS), spill nothing and draw no "serialized" report from ptxas;
   3. K1, encoder self-attention, against its plain PyTorch version at
-     large-v3-turbo encoder shapes (1, 20, 1500, 64), bf16 and f32;
+     large-v3-turbo encoder shapes (1, 20, 1500, 64), bf16 and f32, and at
+     the 16-window batch (16, 20, 1500, 64) in bf16, beside SDPA, with
+     TFLOP/s and the share of the bound reached;
   4. K2, the fused decode step, against its plain version at
      large-v3-turbo decoder shapes (L=4, C=1280, H=20, T=256, Ta=1500) for
      one row (B=1, greedy) and a group of five (B=5, beam or best-of), bf16
@@ -177,12 +181,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def ptxas_summary(log: str) -> list:
-    """ptxas -v's report, short: the kernel count, the highest register
-    count, the B=1 GEMVs' registers, and every kernel that spills (named
-    by c++filt where the machine has it)."""
+def ptxas_kernels(log: str) -> dict:
+    """ptxas -v's report: {mangled kernel name: [registers, spill-store bytes]}."""
     import re
-    import shutil
 
     kernels, name = {}, None
     for line in log.splitlines():
@@ -194,6 +195,17 @@ def ptxas_summary(log: str) -> list:
             kernels[name][0] = int(m.group(1))
         elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
             kernels[name][1] = int(m.group(1))
+    return kernels
+
+
+def ptxas_summary(log: str) -> list:
+    """ptxas -v's report, short: the kernel count, the highest register
+    count, the B=1 GEMVs' registers, and every kernel that spills (named
+    by c++filt where the machine has it)."""
+    import re
+    import shutil
+
+    kernels = ptxas_kernels(log)
     out = [f"{len(kernels)} kernels, at most {max(r for r, _ in kernels.values())} registers"]
     gemv1 = sorted({r for n, (r, _) in kernels.items() if "gemv_kernel" in n and "Li1ELb" in n})
     out.append(f"one-row GEMVs (gemv_kernel<..., 1, ...>): registers {gemv1}")
@@ -203,6 +215,41 @@ def ptxas_summary(log: str) -> list:
                                text=True, timeout=60).stdout.splitlines()
         spills = [(re.sub(r"\(anonymous namespace\)::|\(.*", "", d), s) for d, (_, s) in zip(names, spills)]
     return out + [f"spills {s} bytes: {n}" for n, s in spills]
+
+
+WGMMA_KERNELS = ("encoder_attention_wgmma_kernel", "matmul_residual_wgmma_kernel")  # K1's, E1's bf16
+
+
+def wgmma_check(log: str, lib_path: str) -> list:
+    """K1's and E1's bf16 instances, the wgmma kernels: their registers and
+    spills from ptxas -v, and their HGMMA (wgmma) instructions in the
+    library's SASS (cuobjdump).  Raises on ptxas's "wgmma.mma_async
+    instructions are serialized" report, on a spill in one of them, or on
+    an instance without HGMMA."""
+    import re
+    import shutil
+
+    serialized = [line.strip() for line in log.splitlines() if "wgmma" in line and "serializ" in line]
+    if serialized:
+        raise RuntimeError("ptxas serialized the wgmma instructions:\n" + "\n".join(serialized))
+    regs = {n: rs for n, rs in ptxas_kernels(log).items() if any(k in n for k in WGMMA_KERNELS)}
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                                                          "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    hgmma, fn = dict.fromkeys(regs, 0), None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            fn = m.group(1) if m.group(1) in hgmma else None
+        elif fn and "HGMMA" in line:
+            hgmma[fn] += 1
+    if len(regs) < len(WGMMA_KERNELS) or any(s for _, s in regs.values()) or not all(hgmma.values()):
+        raise RuntimeError(f"wgmma kernels (registers, spill bytes) {regs}, HGMMA instructions {hgmma}")
+    def short(n):  # the kernel's name and template arguments
+        kernel = next(k for k in WGMMA_KERNELS if k in n)
+        return kernel + (f"<{', '.join(re.findall(r'Li(\d+)E', n))}>" if "Li" in n else "")
+
+    return [f"{short(n)}: {r} registers, {s} bytes spilled, {hgmma[n]} HGMMA" for n, (r, s) in regs.items()]
 
 
 def graph_ms(fn, iters: int = 50) -> float:
@@ -228,80 +275,62 @@ def card_line() -> str:
     return out[0]
 
 
-def check_k1(gen, device):
+def k1_case(gen, device, shape, dtype):
+    """K1 against its plain version at one shape and dtype, beside SDPA
+    (one PyTorch call of the same function: its default scale D^-0.5 is
+    the kernel's D^-0.25 on q and on k; the port never calls it): the
+    errors against K1's bounds, the kernel's time (CUDA events) and device
+    time (graph_ms), TFLOP/s and the share of the bound reached."""
     import torch
 
     from whisper_tpu_torch.ops.kernels.attention import attention, attention_plain
 
-    rows = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = (
-            torch.randn((1, 20, 1500, 64), generator=gen, device=device).to(dtype)
-            for _ in range(3)
-        )
-        out = attention(q, k, v).float()
-        ref = attention_plain(q, k, v).float()
-        diff = out - ref
-        err = diff.abs().max().item()
-        rel_rms = diff.norm().item() / ref.norm().item()
-        rel_max = err / ref.abs().max().item()
-        ms = time_ms(lambda: attention(q, k, v), CUDA)
-        plain_ms = time_ms(lambda: attention_plain(q, k, v), CUDA)
-        # one PyTorch call of the same function: SDPA's default scale D^-0.5
-        # is the kernel's D^-0.25 on q and on k (the port never calls it)
-        library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), CUDA)
-        B, H, T, D = q.shape
-        name = str(dtype).split(".")[-1]
-        # q, k, v read and the output written once; QK^T and PV
-        kb = bound(4 * q.numel() * q.element_size(), 4 * B * H * T * T * D, name)
-        if dtype == torch.float32:
-            tol, ok = f"tol {K1_F32_ATOL:.0e}", err <= K1_F32_ATOL
-        else:
-            tol = f"tol {K1_BF16_REL_RMS:.0e} / {K1_BF16_REL_MAX:.0e}"
-            ok = rel_rms <= K1_BF16_REL_RMS and rel_max <= K1_BF16_REL_MAX
-        log(f"K1 encoder_attention {name}: max_abs_err {err:.3e}; relative errors "
-            f"rms/max {rel_rms:.3e}/{rel_max:.3e} ({tol}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library (SDPA) {library_ms:.4f} ms "
-            f"bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}")
-        if not ok:
-            raise RuntimeError(f"K1 {name} disagrees with its plain version: "
-                               f"{err}, {rel_rms}, {rel_max}")
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **kb)
-    return rows
+    q, k, v = (torch.randn(shape, generator=gen, device=device).to(dtype) for _ in range(3))
+    out, ref = attention(q, k, v).float(), attention_plain(q, k, v).float()
+    diff = out - ref
+    err = diff.abs().max().item()
+    rel_rms, rel_max = diff.norm().item() / ref.norm().item(), err / ref.abs().max().item()
+    del out, ref, diff
+    ms = time_ms(lambda: attention(q, k, v), CUDA)
+    device_ms = graph_ms(lambda: attention(q, k, v))
+    plain_ms = time_ms(lambda: attention_plain(q, k, v), CUDA, iters=5)
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), CUDA)
+    B, H, T, D = shape
+    name = str(dtype).split(".")[-1]
+    flops = 4 * B * H * T * T * D  # QK^T and PV; q, k, v read and the output written once
+    kb = bound(4 * q.numel() * q.element_size(), flops, name)
+    if dtype == torch.float32:
+        tol, ok = f"tol {K1_F32_ATOL:.0e}", err <= K1_F32_ATOL
+    else:
+        tol = f"tol {K1_BF16_REL_RMS:.0e} / {K1_BF16_REL_MAX:.0e}"
+        ok = rel_rms <= K1_BF16_REL_RMS and rel_max <= K1_BF16_REL_MAX
+    log(f"K1 encoder_attention {shape} {name}: max_abs_err {err:.3e}; relative errors rms/max "
+        f"{rel_rms:.3e}/{rel_max:.3e} ({tol}) kernel {ms:.4f} ms [device {device_ms:.4f}] plain "
+        f"{plain_ms:.4f} ms library (SDPA) {library_ms:.4f} ms bound {kb['bound_ms']:.4f} ms by "
+        f"{kb['bound_by']}; {flops / ms / 1e9:.1f} TFLOP/s, {kb['bound_ms'] / ms:.3f} of the bound")
+    if not ok:
+        raise RuntimeError(f"K1 {shape} {name} disagrees with its plain version: {err}, {rel_rms}, {rel_max}")
+    return dict(max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms, **kb)
+
+
+def check_k1(gen, device):
+    """K1 at large-v3-turbo's encoder shape (1, 20, 1500, 64) in bf16 and
+    f32, and at (16, 20, 1500, 64) in bf16 (the batch of the 16-window
+    decode and of transcribe_batch).  Returns the rows by (batch, dtype)."""
+    import torch
+
+    cases = (((1, 20, 1500, 64), torch.bfloat16), ((1, 20, 1500, 64), torch.float32),
+             ((16, 20, 1500, 64), torch.bfloat16))
+    return {(shape[0], str(dtype).split(".")[-1]): k1_case(gen, device, shape, dtype) for shape, dtype in cases}
 
 
 def check_k1_d128(gen, device):
-    """K1's head-dim-128 instance against its plain version at (1, 10, 1500,
-    128) and (16, 10, 1500, 128), bf16 and f32, with K1's tolerances;
-    beside SDPA (never called by the port).  Returns the rows by (batch,
-    dtype)."""
+    """K1's head-dim-128 instance at (1, 10, 1500, 128) and (16, 10, 1500,
+    128), bf16 and f32.  Returns the rows by (batch, dtype)."""
     import torch
 
-    from whisper_tpu_torch.ops.kernels.attention import attention, attention_plain
-
-    rows = {}
-    for b in (1, 16):
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = (torch.randn((b, 10, 1500, 128), generator=gen, device=device).to(dtype)
-                       for _ in range(3))
-            out, ref = attention(q, k, v).float(), attention_plain(q, k, v).float()
-            diff = out - ref
-            err = diff.abs().max().item()
-            rel_rms, rel_max = diff.norm().item() / ref.norm().item(), err / ref.abs().max().item()
-            ms = time_ms(lambda: attention(q, k, v), CUDA)
-            plain_ms = time_ms(lambda: attention_plain(q, k, v), CUDA, iters=5)
-            library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), CUDA)
-            name = str(dtype).split(".")[-1]
-            kb = bound(4 * q.numel() * q.element_size(), 4 * b * 10 * 1500 * 1500 * 128, name)
-            ok = (err <= K1_F32_ATOL if dtype == torch.float32
-                  else rel_rms <= K1_BF16_REL_RMS and rel_max <= K1_BF16_REL_MAX)
-            log(f"K1 encoder_attention D=128 ({b},10,1500,128) {name}: max_abs_err {err:.3e}; relative "
-                f"errors rms/max {rel_rms:.3e}/{rel_max:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                f"library (SDPA) {library_ms:.4f} ms bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}")
-            if not ok:
-                raise RuntimeError(f"K1 D=128 {name} disagrees with its plain version: {err}, {rel_rms}, {rel_max}")
-            rows[b, name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **kb)
-    return rows
+    return {(b, str(dtype).split(".")[-1]): k1_case(gen, device, (b, 10, 1500, 128), dtype)
+            for b in (1, 16) for dtype in (torch.bfloat16, torch.float32)}
 
 
 def check_e1(gen, device):
@@ -325,17 +354,19 @@ def check_e1(gen, device):
         rel = err / ref.float().abs().max().item()
         name = str(dtype).split(".")[-1]
         ms = time_ms(lambda: matmul_residual(x, w, bias, res), CUDA)
+        device_ms = graph_ms(lambda: matmul_residual(x, w, bias, res))
         plain_ms = time_ms(lambda: matmul_residual_plain(x, w, bias, res), CUDA)
         library_ms = time_ms(lambda: torch.addmm(bias, x, w) + res, CUDA)
         size = x.element_size()
         kb = bound((M * K + K * N + N + 2 * M * N) * size, 2 * M * K * N, name)
         log(f"E1 matmul_residual M={M} K={K} N={N} {name}: max_abs_err {err:.3e}, relative {rel:.3e} "
-            f"(tol {E1_REL_TOL[name]:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms library (addmm + add) "
-            f"{library_ms:.4f} ms bound {kb['bound_ms']:.4f} ms by {kb['bound_by']} "
-            f"({2 * M * K * N / ms / 1e9:.1f} TFLOP/s)")
+            f"(tol {E1_REL_TOL[name]:.0e}) kernel {ms:.4f} ms [device {device_ms:.4f}] plain {plain_ms:.4f} ms "
+            f"library (addmm + add) {library_ms:.4f} ms bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}; "
+            f"{2 * M * K * N / ms / 1e9:.1f} TFLOP/s, {kb['bound_ms'] / ms:.3f} of the bound")
         if not rel <= E1_REL_TOL[name]:
             raise RuntimeError(f"E1 {name} disagrees with its plain version: {rel}")
-        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **kb)
+        rows[name] = dict(max_abs_err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+                          **kb)
     return rows["bfloat16"]
 
 
@@ -1791,6 +1822,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     from whisper_tpu_torch.ops.kernels import build
+    from whisper_tpu_torch.ops.kernels._lib import LIB_PATH
 
     log(card_line())  # name, power limit: nvidia-smi's own words
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -1799,6 +1831,8 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
     for line in ptxas_summary(ptxas):
         log(f"  ptxas: {line}")
+    for line in wgmma_check(ptxas, LIB_PATH):
+        log(f"  wgmma: {line}")
 
     gen = torch.Generator(device=device).manual_seed(0)
     k1 = check_k1(gen, device)
@@ -1863,7 +1897,12 @@ def main() -> int:
         dict(name="encoder_attention", route="cuda",
              source="whisper_tpu_torch/csrc/attention.cu",
              replaces="whisper_tpu/ops/kernels/attention_pallas.py:62",
-             launches=launches["encoder_attention"], **k1["bfloat16"]),
+             launches=launches["encoder_attention"], **k1[1, "bfloat16"]),
+        # K1 at batch 16: timed at (16, 20, 1500, 64); launches: transcribe_batch's
+        # encoder passes (groups of up to 16 files)
+        dict(name="encoder_attention_b16", route="cuda", source="whisper_tpu_torch/csrc/attention.cu",
+             replaces="whisper_tpu/ops/kernels/attention_pallas.py:62",
+             launches=batch_launches["encoder_attention"], **k1[16, "bfloat16"]),
         # B=1: the greedy path's count; B=5 and K3, K4: the CLI default path's
         dict(name="fused_decoder_layers", **fused,
              launches=launches["fused_decoder_layers"], **k2["bfloat16"]),

@@ -33,7 +33,10 @@ a neighbouring bf16 value before the bias and the residual add.  E2
 sums in another order).  E3 (score + PV pairs): max error 8e-3 of max
 |plain|, one bf16 ulp of the largest output (a bf16-rounded score may land
 one ulp apart and move an output across a rounding boundary; an H100 reads
-3.8e-3 at g = 320).
+3.8e-3 at g = 320).  K1's and E1's bf16 kernels load by TMA: they refuse a
+tensor that does not start on a 16-byte boundary, and K1's last key tile
+of a head reads zeros past T, never the next head's rows (NaN values
+planted there would make the head's output NaN).
 """
 
 import numpy as np
@@ -72,7 +75,8 @@ def cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "shape", [(1, 2, 1500, 64), (1, 4, 577, 64), (2, 3, 100, 64), (1, 1, 1, 64),
-              (1, 2, 1500, 128), (1, 4, 577, 128), (2, 3, 100, 128), (1, 1, 1, 128)]
+              (1, 2, 1500, 128), (1, 4, 577, 128), (2, 3, 100, 128), (1, 1, 1, 128),
+              (1, 2, 129, 64), (1, 2, 127, 64), (1, 2, 129, 128), (1, 2, 127, 128)]
 )
 def test_k1_kernel_matches_plain(cuda, dtype, shape):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -88,6 +92,46 @@ def test_k1_kernel_matches_plain(cuda, dtype, shape):
     else:
         assert diff.norm().item() <= K1_BF16_REL_RMS * ref.norm().item()
         assert diff.abs().max().item() <= K1_BF16_REL_MAX * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t", [129, 1500])
+def test_k1_tail_tile_reads_nothing_of_the_next_head(cuda, d, t):
+    """Head 0's last key tile is ragged (T = 129 and 1500 are no multiple
+    of 128 keys).  A map that read it from a 2-D view of (B H T, D) would
+    load head 1's first rows there.  Their keys are masked, so a key alone
+    could not show that read: head 1's first 128 values are NaN, and a
+    masked weight of 0 times NaN is NaN in head 0's output.  Head 1's keys
+    are 1e3 times larger besides.  Head 0 must be finite and within K1's
+    bounds (head 1's own output is NaN and not checked)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn((1, 2, t, d), generator=gen, device=cuda) for _ in range(3))
+    k[:, 1, :128] *= 1e3
+    v[:, 1, :128] = float("nan")
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    out, ref = k1.attention(q, k, v)[0, 0].float(), k1.attention_plain(q, k, v)[0, 0].float()
+    assert torch.isfinite(out).all()
+    diff = out - ref
+    assert diff.norm().item() <= K1_BF16_REL_RMS * ref.norm().item()
+    assert diff.abs().max().item() <= K1_BF16_REL_MAX * ref.abs().max().item()
+
+
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous view of x's values that starts 2 bytes (one bf16) past
+    a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    view = flat.narrow(0, 1, x.numel()).view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def test_k1_kernel_refuses_a_misaligned_tensor(cuda):
+    q = torch.zeros(1, 2, 16, 64, device=cuda, dtype=torch.bfloat16)
+    bad = _misaligned(q)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 != 0
+    for args in ((bad, q, q), (q, bad, q), (q, q, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            k1.attention(*args)
 
 
 def test_k1_kernel_refuses_other_head_dims(cuda):
@@ -373,10 +417,12 @@ def _randn(cuda, seed, *shape, scale=1.0, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,K,N", [(300, 1024, 256), (24000, 5120, 1280), (1, 32, 8), (129, 96, 136)])
+@pytest.mark.parametrize("M,K,N", [(300, 1024, 256), (24000, 5120, 1280), (1, 32, 8), (129, 96, 136),
+                                   (129, 32, 8), (3000, 32, 8)])
 def test_e1_kernel_matches_plain(cuda, dtype, M, K, N):
-    """Any M (a ragged last row tile), K a multiple of 32, N of 8 (136: a
-    ragged column tile)."""
+    """Any M (a ragged last row tile), K a multiple of 32 (32: half of the
+    bf16 kernel's K step, the rest zeros from TMA), N of 8 (136 and 8:
+    ragged column tiles)."""
     x, w = _randn(cuda, 1, M, K, scale=0.3, dtype=dtype), _randn(cuda, 2, K, N, scale=0.02, dtype=dtype)
     bias, res = _randn(cuda, 3, N, scale=0.1, dtype=dtype), _randn(cuda, 4, M, N, scale=0.3, dtype=dtype)
     launches = e1.matmul_residual.launches
@@ -386,6 +432,19 @@ def test_e1_kernel_matches_plain(cuda, dtype, M, K, N):
     assert out.shape == ref.shape and out.dtype == ref.dtype == dtype
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= E1_REL_TOL[dtype] * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_e1_kernel_refuses_a_misaligned_tensor(cuda, dtype):
+    x, w = torch.zeros(4, 64, device=cuda, dtype=dtype), torch.zeros(64, 8, device=cuda, dtype=dtype)
+    bias, res = torch.zeros(8, device=cuda, dtype=dtype), torch.zeros(4, 8, device=cuda, dtype=dtype)
+    args = [x, w, bias, res]
+    for i in range(4):
+        bad = list(args)
+        bad[i] = _misaligned(args[i])
+        assert bad[i].is_contiguous() and bad[i].data_ptr() % 16 != 0
+        with pytest.raises(ValueError, match="16-byte"):
+            e1.matmul_residual(*bad)
 
 
 def test_e1_kernel_refuses_what_it_does_not_take(cuda):

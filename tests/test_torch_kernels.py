@@ -128,6 +128,50 @@ def test_k1_plain_masks_nothing_at_an_odd_length():
     torch.testing.assert_close(k1.attention_plain(q, k, v), ref, rtol=0, atol=1e-6)
 
 
+K1_BKN = 128  # keys per tile of csrc/attention.cu's bf16 kernel (its BKN)
+
+
+def _k1_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bkn: int) -> torch.Tensor:
+    """The bf16 wgmma kernel's blocking in plain torch, (B, H, T, D) ->
+    (B, H, T, D): f32 scores of the bf16 q and k, key tiles of bkn, a
+    running max in log2 units (D^-0.5 log2(e) folded into one scale), exp2
+    weights rounded to bf16 per tile against that running max, the f32
+    denominator summed from the rounded weights, O rescaled per tile, the
+    divide at the end."""
+    c = q.shape[-1] ** -0.5 * 1.4426950408889634
+    s_all = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    rows = q.shape[:-1]
+    m = torch.full(rows, -float("inf"))
+    l, o = torch.zeros(rows), torch.zeros(q.shape)
+    for k0 in range(0, q.shape[-2], bkn):
+        s = s_all[..., k0:k0 + bkn]
+        m_new = torch.maximum(m, s.amax(dim=-1) * c)
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s * c - m_new[..., None]).to(torch.bfloat16).float()
+        l = l * corr + p.sum(dim=-1)
+        o = o * corr[..., None] + torch.matmul(p, v[..., k0:k0 + bkn, :].float())
+        m = m_new
+    return (o / l[..., None]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t", [1500, 577, 129, 100, 1])
+def test_k1_kernel_blocking_keeps_the_pallas_numerics(t, d):
+    """The card kernel's key tiling (K1_BKN keys) and per-tile rounding of
+    the weights against the TPU kernel's body under the interpreter, which
+    rounds once against the row's exact max, two heads in bf16: K1's bf16
+    bounds on the card (relative RMS 5e-3, max 1e-2) hold at every length
+    the card tests take, whole tiles, ragged ones and one key."""
+    rng = np.random.RandomState(5 + d + t)
+    q, k, v = (rng.randn(1, 2, t, d).astype(np.float32) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(attention_pallas(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))), np.float32)
+    got = _k1_blocked(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)), K1_BKN).float().numpy()
+    diff = got - ref
+    assert np.linalg.norm(diff) <= 5e-3 * np.linalg.norm(ref)
+    assert np.abs(diff).max() <= 1e-2 * np.abs(ref).max()
+
+
 # -- K2 ---------------------------------------------------------------------
 
 

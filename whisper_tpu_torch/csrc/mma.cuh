@@ -1,5 +1,6 @@
 // Tensor-core building blocks for the port's bf16 kernels that stage tiles
-// in shared memory (matmul_residual.cu, logits.cu, attn_packed.cu):
+// in shared memory (logits.cu, attn_packed.cu; the wgmma kernels use
+// hopper.cuh):
 // mma.sync m16n8k16 (bf16 in, f32 accumulate), ldmatrix, and cp.async with
 // zero fill.  Fragment layouts (PTX ISA, mma.m16n8k16 for .bf16), for lane
 // = 4 g + t (g the group, t the thread in the group):

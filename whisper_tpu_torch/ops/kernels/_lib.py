@@ -24,11 +24,15 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libwhisper_kernels.so")
 SOURCES = ("attention.cu", "fused_step.cu", "median.cu", "dtw.cu", "matmul_residual.cu",
            "logits.cu", "attn_packed.cu")
-HEADERS = ("common.cuh", "mma.cuh")
+HEADERS = ("common.cuh", "mma.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo",
 )
+# K1's and E1's bf16 kernels build TMA tensor maps on the host with
+# cuTensorMapEncodeTiled, which libcuda exports, so the library links
+# libcuda (the toolkit's stub at link time, the installed one at run time)
+LINK_FLAGS = ("-lcuda",)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -112,7 +116,7 @@ def build(verbose: bool = False) -> str:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {source} ({proc.returncode}):\n{log}")
         link = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objects],
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objects, *LINK_FLAGS],
             capture_output=True, text=True,
         )
         if link.returncode != 0:

@@ -34,7 +34,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     """Non-causal attention (B, H, T, D) -> (B, H, T, D).
 
     A CPU tensor takes :func:`attention_plain`; a CUDA tensor launches the
-    kernel (bf16 or f32, D = 64 or 128, contiguous) or raises.
+    kernel (bf16 or f32, D = 64 or 128, contiguous, 16-byte aligned) or
+    raises.
     """
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
@@ -50,6 +51,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
             raise ValueError(f"encoder attention: dtype {x.dtype} (bf16 or f32, all equal)")
         if x.device != q.device or not x.is_contiguous():
             raise ValueError("encoder attention: q, k, v must be contiguous on one device")
+        if x.data_ptr() % 16:
+            raise ValueError("encoder attention: q, k, v must start on a 16-byte boundary (TMA, "
+                             "vector loads)")
     out = torch.empty_like(q)
     err = _lib.lib().encoder_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -16,13 +16,13 @@ import torch
 from . import _lib
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BK = 32  # csrc/matmul_residual.cu BKT: the K tile
+BK = 32  # csrc/matmul_residual.cu K_MULTIPLE: K is a multiple of it
 
 
 def fits(k: int, n: int) -> bool:
     """Whether the kernel takes a (.., K) x (K, N) product: K a multiple of
-    its K tile, N of 8 (16-byte rows).  The counterpart of the TPU kernel's
-    ``fits``, whose VMEM working set has no meaning here."""
+    32, N of 8 (16-byte rows, as TMA's strides need).  The counterpart of
+    the TPU kernel's ``fits``, whose VMEM working set has no meaning here."""
     return k >= BK and k % BK == 0 and n >= 8 and n % 8 == 0
 
 
@@ -39,7 +39,8 @@ def matmul_residual(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """x (M, K), w (K, N), bias (N,), res (M, N) -> (M, N).  A CPU tensor
     takes :func:`matmul_residual_plain`; a CUDA tensor launches the kernel
     (bf16 on the tensor cores or f32 on the CUDA cores, every tensor of one
-    dtype and contiguous, any M, ``fits(K, N)``) or raises."""
+    dtype, contiguous and 16-byte aligned, any M, ``fits(K, N)``) or
+    raises."""
     if x.device.type == "cpu":
         return matmul_residual_plain(x, w, bias, res)
     if x.device.type != "cuda":
@@ -57,6 +58,9 @@ def matmul_residual(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         if t.dtype != x.dtype or x.dtype not in _DTYPES or t.device != x.device or not t.is_contiguous():
             raise ValueError("matmul_residual kernel: every tensor contiguous, bf16 or f32 alike, "
                              f"on {x.device}")
+        if t.data_ptr() % 16:
+            raise ValueError("matmul_residual kernel: every tensor must start on a 16-byte boundary "
+                             "(TMA, vector loads)")
     out = torch.empty_like(res)
     err = _lib.lib().matmul_residual(
         _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), bias.data_ptr(), res.data_ptr(),
