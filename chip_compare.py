@@ -20,6 +20,15 @@ one shared position), on random large-v3-turbo weights (seed 0, bf16):
   the CLI default path: transcribe(jfk.flac) with beam 5, best-of 5 on
       the 0.2-step ladder and word timestamps.
 
+It also times, through the K2 and E2 wrappers' calls (the same in every
+version of the port that has E2), K2 at every row of PERF.md's kernel
+table (one and five rows at t = 200, 16 x 1, 3 x 5, 16 x 5, 32 x 5 and
+160 x 1 at per-row positions, 5 x 5 and 4 x 5 at t = 200, the
+int8+kv_int8 form, the pending block at T = 448 with 7 of 8 columns) and
+E2 in both layouts at B = 1, 5 and 16 beside bf16 torch.mm: device time
+per call (a CUDA graph replayed) and the time of back-to-back calls (CUDA
+events).
+
 Walls are medians of N runs after a warm-up.  The last line is one JSON
 object with the tree's numbers.  Run it for two trees in turns in one call
 (old, new, new, old): the card and the host are then the same for both.
@@ -82,6 +91,115 @@ def k2_ms(device, B: int, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 50) -> float:
+    """fn's device time: captured once in a CUDA graph, replayed."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def events_ms(fn, iters: int = 20) -> float:
+    """fn's time per call, iters calls back to back after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# (label, audios, rows per audio, positions: "shared" (t = 200) or
+# "per-row", form, pending columns valid of 8 or None); T = 256, or 448
+# with a pending block
+K2_ROWS = (
+    ("B=1", 1, 1, "shared", "", None), ("1 x 5", 1, 5, "shared", "", None),
+    ("16 x 1", 16, 1, "per-row", "", None), ("3 x 5", 3, 5, "per-row", "", None),
+    ("16 x 5", 16, 5, "per-row", "", None), ("5 x 5", 5, 5, "shared", "", None),
+    ("4 x 5", 4, 5, "shared", "", None), ("32 x 5", 32, 5, "per-row", "", None),
+    ("160 x 1", 160, 1, "per-row", "", None),
+    ("int8 B=1", 1, 1, "shared", "int8+kv_int8", None), ("int8 1 x 5", 1, 5, "shared", "int8+kv_int8", None),
+    ("int8 16 x 1", 16, 1, "per-row", "int8+kv_int8", None), ("int8 5 x 5", 5, 5, "shared", "int8+kv_int8", None),
+    ("pending 16 x 1", 16, 1, "per-row", "", 7), ("pending int8 B=1", 1, 1, "shared", "int8+kv_int8", 7),
+    ("pending 3 x 5", 3, 5, "per-row", "", 7),
+)
+
+
+def k2_table(device) -> dict:
+    """K2 at K2_ROWS, turbo decoder widths (L=4, C=1280, H=20, Ta=1500),
+    bf16, random inputs from a seed: {label: [device ms, events ms]}."""
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.fused_step import PROJECTIONS, WEIGHTS, fused_decoder_layers
+    from whisper_tpu_torch.quantize import quantize_kv, quantize_weight
+
+    L, C, H, Ta, W = 4, 1280, 20, 1500, 8
+    out = {}
+    for label, A, G, positions, form, pend_w in K2_ROWS:
+        B, T = A * G, 256 if pend_w is None else 448
+        gen = torch.Generator(device=device).manual_seed(B)
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+        shapes = {"fc1_w": (4 * C, C), "fc2_w": (C, 4 * C), "fc1_b": (4 * C,)}
+        blocks = {n: randn(L, *shapes.get(n, (C, C) if n.endswith("_w") else (C,)), scale=0.02) for n in WEIGHTS}
+        for n in blocks:
+            if n.endswith("_g"):
+                blocks[n] += 1.0
+        xk, xv = randn(L, A, H, 64, Ta), randn(L, A, H, 64, Ta)
+        if form:
+            blocks.update({n: quantize_weight(blocks[n]) for n in PROJECTIONS})
+            xk, xv = quantize_kv(xk), quantize_kv(xv)
+        t = 200 if positions == "shared" else torch.randint(0, T + 1, (B,), generator=gen, device=device)
+        args = (blocks, H, randn(B, C, scale=0.5), t, randn(L, B, H, 64, T), randn(L, B, H, 64, T), xk, xv)
+        if pend_w is not None:
+            args += (randn(L, B, H, 64, W), randn(L, B, H, 64, W), pend_w)
+        out[label] = [device_ms(lambda: fused_decoder_layers(*args)), events_ms(lambda: fused_decoder_layers(*args))]
+        log(f"K2 {label}: {out[label][0]:.4f} ms device, {out[label][1]:.4f} ms back to back")
+    return out
+
+
+def e2_table(device) -> dict:
+    """E2 in both layouts and bf16 torch.mm (f32 out) at turbo's vocabulary
+    (51866 x 1280), B = 1, 5, 16: {label: [device ms, events ms]}."""
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.logits import logits_streamed
+
+    V, C = 51866, 1280
+    gen = torch.Generator(device=device).manual_seed(0)
+    emb = (torch.randn((V, C), generator=gen, device=device) * 0.02).to(torch.bfloat16)
+    weights = {"vc": emb, "cv": emb.t().contiguous()}
+    out = {}
+    for B in (1, 5, 16):
+        x = torch.randn((B, C), generator=gen, device=device).to(torch.bfloat16)
+        calls = {f"{layout} B={B}": (lambda w=w, layout=layout: logits_streamed(x, w, layout))
+                 for layout, w in weights.items()}
+        calls[f"torch.mm B={B}"] = lambda: torch.mm(x, emb.t(), out_dtype=torch.float32)
+        for label, fn in calls.items():
+            out[label] = [device_ms(fn), events_ms(fn)]
+            log(f"E2 {label}: {out[label][0]:.4f} ms device, {out[label][1]:.4f} ms back to back")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("tree", help="root of the checkout to time")
@@ -117,7 +235,8 @@ def main() -> int:
     _lib.lib()  # built from the tree's sources when missing or stale
     log(f"kernel library ready: {time.perf_counter() - t0:.2f} s")
 
-    row = {"tree": args.tree, "k2_b1_ms": k2_ms(device, 1), "k2_b5_ms": k2_ms(device, 5)}
+    row = {"tree": args.tree, "k2_b1_ms": k2_ms(device, 1), "k2_b5_ms": k2_ms(device, 5),
+           "k2": k2_table(device), "e2": e2_table(device)}
     dims = KNOWN_MODELS["turbo"]
     model = whisper_tpu_torch.Whisper(
         dims, init_params(dims, torch.Generator(device=device).manual_seed(0), torch.bfloat16, device)

@@ -8,7 +8,8 @@ Phases, each of which must pass (any failure exits non-zero):
   2. build the CUDA kernels from whisper_tpu_torch/csrc (nvcc, sm_90a, one
      process per source), with ptxas's registers and spills in short; K1's
      and E1's bf16 instances (TMA + wgmma) must use wgmma (HGMMA in the
-     SASS), spill nothing and draw no "serialized" report from ptxas;
+     SASS), spill nothing and draw no "serialized" report from ptxas, and
+     no instance of K2's, K5's or E2's kernels may spill;
   3. K1, encoder self-attention, against its plain PyTorch version at
      large-v3-turbo encoder shapes (1, 20, 1500, 64), bf16 and f32, and at
      the 16-window batch (16, 20, 1500, 64) in bf16, beside SDPA, with
@@ -125,7 +126,19 @@ Phases, each of which must pass (any failure exits non-zero):
  29. K2 above 128 rows: 32 x 5 and 160 x 1 at per-row positions against
      its plain version (with the other kernel checks); then
      transcribe_batch on 32 files cut from jfk with batch_size 32 and beam
-     5: well-formed results, K2 launched in slices of 25 and 7 audios.
+     5: well-formed results, K2 launched in slices of 25 and 7 audios;
+ 30. one K2 step split by launch (with the other kernel checks): the step
+     captured in a CUDA graph and replayed under torch.profiler, each
+     launch's device time and the gap before it (negative where
+     programmatic dependent launch overlaps it with the one before), per
+     role (q|k|v, self-attention, o, xq, cross-attention, xo, fc1, fc2),
+     at one row, one audio of five and 16 x 1 at t = 200, bf16 and
+     int8+kv_int8;
+ 31. K2's cross-attention launch alone at turbo shapes (one row, one audio
+     of five, 16 audios of one) against its plain version, beside
+     F.scaled_dot_product_attention on (T, D) copies of the K/V (a
+     yardstick the port never calls); its launches on the greedy path (L
+     per K2 step).
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -218,21 +231,30 @@ def ptxas_summary(log: str) -> list:
 
 
 WGMMA_KERNELS = ("encoder_attention_wgmma_kernel", "matmul_residual_wgmma_kernel")  # K1's, E1's bf16
+# K2's (and K5's) and E2's kernels, redesigned for Hopper: none may spill
+SPILL_FREE_KERNELS = ("gemv_kernel", "gemv_tc_kernel", "decode_attention_kernel", "logits_vc_kernel",
+                      "logits_cv_kernel")
 
 
 def wgmma_check(log: str, lib_path: str) -> list:
     """K1's and E1's bf16 instances, the wgmma kernels: their registers and
     spills from ptxas -v, and their HGMMA (wgmma) instructions in the
     library's SASS (cuobjdump).  Raises on ptxas's "wgmma.mma_async
-    instructions are serialized" report, on a spill in one of them, or on
-    an instance without HGMMA."""
+    instructions are serialized" report for any kernel, on a spill in one
+    of them or in any instance of K2's, K5's or E2's kernels
+    (SPILL_FREE_KERNELS), or on a wgmma instance without HGMMA."""
     import re
     import shutil
 
     serialized = [line.strip() for line in log.splitlines() if "wgmma" in line and "serializ" in line]
     if serialized:
         raise RuntimeError("ptxas serialized the wgmma instructions:\n" + "\n".join(serialized))
-    regs = {n: rs for n, rs in ptxas_kernels(log).items() if any(k in n for k in WGMMA_KERNELS)}
+    kernels = ptxas_kernels(log)
+    spilled = {n: s for n, (_, s) in kernels.items() if s and any(k in n for k in SPILL_FREE_KERNELS)}
+    if spilled:
+        raise RuntimeError(f"K2/E2 instances spill (mangled name: bytes): {spilled}")
+    checked = [n for n in kernels if any(k in n for k in SPILL_FREE_KERNELS)]
+    regs = {n: rs for n, rs in kernels.items() if any(k in n for k in WGMMA_KERNELS)}
     cuobjdump = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                                                           "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True, check=True,
@@ -249,7 +271,8 @@ def wgmma_check(log: str, lib_path: str) -> list:
         kernel = next(k for k in WGMMA_KERNELS if k in n)
         return kernel + (f"<{', '.join(re.findall(r'Li(\d+)E', n))}>" if "Li" in n else "")
 
-    return [f"{short(n)}: {r} registers, {s} bytes spilled, {hgmma[n]} HGMMA" for n, (r, s) in regs.items()]
+    return [f"{short(n)}: {r} registers, {s} bytes spilled, {hgmma[n]} HGMMA" for n, (r, s) in regs.items()] + [
+        f"{len(checked)} instances of {', '.join(SPILL_FREE_KERNELS)}: no spill"]
 
 
 def graph_ms(fn, iters: int = 50) -> float:
@@ -265,6 +288,31 @@ def graph_ms(fn, iters: int = 50) -> float:
     with torch.cuda.graph(graph):
         fn()
     return time_ms(graph.replay, CUDA, iters=iters)
+
+
+def device_events(prof) -> list:
+    """The device activity (kernels, copies, fills) of a torch.profiler run,
+    from its Chrome trace: events with "ts" and "dur" in us, in time order."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    return sorted((e for e in trace["traceEvents"] if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")), key=lambda e: e["ts"])
+
+
+def busy_ms(events) -> float:
+    """The time in ms the device was doing something: the union of the
+    events' intervals.  Under programmatic dependent launch a launch starts
+    while the one before it drains, so the sum of their durations counts
+    the overlap twice."""
+    busy, end = 0.0, -float("inf")
+    for e in events:
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy / 1e3
 
 
 def card_line() -> str:
@@ -490,27 +538,21 @@ def k2_bound(blocks, dims: tuple, positions, dtype: str, cross_k, cross_v, pend_
     return bound(moved, gemv + attention, dtype)
 
 
-def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = "", form: str = "",
-             T: int = 256, pend_w=None):
-    """K2 against its plain version at turbo decoder shapes for A audios of
-    G rows; t is one position for every row, or a list, one per row.  form
-    "int8": the eight projections int8 (quantize_weight of the same random
-    weights); "int8+kv_int8": the cross K/V int8 too (quantize_kv).  With
-    pend_w, the pending variant: a random (L, B, H, D, 8) pending block of
-    which pend_w columns are valid, t the rows' block starts."""
+K2_DIMS = dict(L=4, C=1280, H=20, Ta=1500, W=8)  # large-v3-turbo's decoder; a pending block's W
+
+
+def k2_inputs(gen, device, A: int = 1, G: int = 1, t=200, T: int = 256, pend_w=None) -> dict:
+    """K2's inputs at turbo decoder shapes for A audios of G rows, in f32:
+    random weights, x, each row's own self cache (L, B, H, D, T), each
+    audio's cross K/V (L, A, H, D, Ta), a pending block (L, B, H, D, W)
+    when pend_w is given; t one position for every row or a list, one per
+    row."""
     import torch
 
-    from whisper_tpu_torch.ops.kernels.fused_step import (
-        PROJECTIONS,
-        WEIGHTS,
-        fused_decoder_layers,
-        fused_decoder_layers_plain,
-    )
-    from whisper_tpu_torch.quantize import quantize_kv, quantize_weight
+    from whisper_tpu_torch.ops.kernels.fused_step import WEIGHTS
 
-    L, C, H, Ta, W = 4, 1280, 20, 1500, 8
-    D = C // H
-    B = A * G
+    L, C, H, Ta, W = (K2_DIMS[k] for k in ("L", "C", "H", "Ta", "W"))
+    D, B = C // H, A * G
     positions = [t] * B if isinstance(t, int) else list(t)
 
     def randn(*shape, scale=1.0):
@@ -524,28 +566,56 @@ def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = "", form: 
     base = {}
     for n in WEIGHTS:
         shape = (L, *shapes.get(n, (C,)))
-        if n.endswith("_g"):
-            base[n] = 1.0 + randn(*shape, scale=0.1)
-        else:
-            base[n] = randn(*shape, scale=0.02)
-    x32 = randn(B, C, scale=0.5)
-    sk32, sv32 = randn(L, B, H, D, T), randn(L, B, H, D, T)  # each row its own history
-    xk32, xv32 = randn(L, A, H, D, Ta), randn(L, A, H, D, Ta)  # one per audio, shared by its rows
-    pk32, pv32 = (randn(L, B, H, D, W), randn(L, B, H, D, W)) if pend_w is not None else (None, None)
-    pos = t if isinstance(t, int) else torch.tensor(positions, device=device)
+        base[n] = 1.0 + randn(*shape, scale=0.1) if n.endswith("_g") else randn(*shape, scale=0.02)
+    inputs = dict(A=A, G=G, B=B, T=T, t=t, positions=positions, pend_w=pend_w, base=base,
+                  x=randn(B, C, scale=0.5), sk=randn(L, B, H, D, T), sv=randn(L, B, H, D, T),
+                  xk=randn(L, A, H, D, Ta), xv=randn(L, A, H, D, Ta))
+    if pend_w is not None:
+        inputs["pk"], inputs["pv"] = randn(L, B, H, D, W), randn(L, B, H, D, W)
+    inputs["pos"] = t if isinstance(t, int) else torch.tensor(positions, device=device)
+    return inputs
 
+
+def k2_args(inputs: dict, dtype, form: str = ""):
+    """(blocks, the wrapper's positional arguments) of k2_inputs in dtype;
+    form "int8": the eight projections int8 (quantize_weight of the same
+    values); "int8+kv_int8": the cross K/V int8 too (quantize_kv)."""
+    from whisper_tpu_torch.ops.kernels.fused_step import PROJECTIONS
+    from whisper_tpu_torch.quantize import quantize_kv, quantize_weight
+
+    blocks = {n: w.to(dtype).contiguous() for n, w in inputs["base"].items()}
+    xk, xv = inputs["xk"].to(dtype), inputs["xv"].to(dtype)
+    if form:
+        blocks.update({n: quantize_weight(blocks[n]) for n in PROJECTIONS})
+    if "kv_int8" in form:
+        xk, xv = quantize_kv(xk), quantize_kv(xv)
+    args = (blocks, K2_DIMS["H"], inputs["x"].to(dtype), inputs["pos"], inputs["sk"].to(dtype),
+            inputs["sv"].to(dtype), xk, xv)
+    if inputs["pend_w"] is not None:
+        args += (inputs["pk"].to(dtype), inputs["pv"].to(dtype), inputs["pend_w"])
+    return blocks, args
+
+
+def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = "", form: str = "",
+             T: int = 256, pend_w=None):
+    """K2 against its plain version at turbo decoder shapes for A audios of
+    G rows; t is one position for every row, or a list, one per row.  form
+    "int8": the eight projections int8 (quantize_weight of the same random
+    weights); "int8+kv_int8": the cross K/V int8 too (quantize_kv).  With
+    pend_w, the pending variant: a random (L, B, H, D, 8) pending block of
+    which pend_w columns are valid, t the rows' block starts."""
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.fused_step import fused_decoder_layers, fused_decoder_layers_plain
+
+    L, C, Ta, W = (K2_DIMS[k] for k in ("L", "C", "Ta", "W"))
+    inputs = k2_inputs(gen, device, A, G, t, T, pend_w)
+    B, positions = inputs["B"], inputs["positions"]
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
-        blocks = {n: w.to(dtype).contiguous() for n, w in base.items()}
-        xk, xv = xk32.to(dtype), xv32.to(dtype)
-        if form:
-            blocks.update({n: quantize_weight(blocks[n]) for n in PROJECTIONS})
-        if "kv_int8" in form:
-            xk, xv = quantize_kv(xk), quantize_kv(xv)
-        args = (blocks, H, x32.to(dtype), pos, sk32.to(dtype), sv32.to(dtype), xk, xv)
-        if pend_w is not None:
-            args += (pk32.to(dtype), pv32.to(dtype), pend_w)
+        blocks, args = k2_args(inputs, dtype, form)
+        xk, xv = args[6], args[7]
         out = fused_decoder_layers(*args)
         ref = fused_decoder_layers_plain(*args)
         torch.cuda.synchronize()
@@ -569,6 +639,114 @@ def check_k2(gen, device, A: int = 1, G: int = 1, t=200, label: str = "", form: 
             raise RuntimeError(f"K2 A={A} G={G} {name} disagrees with its plain version: {errs}")
         rows[name] = dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, library_ms=None, **kb)
     return rows
+
+
+def check_cross_attention(gen, device) -> dict:
+    """K2's cross-attention launch alone at turbo shapes (H = 20, D = 64, Ta
+    = 1500) for one audio of one row and of five, and sixteen audios of one
+    row, bf16, against its plain version, beside one
+    F.scaled_dot_product_attention call on (T, D) copies of the K/V made
+    outside the timing (its default scale D^-0.5 is the kernel's D^-0.25 on
+    q and on k; the port never calls it).  Returns the rows by (A, G)."""
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.fused_step import cross_attention, cross_attention_plain
+
+    H, D, Ta = K2_DIMS["H"], 64, K2_DIMS["Ta"]
+    rows = {}
+    for A, G in ((1, 1), (1, 5), (16, 1)):
+        B = A * G
+        q = torch.randn((B, H * D), generator=gen, device=device).to(torch.bfloat16)
+        xk, xv = (torch.randn((A, H, D, Ta), generator=gen, device=device).to(torch.bfloat16) for _ in range(2))
+        out, ref = cross_attention(q, xk, xv), cross_attention_plain(q, xk, xv)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = err / ref.float().abs().max().item()
+        qs = q.view(A, G, H, D).transpose(1, 2).contiguous()  # (A, H, G, D)
+        ks, vs = xk.transpose(-1, -2).contiguous(), xv.transpose(-1, -2).contiguous()  # (A, H, Ta, D)
+        ms = time_ms(lambda: cross_attention(q, xk, xv), CUDA)
+        device_ms = graph_ms(lambda: cross_attention(q, xk, xv))
+        plain_ms = time_ms(lambda: cross_attention_plain(q, xk, xv), CUDA)
+        library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs), CUDA)
+        library_device_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs))
+        # K and V read once, q read and the output written; QK^T and PV
+        kb = bound(2 * (2 * A * H * D * Ta + 2 * B * H * D), 4 * B * H * D * Ta, "bfloat16")
+        log(f"K2 cross-attention alone A={A} G={G} H={H} Ta={Ta} bf16: max_abs_err {err:.3e}, relative "
+            f"{rel:.3e} (tol {K2_REL_TOL['bfloat16']:.0e}) kernel {ms:.4f} ms ({device_ms:.4f} ms replayed "
+            f"from a CUDA graph) plain {plain_ms:.4f} ms library (SDPA on (T, D) copies) {library_ms:.4f} ms "
+            f"({library_device_ms:.4f} ms replayed) bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}")
+        if not rel <= K2_REL_TOL["bfloat16"]:
+            raise RuntimeError(f"K2's cross-attention A={A} G={G} disagrees with its plain version: {rel}")
+        rows[A, G] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **kb)
+    return rows
+
+
+K2_ROLES = ("q|k|v", "self-attention", "o", "xq", "cross-attention", "xo", "fc1", "fc2")
+
+
+def k2_launch_split(gen, device, iters: int = 20) -> dict:
+    """One K2 step split by launch: the step's launches captured in a CUDA
+    graph, replayed iters times under torch.profiler (so the host's enqueue
+    is out of the numbers), each launch's device time and the gap between
+    the end of the launch before it and its start (negative: the two
+    overlap), averaged over the replays after the first and over the L
+    layers, per role (a leading copy, if the step has one, then K2_ROLES
+    per layer).  Cases: one row, one audio of five rows and 16 audios of
+    one row at t = 200, bf16 and int8+kv_int8.  Returns {(case, form):
+    {role: (us, gap us)}, "step": (span us, busy us)}."""
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.fused_step import fused_decoder_layers
+
+    L = K2_DIMS["L"]
+    cases = {"B=1": dict(), "1 x 5": dict(G=5), "16 x 1": dict(A=16)}
+    inputs = {name: k2_inputs(gen, device, **kw) for name, kw in cases.items()}
+    out = {}
+    for form in ("", "int8+kv_int8"):
+        for name in cases:
+            _, args = k2_args(inputs[name], torch.bfloat16, form)
+            fused_decoder_layers(*args)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                fused_decoder_layers(*args)
+            graph.replay()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    graph.replay()
+                torch.cuda.synchronize()
+            events = device_events(prof)
+            n = len(events) // iters
+            if n == 0 or len(events) % iters:
+                raise RuntimeError(f"K2 launch split {name}: {len(events)} device events in {iters} replays")
+            # a leading device-to-device copy (the parent's step) may show as a kernel
+            roles = ["copy"] * (n - len(K2_ROLES) * L) + list(K2_ROLES) * L
+            if len(roles) != n or n > len(K2_ROLES) * L + 1:
+                raise RuntimeError(f"K2 launch split {name}: {n} launches a step, {len(K2_ROLES) * L} expected")
+            per_role = {r: [0.0, 0.0, 0] for r in dict.fromkeys(roles)}
+            spans, busy = [], []
+            for i in range(1, iters):
+                step = events[i * n:(i + 1) * n]
+                prev_end = events[i * n - 1]["ts"] + events[i * n - 1]["dur"]
+                for role, e in zip(roles, step):
+                    acc = per_role[role]
+                    acc[0] += e["dur"]
+                    acc[1] += e["ts"] - prev_end
+                    acc[2] += 1
+                    prev_end = e["ts"] + e["dur"]
+                spans.append(max(e["ts"] + e["dur"] for e in step) - step[0]["ts"])
+                busy.append(1e3 * busy_ms(step))
+            split = {r: (a[0] / a[2], a[1] / a[2]) for r, a in per_role.items()}
+            split["step"] = (sum(spans) / len(spans), sum(busy) / len(busy))
+            replay_ms = time_ms(graph.replay, CUDA, iters=50)
+            log(f"K2 launch split {name} bf16{' ' + form if form else ''} (graph replays under "
+                f"torch.profiler, {n} launches a step; us per launch, gap before it): "
+                + "; ".join(f"{r} {us:.2f} [{gap:+.2f}]" for r, (us, gap) in split.items() if r != "step")
+                + f"; step span {split['step'][0]:.2f} us, busy {split['step'][1]:.2f} us, "
+                f"replay {1000 * replay_ms:.2f} us")
+            out[name, form] = split
+    return out
 
 
 def check_k2_pending(gen, device):
@@ -749,6 +927,7 @@ def reset_launches():
     fused_step.fused_decoder_layers.launches = 0
     fused_step.fused_decoder_layers.launches_by_layout.clear()
     fused_step.int8_logits.launches = 0
+    fused_step.cross_attention.launches = 0
     mlp.mlp_fused.launches = 0
     median.median_filter.launches = 0
     dtw.dtw_trace.launches = 0
@@ -822,7 +1001,7 @@ def end_to_end(device, name: str = "turbo"):
     from whisper_tpu_torch.models import KNOWN_MODELS
     from whisper_tpu_torch.models.whisper import init_params
     from whisper_tpu_torch.ops.kernels.attention import attention
-    from whisper_tpu_torch.ops.kernels.fused_step import fused_decoder_layers
+    from whisper_tpu_torch.ops.kernels.fused_step import cross_attention, fused_decoder_layers
     from whisper_tpu_torch.tokenizer import LANGUAGES, get_tokenizer
 
     t0 = time.perf_counter()
@@ -843,7 +1022,8 @@ def end_to_end(device, name: str = "turbo"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"encoder_attention": attention.launches,
-                "fused_decoder_layers": fused_decoder_layers.launches_by_layout[(1, 1)]}
+                "fused_decoder_layers": fused_decoder_layers.launches_by_layout[(1, 1)],
+                "decode_cross_attention": cross_attention.launches}
     n_tokens = sum(len(s["tokens"]) for s in result["segments"])
     log(f"transcribe(jfk.flac, language=None): language {result['language']!r}, "
         f"{len(result['segments'])} segments, {n_tokens} tokens kept, "
@@ -1547,7 +1727,7 @@ def server_path(model, audio, profile: bool = False):
 
             with profiler(activities=[ProfilerActivity.CUDA]) as prof:
                 again = send_all()
-            busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+            busy = busy_ms(device_events(prof)) / 1e3
             log(f"profile server, 20 concurrent requests: wall {again:.3f} s, device busy {busy:.3f} s, "
                 f"idle share {1 - busy / again:.3f}")
 
@@ -1738,9 +1918,9 @@ def profile_window(model, audio, forced, beam, prompts, int8) -> None:
     configuration (int8 = (model, beam-5 window, run_with_prompts) from
     int8_path), then the host's time per token step of the bf16 decodes.
     Wall is the median of
-    three runs without a profiler; busy is the sum of kernel and copy time
-    under torch.profiler (device activity only); idle share is
-    1 - busy / wall."""
+    three runs without a profiler; busy is the time under torch.profiler in
+    which a kernel or a copy ran (busy_ms: overlapping launches counted
+    once); idle share is 1 - busy / wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1788,7 +1968,7 @@ def profile_window(model, audio, forced, beam, prompts, int8) -> None:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-            busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+            busy = busy_ms(device_events(prof))
             log(f"profile {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
                 f"idle share {1 - busy / wall:.3f}")
             table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=8,
@@ -1849,6 +2029,8 @@ def main() -> int:
     k2ag = check_k2(gen, device, A=5, G=5, label=" groups")
     check_k2(gen, device, A=4, G=5, label=" groups")
     k2p = check_k2_pending(gen, device)
+    k2_launch_split(gen, device)
+    xattn = check_cross_attention(gen, device)
     k3 = check_k3(gen, device)
     k4 = check_k4(gen, device)
     # this slice's kernels: K1 at head dim 128, E1-E3; K2 above 128 rows
@@ -1908,6 +2090,10 @@ def main() -> int:
              launches=launches["fused_decoder_layers"], **k2["bfloat16"]),
         dict(name="fused_decoder_layers_b5", **fused,
              launches=cli_launches["fused_decoder_layers_b5"], **k2g["bfloat16"]),
+        # K2's cross-attention launch alone, timed at one row beside SDPA;
+        # launches: the greedy transcribe's, L per K2 step
+        dict(name="decode_cross_attention", **fused,
+             launches=launches["decode_cross_attention"], **xattn[1, 1]),
         # several audios: one row each (the 16-window decode's per-step turn,
         # timed at A=B=16; every other batch of a wide decoder writes in
         # blocks) and groups of rows (the chunked path's beam count, timed at

@@ -629,3 +629,197 @@ def test_wide_batch_decodes_in_write_blocks(cuda):
     for a, b in zip(block, per_step):
         assert a.tokens == b.tokens
         assert abs(a.avg_logprob - b.avg_logprob) <= 1e-5 * max(1.0, abs(b.avg_logprob))
+
+
+# -- K2 redesigned: what its tiles may read, and its launch chain -------------
+
+
+def _nan_tail(x: torch.Tensor, pad: int = 64) -> torch.Tensor:
+    """A contiguous copy of x whose allocation continues with NaN (or, for
+    an integer tensor, its largest value) past its end: a read past the
+    tensor's last row lands there."""
+    fill = float("nan") if x.is_floating_point() else torch.iinfo(x.dtype).max
+    flat = torch.full((x.numel() + pad,), fill, dtype=x.dtype, device=x.device)
+    view = flat[:x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["", "int8", "kv_int8", "int8+kv_int8"])
+@pytest.mark.parametrize("A,G,per_row", [(1, 1, False), (1, 5, False), (16, 1, True), (3, 5, True)])
+@pytest.mark.parametrize("pend_w", [None, 3])
+def test_k2_reads_no_key_it_does_not_attend(cuda, dtype, form, A, G, per_row, pend_w):
+    """NaN planted where K2 must not read: every self-cache column at or
+    past a row's position (the last row at T, its tensor followed by NaN),
+    every pending column at or past pend_w (and past the block's end), an
+    extra audio's whole cross K/V (and its scales in int8; past the
+    tensors' ends too).  A weight of 0 times NaN is NaN, so a tile that
+    read any of it into a sum would show.  The first A audios' rows must be
+    finite and match the plain version run with the NaN set to 0."""
+    B, T, W, L = (A + 1) * G, 64, 8, 2
+    blocks, H, x, caches = _k2_inputs(cuda, dtype, L=L, T=T, B=B, A=A + 1)
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    t = torch.randint(0, T + 1, (B,), generator=gen, device=cuda) if per_row else torch.full((B,), 37, device=cuda)
+    t[-1] = T
+    cols = torch.arange(T, device=cuda)
+    for c in caches[:2]:
+        c.masked_fill_(cols >= t[None, :, None, None, None], float("nan"))
+    for c in caches[2:]:
+        c[:, A:] = float("nan")
+    pend = []
+    if pend_w is not None:
+        pend = [torch.randn((L, B, H, 64, W), generator=gen, device=cuda).to(dtype) for _ in range(2)]
+        for p in pend:
+            p[..., pend_w:] = float("nan")
+    clean = lambda c: torch.nan_to_num(c, nan=0.0)  # noqa: E731
+    ref_blocks, ref_caches = _int8_form(blocks, [clean(c) for c in caches], form)
+    blocks, caches = _int8_form(blocks, caches, form)
+    if "kv_int8" in form:  # the extra audio's scales instead: int8 values hold no NaN
+        for c in caches[2:]:
+            c.s[:, A:] = float("nan")
+        caches = caches[:2] + [Int8Weight(_nan_tail(c.q), _nan_tail(c.s)) for c in caches[2:]]
+    else:
+        caches = caches[:2] + [_nan_tail(c) for c in caches[2:]]
+    caches = [_nan_tail(c) for c in caches[:2]] + caches[2:]
+    pos = t if per_row else 37
+    args = (pend_w,) if pend_w is not None else ()
+    out = k2.fused_decoder_layers(blocks, H, x, pos, *caches, *[_nan_tail(p) for p in pend], *args)
+    ref = k2.fused_decoder_layers_plain(ref_blocks, H, x, pos, *ref_caches, *[clean(p) for p in pend], *args)
+    rows = A * G
+    out = [out[0][:rows], out[1][:, :rows], out[2][:, :rows]]
+    ref = [ref[0][:rows], ref[1][:, :rows], ref[2][:, :rows]]
+    assert all(torch.isfinite(o).all() for o in out)
+    assert max(_k2_rel_errors(out, ref)) <= K2_REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("G", [1, 5, 8])
+def test_k2_cross_attention_reads_no_other_head(cuda, dtype, int8, G):
+    """K2's cross-attention launch alone at Ta = 1500 (bf16 and int8 rows
+    start inside 16-byte chunks): head 1's and audio 1's K/V are NaN (int8:
+    their scales), so head 0 of audio 0's rows reads no NaN unless a tile
+    ran past its rows; it must be finite and match the plain version."""
+    A, H, Ta = 2, 2, 1500
+    C = 64 * H
+    q = _randn(cuda, 1, A * G, C, dtype=dtype)
+    xk, xv = _randn(cuda, 2, A, H, 64, Ta, dtype=dtype), _randn(cuda, 3, A, H, 64, Ta, dtype=dtype)
+    if int8:
+        xk, xv = quantize_kv(xk), quantize_kv(xv)
+        ref = k2.cross_attention_plain(q, xk, xv)
+        for c in (xk, xv):
+            c.s[:, 1] = float("nan")
+            c.s[1] = float("nan")
+    else:
+        ref = k2.cross_attention_plain(q, xk, xv)
+        for c in (xk, xv):
+            c[:, 1] = float("nan")
+            c[1] = float("nan")
+    launches = k2.cross_attention.launches
+    out = k2.cross_attention(q, xk, xv)
+    assert k2.cross_attention.launches == launches + 1
+    got, want = out[:G, :64].float(), ref[:G, :64].float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= K2_REL_TOL[dtype] * want.abs().max().item()
+
+
+def test_k2_refuses_a_misaligned_cache(cuda):
+    blocks, H, x, caches = _k2_inputs(cuda, torch.bfloat16, L=1, T=8, Ta=16, B=1)
+    for i in range(4):
+        bad = list(caches)
+        bad[i] = _misaligned(caches[i])
+        with pytest.raises(ValueError, match="16-byte"):
+            k2.fused_decoder_layers(blocks, H, x, 3, *bad)
+
+
+def _turbo_step(cuda, A, G):
+    """K2's arguments at large-v3-turbo's decoder widths (L=4, C=1280,
+    T=256, Ta=1500), bf16, B = A * G rows at per-row positions."""
+    B = A * G
+    blocks, H, x, caches = _k2_inputs(cuda, torch.bfloat16, L=4, C=1280, T=256, Ta=1500, B=B, A=A)
+    t = torch.randint(0, 257, (B,), generator=torch.Generator(device=cuda).manual_seed(B), device=cuda)
+    return blocks, H, x, t, caches
+
+
+@pytest.mark.parametrize("mode", ["eager", "graph"])
+@pytest.mark.parametrize("A,G", [(1, 1), (1, 5), (16, 1)])
+def test_k2_back_to_back_steps_are_identical(cuda, mode, A, G):
+    """200 steps launched back to back, each launch after a step's first
+    overlapping its predecessor (programmatic dependent launch), eagerly
+    and replayed from a CUDA graph: a launch that read an input before the
+    launch writing it finished would change some step's output.  Every
+    output equals the first step's bit for bit, and that one matches the
+    plain version."""
+    blocks, H, x, t, caches = _turbo_step(cuda, A, G)
+    step = lambda: k2.fused_decoder_layers(blocks, H, x, t, *caches)  # noqa: E731
+    first = [o.clone() for o in step()]
+    ref = k2.fused_decoder_layers_plain(blocks, H, x, t, *caches)
+    assert max(_k2_rel_errors(first, ref)) <= K2_REL_TOL[torch.bfloat16]
+    if mode == "graph":
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = step()
+    outs = []
+    for i in range(200):
+        if mode == "graph":
+            graph.replay()
+            outs.append([o.clone() for o in static])
+        else:
+            outs.append(step())
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        assert all(torch.equal(a, b) for a, b in zip(out, first)), f"step {i} differs"
+
+
+@pytest.mark.parametrize("mode", ["eager", "graph"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_k5_back_to_back_calls_are_identical(cuda, mode, int8):
+    """K5 (fc1, then fc2 under programmatic dependent launch) 200 times back
+    to back at C = 1280, B = 1: each output equals the first bit for bit."""
+    C = 1280
+    x, g, b = _randn(cuda, 1, 1, C, scale=0.5), 1.0 + _randn(cuda, 2, C, scale=0.1), _randn(cuda, 3, C, scale=0.1)
+    w1, b1 = _randn(cuda, 4, 4 * C, C, scale=0.05), _randn(cuda, 5, 4 * C, scale=0.1)
+    w2, b2 = _randn(cuda, 6, C, 4 * C, scale=0.05), _randn(cuda, 7, C, scale=0.1)
+    if int8:
+        w1, w2 = quantize_weight(w1), quantize_weight(w2)
+    call = lambda: k5.mlp_fused(x, g, b, w1, b1, w2, b2)  # noqa: E731
+    first = call().clone()
+    assert max(_k2_rel_errors([first], [k5.mlp_fused_plain(x, g, b, w1, b1, w2, b2)])) <= K2_REL_TOL[torch.bfloat16]
+    if mode == "graph":
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = call()
+    outs = []
+    for _ in range(200):
+        if mode == "graph":
+            graph.replay()
+            outs.append(static.clone())
+        else:
+            outs.append(call())
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
+
+
+@pytest.mark.parametrize("layout", ["vc", "cv"])
+@pytest.mark.parametrize("B", [1, 5, 8, 16, 17, 40, 70])
+@pytest.mark.parametrize("V,C", [(51866, 1280), (1001, 96), (100, 1280)])
+def test_e2_persistent_grid_matches_plain(cuda, layout, B, V, C):
+    """E2's persistent grid: an odd V (1001: the (C, V) copy's rows on
+    2-byte boundaries, plain loads), a V smaller than the grid's blocks
+    hold (100 rows: most blocks own nothing), C no multiple of 64 (96: the
+    last TMA box is zero-filled past C), and B up to 70 (x rows of 1, 2, 4
+    and 8 n8 tiles, or four m16 tiles; 70: a second launch of rows)."""
+    x, emb = _randn(cuda, 8, B, C), _randn(cuda, 9, V, C, scale=0.02)
+    w = emb if layout == "vc" else emb.t().contiguous()
+    out = e2.logits_streamed(x, w, layout)
+    ref = e2.logits_streamed_plain(x, w, layout)
+    assert out.shape == ref.shape == (B, V)
+    assert (out - ref).abs().max().item() <= LOGITS_REL_TOL * ref.abs().max().item()
+
+
+def test_e2_refuses_a_misaligned_tensor(cuda):
+    x, emb = _randn(cuda, 1, 2, 64), _randn(cuda, 2, 100, 64)
+    for args in ((_misaligned(x), emb), (x, _misaligned(emb))):
+        with pytest.raises(ValueError, match="16-byte"):
+            e2.logits_streamed(*args, "vc")

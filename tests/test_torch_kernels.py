@@ -29,6 +29,7 @@ from whisper_tpu_torch.models.dims import ModelDimensions
 from whisper_tpu_torch.models.load import params_from_numpy
 from whisper_tpu_torch.ops.kernels import attention as k1
 from whisper_tpu_torch.ops.kernels import fused_step as k2
+from whisper_tpu_torch.quantize import Int8Weight
 
 torch.set_num_threads(2)
 
@@ -348,3 +349,177 @@ def test_k2_step_in_row_slices_equals_the_whole():
     torch.testing.assert_close(torch.cat([p[0] for p in parts]), whole[0], rtol=0, atol=1e-6)
     for i in (1, 2):
         torch.testing.assert_close(torch.cat([p[i] for p in parts], dim=1), whole[i], rtol=0, atol=1e-6)
+
+
+# -- K2's decode-attention blocking (csrc/fused_step.cu) ----------------------
+
+# csrc/fused_step.cu: keys per tile, blocks per (row, head) at most, the
+# keys per block the split aims at in self- and cross-attention, and the
+# blocks it may start per SM of an H100 (132)
+K2_TK, K2_MAX_SPLIT, K2_SELF_KEYS, K2_CROSS_KEYS, K2_ROOM = 64, 8, 128, 192, 2 * 132
+K2_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # the card's bounds (tests/test_torch_cuda.py)
+
+
+def _k2_split(n_max: int, keys_per_block: int, units: int) -> int:
+    """attention_launch's split for a launch of `units` (group, head) pairs."""
+    return min(K2_MAX_SPLIT, max(1, min(K2_ROOM // units, -(-n_max // keys_per_block))))
+
+
+def _k2_blocked(q, k, v, n, split, scale, cdtype, ks=None, vs=None, extras=()):
+    """decode_attention_kernel for one (query group, head) in plain torch,
+    (NQ, D): q (NQ, D), k and v (D, T) of which the first n keys count,
+    split blocks of chunk = ceil(n / split) keys rounded up to whole tiles
+    of K2_TK; each block's scores tile by tile (eighth e of D the rows d =
+    8 i + e, added ((e0 + e1) + (e2 + e3)) + ((e4 + e5) + (e6 + e7))), its
+    max and its sum of exp(s - max); the exact max and
+    denominator from the blocks' pairs in rank order; every weight
+    normalised and rounded to cdtype before PV; the blocks' partial outputs
+    summed in rank order.  extras (rank 0): (key, value) pairs of D, the
+    pending columns and then the new token.  int8 K/V (ks, vs: the scales):
+    the scales fold into q, the keys enter unscaled, PV times vs."""
+    rnd = lambda a: a.to(cdtype).float()  # noqa: E731
+    D = q.shape[-1]
+    qs = rnd(q.float() * scale * (ks if ks is not None else 1.0))
+    kf = k.float() if ks is not None else rnd(k.float() * scale)
+    chunk = -(-(-(-n // split)) // K2_TK) * K2_TK
+    blocks = []
+    for rank in range(split):
+        t0 = min(n, rank * chunk)
+        t1 = min(n, t0 + chunk)
+        tiles = []
+        for k0 in range(t0, t1, K2_TK):
+            tile = kf[:, k0:min(t1, k0 + K2_TK)]
+            e = [qs[:, i::8] @ tile[i::8] for i in range(8)]
+            tiles.append(((e[0] + e[1]) + (e[2] + e[3])) + ((e[4] + e[5]) + (e[6] + e[7])))
+        s = torch.cat(tiles, dim=1) if tiles else qs.new_zeros((qs.shape[0], 0))
+        if rank == 0 and extras:
+            s_ex = torch.stack([(qs * rnd(ke.float() * scale)).sum(dim=1) for ke, _ in extras], dim=1)
+        else:
+            s_ex = qs.new_zeros((qs.shape[0], 0))
+        both = torch.cat([s, s_ex], dim=1)
+        m = both.amax(dim=1) if both.shape[1] else torch.full((qs.shape[0],), -float("inf"))
+        l = torch.exp(both - m[:, None]).sum(dim=1) if both.shape[1] else torch.zeros(qs.shape[0])
+        blocks.append((t0, t1, s, s_ex, m, l))
+    mx = torch.stack([b[4] for b in blocks]).amax(dim=0)
+    denom = torch.zeros_like(mx)
+    for *_, m, l in blocks:
+        denom = denom + torch.where(m > -float("inf"), l * torch.exp(m - mx), 0.0)
+    out = torch.zeros_like(qs)
+    for t0, t1, s, s_ex, _, _ in blocks:
+        p = rnd(torch.exp(s - mx[:, None]) / denom[:, None])
+        out = out + p @ v[:, t0:t1].float().t()
+    if extras:
+        p_ex = rnd(torch.exp(blocks[0][3] - mx[:, None]) / denom[:, None])
+        for e, (_, ve) in enumerate(extras):
+            out = out + p_ex[:, e:e + 1] * ve.float()[None]
+    if vs is not None:
+        out = out * vs
+    return out.to(cdtype)
+
+
+def _k2_self_blocked(q, k_new, v_new, self_k, self_v, t, pend_k=None, pend_v=None, pend_w=0):
+    """k2._self_attention through _k2_blocked: one (row, head) at a time,
+    the split from the launch's largest key count (t shared, else T)."""
+    B, H, _, D = q.shape
+    T = self_k.shape[-1]
+    split = _k2_split(t if isinstance(t, int) else T, K2_SELF_KEYS, B * H)
+    out = torch.empty_like(q)
+    for b in range(B):
+        n = min(max(int(t if isinstance(t, int) else t[b]), 0), T)
+        for h in range(H):
+            extras = [(pend_k[b, h, :, e], pend_v[b, h, :, e]) for e in range(pend_w)] if pend_k is not None else []
+            extras.append((k_new[b, h, 0], v_new[b, h, 0]))
+            out[b, h, 0] = _k2_blocked(q[b, h], self_k[b, h], self_v[b, h], n, split, D ** -0.25, q.dtype,
+                                       extras=extras)
+    return out
+
+
+def _k2_cross_blocked(xq, cross_k, cross_v):
+    """k2._cross_attention through _k2_blocked: the largest NQ <= 8 rows of
+    an audio that divides G share each (audio, head)'s blocks."""
+    B, H, _, D = xq.shape
+    int8 = isinstance(cross_k, Int8Weight)
+    xk, xv = (cross_k.q, cross_v.q) if int8 else (cross_k, cross_v)
+    A, Ta = xk.shape[0], xk.shape[-1]
+    G = B // A
+    per = max(d for d in range(1, 9) if G % d == 0)
+    split = _k2_split(Ta, K2_CROSS_KEYS, B // per * H)
+    out = torch.empty_like(xq)
+    for a in range(A):
+        for g0 in range(a * G, (a + 1) * G, per):
+            for h in range(H):
+                ks = cross_k.s[a, h, :, 0] if int8 else None
+                vs = cross_v.s[a, h, :, 0] if int8 else None
+                out[g0:g0 + per, h, 0] = _k2_blocked(xq[g0:g0 + per, h, 0], xk[a, h], xv[a, h], Ta, split,
+                                                     D ** (-0.5 if int8 else -0.25), xq.dtype, ks, vs)
+    return out
+
+
+@pytest.fixture(scope="module")
+def k2_packs(jparams):
+    """whisper_tpu's fused-step weight pack per compute dtype."""
+    packs = {}
+    for name, dt in (("float32", jnp.float32), ("bfloat16", jnp.bfloat16)):
+        p = jax.tree.map(lambda a: a.astype(dt) if a.dtype == jnp.float32 else a, jparams)
+        packs[name] = pack_fused_weights(p, JDIMS)
+    return packs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv", ["plain", "int8"])
+@pytest.mark.parametrize("G", [1, 5])
+@pytest.mark.parametrize("pend_w", [None, 0, 3, 8])
+@pytest.mark.parametrize("t", [0, 1, 127, 200, 256])
+def test_k2_attention_blocking_keeps_the_pallas_numerics(k2_packs, tparams, monkeypatch, dtype, kv, G, pend_w,
+                                                          t):
+    """The card's decode-attention blocking (64-key tiles, the split by key
+    count: one or two blocks of self-attention at t_cap = 256, eight of
+    cross-attention at Ta = 1500; each block's max and sum exchanged once;
+    weights normalised and rounded before PV; rank 0 taking the pending
+    columns and the new token) in the port's plain step, against
+    whisper_tpu's fused step (the Pallas kernel under the interpreter, as
+    tests/test_fused_step.py runs it) on the same inputs: hidden, k_new and
+    v_new within K2's bounds on the card.  pend_w None: no pending block; a
+    block of 8 columns otherwise.  G = 5 with a block: the Pallas kernel
+    takes pending blocks for one row or one row per audio, so there it runs
+    five audios holding the same K/V."""
+    from whisper_tpu.ops.kernels.fused_step_pallas import fused_decoder_layers as pallas_layers
+    from whisper_tpu.quantize import quantize_kv as jax_quantize_kv
+
+    L, H, C, T, Ta, W = DIMS.n_text_layer, DIMS.n_text_head, DIMS.n_text_state, 256, 1500, 8
+    jdt, tdt = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    rng = np.random.RandomState(11 + t + 3 * G + (pend_w or 0))
+    x = rng.randn(G, C).astype(np.float32) * 0.5
+    sk, sv = (rng.randn(L, G, H, 64, T).astype(np.float32) for _ in range(2))
+    xk, xv = (rng.randn(L, 1, H, 64, Ta).astype(np.float32) for _ in range(2))
+    pk, pv = (rng.randn(L, G, H, 64, W).astype(np.float32) for _ in range(2))
+
+    pack = k2_packs[dtype]
+    jx, jsk, jsv = (jnp.asarray(a, jdt) for a in (x, sk, sv))
+    jxk, jxv = jnp.asarray(xk, jdt), jnp.asarray(xv, jdt)
+    pending = pend_w is not None
+    if pending and G > 1:  # one audio per row: five copies of the one K/V
+        jxk, jxv = jnp.repeat(jxk, G, axis=1), jnp.repeat(jxv, G, axis=1)
+    if kv == "int8":
+        jxk, jxv = jax_quantize_kv(jxk), jax_quantize_kv(jxv)
+    xkp, xvp, xks, xvs = pad_cross_kv(jxk, jxv)
+    extra = (jnp.asarray(pk, jdt), jnp.asarray(pv, jdt), jnp.int32(pend_w)) if pending else ()
+    ref = pallas_layers(pack, JDIMS, jx, jnp.full((G,), t, jnp.int32), jsk, jsv, xkp, xvp, xks, xvs, *extra)
+
+    blocks = {n: w.to(tdt) for n, w in tparams["decoder"]["blocks"].items()}
+    txk, txv = torch.from_numpy(xk).to(tdt), torch.from_numpy(xv).to(tdt)
+    if kv == "int8":
+        quant = [jax_quantize_kv(jnp.asarray(a, jdt)) for a in (xk, xv)]
+        txk, txv = (Int8Weight(torch.from_numpy(np.array(d["q"])), torch.from_numpy(np.array(d["s"])))
+                    for d in quant)
+    args = [blocks, H, torch.from_numpy(x).to(tdt), t, torch.from_numpy(sk).to(tdt),
+            torch.from_numpy(sv).to(tdt), txk, txv]
+    if pending:
+        args += [torch.from_numpy(pk).to(tdt), torch.from_numpy(pv).to(tdt), pend_w]
+    monkeypatch.setattr(k2, "_self_attention", _k2_self_blocked)
+    monkeypatch.setattr(k2, "_cross_attention", _k2_cross_blocked)
+    got = k2.fused_decoder_layers_plain(*args)
+    for a, b in zip(got, ref):
+        b = np.asarray(b, np.float32)
+        rel = np.abs(a.float().numpy() - b).max() / np.abs(b).max()
+        assert rel <= K2_REL_TOL[dtype], rel

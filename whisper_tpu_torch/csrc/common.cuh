@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
+#include <unordered_map>
 
 enum DType : int { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
 
@@ -91,3 +93,79 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   for (int w = 0; w < nwarps; ++w) r = fmaxf(r, red[w]);
   return r;
 }
+
+// Programmatic dependent launch (Hopper): a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+// launch before it on the stream still runs.  Until pdl_wait() it may only
+// read what that launch does not write (weights, caches); pdl_wait()
+// returns once the launch before it has completed and its writes are
+// visible (a no-op in a kernel launched without the attribute), and
+// pdl_trigger() lets the next launch start once every block of this one
+// has called it (or exited).
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+__device__ __forceinline__ void pdl_trigger() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
+
+// `bytes` (a multiple of 16) from global address p (16-byte aligned) into
+// the L2 cache, asynchronously, without a register or a barrier
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
+}
+
+// Raise a kernel's dynamic shared-memory allowance to `smem` bytes where it
+// is lower (the runtime refuses a launch whose static and dynamic shared
+// memory pass 48 KB without it), once per kernel and size: the attribute
+// lasts for the device context, and the port drives one card.
+inline cudaError_t allow_smem(const void* kernel, size_t smem) {
+  static std::mutex mu;
+  static std::unordered_map<const void*, size_t> allowed;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& cur = allowed[kernel];
+  if (smem <= cur) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) cur = smem;
+  return e;
+}
+
+// A chain of launches on one stream: every launch after the first carries
+// the programmatic-serialization attribute (its kernels call pdl_wait()
+// before they read an earlier launch's output), so its blocks start while
+// the launch before it drains; the first waits for the stream as any
+// launch does.  cluster > 0 adds a (cluster, 1, 1) thread-block cluster.
+// The first error is kept in err.
+struct Chain {
+  cudaStream_t stream;
+  bool pdl = false;
+  cudaError_t err = cudaSuccess;
+
+  explicit Chain(cudaStream_t s) : stream(s) {}
+
+  template <typename... KArgs, typename... Args>
+  void launch(void (*kernel)(KArgs...), dim3 grid, int threads, size_t smem, int cluster, Args... args) {
+    cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+    cudaLaunchAttribute attr[2];
+    int n = 0;
+    if (pdl) {
+      attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+      attr[n++].val.programmaticStreamSerializationAllowed = 1;
+    }
+    if (cluster > 0) {
+      attr[n].id = cudaLaunchAttributeClusterDimension;
+      attr[n].val.clusterDim.x = (unsigned)cluster;
+      attr[n].val.clusterDim.y = 1;
+      attr[n++].val.clusterDim.z = 1;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3((unsigned)threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = (unsigned)n;
+    if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+    if (err == cudaSuccess) err = e;
+    pdl = true;
+  }
+
+  // the chain's error, or a launch error the runtime recorded
+  int result() const { return (int)(err != cudaSuccess ? err : cudaGetLastError()); }
+};

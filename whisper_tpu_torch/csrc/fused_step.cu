@@ -41,10 +41,22 @@
 // (no Python between them):
 //   gemv  (LayerNorm prologue, q|k|v in one launch of 3C rows)
 //   decode_attention (self: cache positions < t[b] and the new token)
-//   gemv  (o, + residual in place)      gemv (LayerNorm prologue, xq)
+//   gemv  (o, + residual)               gemv (LayerNorm prologue, xq)
 //   decode_attention (cross: Ta keys)
 //   gemv  (xo, + residual)              gemv (LayerNorm prologue, fc1, GELU)
 //   gemv  (fc2, + residual)
+// The chain runs under programmatic dependent launch (common.cuh Chain):
+// each launch after the first may start while the one before it drains.
+// Before pdl_wait() a kernel touches only what no launch of the step
+// writes: a GEMV asks for its weight rows into L2 (cp.async.bulk.prefetch),
+// decode_attention issues its first cache tiles; after it, it reads x, q,
+// the attention output or ff, and then lets the next launch start
+// (pdl_trigger), so a launch's weights stream while the one before it
+// finishes instead of after.  The first layer's GEMVs read x where the
+// others read the hidden state: q|k|v takes its LayerNorm of x and the o
+// projection adds its residual to x and writes the hidden state, so no copy
+// of x starts the step.  A persistent kernel over all layers with
+// grid-wide barriers is later work.
 // The GEMV keeps torch's (out, in) weight layout and holds the input rows
 // of its block's tile (all B, up to 16) in shared memory.  In f32, and for
 // one bf16 row, one warp reads one output row's weights with 16-byte loads
@@ -59,20 +71,31 @@
 // floats on the CUDA cores, 1280 bf16 per row on the tensor cores); each
 // chunk is loaded (and LayerNorm-ed: from the rows in shared memory when
 // the input fits in one chunk, else from per-row statistics computed
-// first) by the whole block, then the warps accumulate over it.  decode_attention gives each (row,
-// head) of self-attention a cluster of 8 blocks (a Hopper thread-block
-// cluster) that split the row's own t[b] keys (each row reads its
-// position from device memory, so rows of different prompt lengths share a
-// launch); for cross-attention one cluster per (audio, head) takes the
-// audio's G queries (up to 8 per cluster) and reads each key and value once
-// for all of them, so an audio's K/V leaves device memory once per step
-// whatever G is, instead of G times through the L2.  The blocks of a
-// cluster exchange their max, their sum and their partial outputs through
-// distributed shared memory, so the softmax is still the exact one (weights
-// normalised before they round) while 8x more SMs stream the cache.  One
-// persistent kernel over all layers and TMA weight streaming are later
-// work.
-//
+// first) by the whole block, then the warps accumulate over it.
+// decode_attention: the caches are time-last, (H, D, T) per row (or
+// audio), so a head's keys are 64 rows of contiguous positions.  A block
+// streams tiles of 64 rows x 64 keys into a ring of shared memory with
+// 16-byte cp.async copies (8 bf16, 4 f32 or 16 int8 keys a copy; a row of
+// an odd-length cache, Ta = 1500 in bf16 or int8, starts inside a 16-byte
+// chunk, so each row's copies start at the boundary before its first key
+// and the row is read from its offset inside the tile), zero-filling every
+// byte at or past the block's last valid key, so a row's tail reads nothing
+// of the next row, head or audio.  The K tiles give the scores, then the
+// cluster exchanges each block's max and its sum of exp(s - max) once
+// (the V tiles are already in flight), each block normalises its weights
+// with the exact maximum and denominator and rounds them to the compute
+// dtype before PV, as the TPU kernel does (two passes, no online
+// softmax), then the V tiles give the partial outputs, which rank 0 sums
+// in rank order (deterministic): three cluster barriers.  A (row, head)
+// takes split = ceil(keys / 128) blocks for self-attention (two at t = 200,
+// four at T = 448 with per-row positions: the launch cannot see the rows'
+// positions) and ceil(Ta / 192) for cross-attention (eight at Ta = 1500),
+// a thread-block cluster of at most eight; rank 0 also takes the pending
+// columns and the new token.  For cross-attention one cluster per (audio,
+// head) takes the audio's G queries (up to 8 per cluster) and reads each
+// key and value once for all of them, so an audio's K/V leaves device
+// memory once per step whatever G is.
+
 // int8 (whisper_tpu's quantize.py; int8 leaves of fused_step_pallas.py's
 // weight pack and of its cross K/V): the eight projections may be int8
 // (out, in) with f32 scales per output row, and the cross K/V int8 with f32
@@ -115,11 +138,11 @@
 // into the cache once per block.  With it, row b's self-attention keys are
 // its cache positions < t[b] (t is then the block's start), the first
 // pend_w pending columns, and the new token.  Only the self-attention
-// launch changes (decode_attention_kernel<..., PEND = true>): the cluster's
-// 8 blocks split the cache and pending keys as one sequence of t[b] +
-// pend_w keys, the scores and the rank-ordered exchange of maxima, sums and
-// partial outputs as before (deterministic); the other seven launches of a
-// layer are those of the step without a block.  The block adds 2 * L * B *
+// launch changes (decode_attention_kernel<..., PEND = true>): the blocks
+// split the cache keys as before, and rank 0 takes the pending columns
+// beside the new token, read straight from device memory (at most 64 of
+// them, 16 bytes apart in bf16); the other seven launches of a layer are
+// those of the step without a block.  The block adds 2 * L * B *
 // H * D * W elements to read, 2.6 MB at B = 16 and W = 8 in bf16, beside
 // the 183.5 MB of turbo's decoder weights; on a GPU the cache column is
 // written in place either way, so the block saves no device bytes here: it
@@ -133,6 +156,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -142,7 +166,6 @@ constexpr int HD = 64;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int ROWS_PER_BLOCK = WARPS;  // one output row per warp
-constexpr int CLUSTER = 8;             // blocks per (row, head) in decode_attention
 constexpr int MAX_ROWS = 128;          // B at most
 constexpr int MAX_PEND = 64;           // a pending block's columns at most
 constexpr int TILE_ROWS = 16;          // GEMV input rows per block (a row tile)
@@ -158,18 +181,30 @@ constexpr int CHUNK_ALIGN = 256;       // 32 lanes x 8 bf16 (or 2 x 4 f32)
 constexpr int TC_CHUNK = 1280;
 constexpr int TC_PAD = 8;
 constexpr float LN_EPS = 1e-5f;
+// decode_attention: keys per tile, the ring's tiles (all of a block's K
+// and V tiles at Ta = 1500 over eight blocks are in flight at once), blocks
+// per (row, head) at most (a portable cluster), the keys per block its
+// split aims at, and the blocks per SM its split fills the card with
+constexpr int TK = 64;
+constexpr int NSTAGE = 6;
+constexpr int MAX_SPLIT = 8;
+constexpr int SELF_KEYS = 128;
+constexpr int CROSS_KEYS = 192;
+constexpr int SPLIT_BLOCKS_PER_SM = 2;
 
 // Up to three weight segments of seg_rows output rows each: output row r
 // uses segment r / seg_rows (q|k|v share one launch).  Weights of type WT
 // (T, or int8_t with f32 scales s[seg][row]; a null s is none).  A null
 // bias is none.  Input row b of output segment s is written at out[s] + b *
-// seg_rows, as T (or, for the unrounded f32 epilogue, as float).
+// seg_rows, as T (or, for the unrounded f32 epilogue, as float).  With a
+// residual, res (laid out as out[0]) holds it; a null res: out[0] itself.
 template <typename T, typename WT>
 struct Segments {
   const WT* w[3];
   const float* s[3];
   const T* b[3];
   void* out[3];
+  const T* res;
 };
 
 // a[s], s in [0, 3), by selects: the array stays in the kernel's parameter
@@ -186,8 +221,9 @@ __device__ __forceinline__ float gelu_erf(float x) {
 // The GEMVs' epilogue for input row b and output row rr of segment s,
 // rounding as decoder_step does: y = round(acc * scale) (int8 weights) or
 // round(acc); with a bias y = round(y + b); with GELU y = round(gelu(y));
-// with RESID the output holds the residual and y = round(out + y) is
-// written back in place.  F32OUT: acc * scale stored as float, unrounded
+// with RESID y = round(residual + y) is written, the residual read from
+// seg.res (or, where that is null, from the output itself, in place).
+// F32OUT: acc * scale stored as float, unrounded
 // (the int8 logits).
 template <typename T, typename WT, bool GELU, bool RESID, bool F32OUT>
 __device__ __forceinline__ void epilogue(Segments<T, WT> seg, int s, int rr, size_t b,
@@ -202,7 +238,7 @@ __device__ __forceinline__ void epilogue(Segments<T, WT> seg, int s, int rr, siz
     if (bias != nullptr) y = round_to<T>(y + to_f(bias[rr]));
     if (GELU) y = round_to<T>(gelu_erf(y));
     T* out = static_cast<T*>(seg_at(seg.out, s)) + b * seg_rows + rr;
-    if (RESID) y = round_to<T>(to_f(*out) + y);
+    if (RESID) y = round_to<T>(to_f(seg.res != nullptr ? seg.res[b * seg_rows + rr] : *out) + y);
     *out = from_f<T>(y);
   }
 }
@@ -266,11 +302,14 @@ __device__ __forceinline__ void dot_rows(const WT* __restrict__ w, const float* 
 // y[b, r] = epilogue(W[r, :] . h[b, :]) for r < rows and the rows b of this
 // block's tile: blockIdx.y * TILE_ROWS + [0, nb), nb <= NB, of the n_rows
 // rows; h = x or LayerNorm(x) rowwise.
-// Occupancy: one row (NB = 1) keeps to 32 registers, so that eight blocks
-// fit on an SM and fc1's 640 blocks run in one wave; more rows get up to
-// 64 (four blocks, as their 48 KB of input rows allow anyway) or 128.
+// Occupancy: one row (NB = 1) keeps to 48 registers (no spill), so that
+// five blocks fit on an SM and fc1's 640 blocks still run in one wave (660
+// slots), 64 with the residual epilogue (the C-row projections: 160
+// blocks);
+// more rows get up to 64 (four blocks, as their 48 KB of input rows allow
+// anyway), 128 (eight rows) or all they need (sixteen; f32 only).
 template <typename T, typename WT, int NB, bool LN, bool GELU, bool RESID, bool F32OUT>
-__global__ void __launch_bounds__(THREADS, NB == 1 ? 8 : (NB <= 5 ? 4 : 2))
+__global__ void __launch_bounds__(THREADS, NB == 1 ? (RESID ? 4 : 5) : (NB <= 5 ? 4 : (NB <= 8 ? 2 : 1)))
 gemv_kernel(const T* __restrict__ x, int n_rows, int n_in, int chunk, const T* __restrict__ ln_g,
             const T* __restrict__ ln_b, Segments<T, WT> seg, int seg_rows, int rows) {
   // this block's row tile; only the 16-row instance has more than one, so
@@ -283,6 +322,19 @@ gemv_kernel(const T* __restrict__ x, int n_rows, int n_in, int chunk, const T* _
   float* hs = reinterpret_cast<float*>(hs4);  // (nb, chunk)
   __shared__ float red[32];
   __shared__ float mean_s[NB], rstd_s[NB];
+
+  constexpr int V = Vec16<WT>::N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * ROWS_PER_BLOCK + warp;
+  const bool active = r < rows;
+  const int s = active ? r / seg_rows : 0;
+  const int rr = r - s * seg_rows;
+  const WT* w = active ? seg_at(seg.w, s) + (size_t)rr * n_in : nullptr;
+  // the weights are the step's constants: into L2 while the launch before
+  // this one finishes (the first row tile's blocks ask for them)
+  if (active && lane == 0 && b0 == 0) prefetch_l2(w, (uint32_t)(n_in * sizeof(WT)));
+  pdl_wait();
+  pdl_trigger();
 
   // LayerNorm statistics: from the rows in shared memory when the whole
   // input fits in one chunk, else first from device memory
@@ -306,13 +358,6 @@ gemv_kernel(const T* __restrict__ x, int n_rows, int n_in, int chunk, const T* _
     }
   }
 
-  constexpr int V = Vec16<WT>::N;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * ROWS_PER_BLOCK + warp;
-  const bool active = r < rows;
-  const int s = active ? r / seg_rows : 0;
-  const int rr = r - s * seg_rows;
-  const WT* w = active ? seg_at(seg.w, s) + (size_t)rr * n_in : nullptr;
   float acc[NB];
 #pragma unroll
   for (int b = 0; b < NB; ++b) acc[b] = 0.f;
@@ -371,15 +416,6 @@ gemv_kernel(const T* __restrict__ x, int n_rows, int n_in, int chunk, const T* _
     if (lane < nb)
       epilogue<T, WT, GELU, RESID, F32OUT>(seg, s, rr, (size_t)(b0 + lane), seg_rows, mine);
   }
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // two int8 values (bytes lo and lo + 1 of a biased word, see i8_at) as a
@@ -445,6 +481,16 @@ gemv_tc_kernel(const __nv_bfloat16* __restrict__ x, int n_rows, int n_in, int ch
   T* hs = reinterpret_cast<T*>(hs4);  // (TILE_ROWS, stride); then the partial sums
   __shared__ float mean_s[TILE_ROWS], rstd_s[TILE_ROWS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;  // the fragments' group and thread in group
+  const int r0 = blockIdx.y * OUT;
+  const int s = r0 / seg_rows;
+  const int rr0 = r0 - s * seg_rows;
+  // the block's weight rows into L2 before the wait (gemv_kernel's reason)
+  if (blockIdx.x == 0 && threadIdx.x < OUT)
+    prefetch_l2(seg_at(seg.w, s) + (size_t)min(rr0 + (int)threadIdx.x, seg_rows - 1) * n_in,
+                (uint32_t)(n_in * sizeof(WT)));
+  pdl_wait();
+  pdl_trigger();
 
   const bool whole = chunk >= n_in;
   if (LN && !whole) {  // statistics first, from device memory, one row per warp
@@ -458,10 +504,6 @@ gemv_tc_kernel(const __nv_bfloat16* __restrict__ x, int n_rows, int n_in, int ch
     }
   }
 
-  const int g = lane >> 2, tig = lane & 3;  // the fragments' group and thread in group
-  const int r0 = blockIdx.y * OUT;
-  const int s = r0 / seg_rows;
-  const int rr0 = r0 - s * seg_rows;
   // n tile j: + 8 j rows (NT = 2 only where seg_rows is a multiple of 16)
   const WT* w = seg_at(seg.w, s) + (size_t)min(rr0 + g, seg_rows - 1) * n_in + tig * 8;
   float acc[NT][4];
@@ -516,8 +558,8 @@ gemv_tc_kernel(const __nv_bfloat16* __restrict__ x, int n_rows, int n_in, int ch
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const uint32_t p0[2] = {wv[j].x, wv[j].y}, p1[2] = {wv[j].z, wv[j].w};
-        mma_16816(acc[j], a0, p0);
-        mma_16816(acc[j], a1, p1);
+        mma_bf16_m16n8k16(acc[j], a0, p0);
+        mma_bf16_m16n8k16(acc[j], a1, p1);
       }
     }
   }
@@ -566,198 +608,406 @@ __device__ __forceinline__ void block_reduce_n(float* v, float* red) {
   }
 }
 
-// NQ queries (1, D) per head against keys/values stored time-last, (H, D,
-// t_cap) with the first n positions valid, plus optionally the new token's
-// own key/value (self-attention, NQ = 1).  n is n_max, or with `lens`
-// (self-attention: the rows' positions in device memory) lens[row]
-// clamped to [0, n_max].  As qkv_attention_kt / decoder_step: q * D^-0.25
-// and k * D^-0.25 each rounded to T, f32 scores, f32 softmax, weights
-// rounded to T, f32 PV, output rounded to T.  Grid: a cluster of CLUSTER
-// blocks per (query group g, head h), block `rank` taking keys [rank *
-// chunk, ...).  Group g takes the query rows g * NQ + j, j < NQ (row stride
-// C; output likewise) and reads the K/V of rows_per_kv consecutive rows at
-// k + (g * NQ / rows_per_kv) * kv_stride (NQ divides rows_per_kv), so each
-// key and value element is read once for all NQ queries.  Its scores live in its
-// shared memory (NQ x chunk floats), and the cluster combines maxima, sums
-// and partial outputs over distributed shared memory in rank order
-// (deterministic).
+// decode_attention's arguments.  NQ queries (1, D) per head against
+// keys/values stored time-last, (H, D, t_cap) per row or audio, with the
+// first n positions valid, plus (self-attention) the new token's own
+// key/value and, with a pending block, its first pend_w columns.  n is
+// n_max, or with `lens` (self-attention: the rows' positions in device
+// memory) lens[row] clamped to [0, n_max].  Query group g takes the rows g
+// * NQ + j, j < NQ (row stride C; output likewise) and reads the K/V of
+// rows_per_kv consecutive rows at k + (g * NQ / rows_per_kv) * kv_stride
+// (NQ divides rows_per_kv).  split blocks (a cluster) share a (group,
+// head); each score chunk of chunk_max keys fits the scores' shared memory.
+template <typename T, typename KT>
+struct Attn {
+  const T* q;
+  const KT* k;
+  const KT* v;
+  const T* k_new;  // (B, C) each, or null (cross-attention)
+  const T* v_new;
+  T* out;
+  int n_head, C;
+  size_t kv_stride;
+  int rows_per_kv;
+  const int* lens;
+  int n_max, t_cap;
+  float scale;
+  const float* k_scale;  // int8 K/V: (audios, H, D) each
+  const float* v_scale;
+  const T* pend_k;  // (B, H, D, pend_W) each, or null
+  const T* pend_v;
+  int pend_W, pend_w;
+  int split, chunk_max;
+};
+
+// One K or V tile in shared memory: HD rows of TK keys of type KT, each row
+// CHUNKS 16-byte copies (one more than the keys need, for a row that
+// starts inside a chunk), ROW bytes apart
+template <typename KT>
+struct Tile {
+  static constexpr int CHUNKS = TK * (int)sizeof(KT) / 16 + 1;
+  static constexpr int ROW = CHUNKS * 16;
+  static constexpr int BYTES = HD * ROW;
+};
+
+// A thread's share of a tile's copies: chunk c = threadIdx.x + THREADS s
+// of the HD x CHUNKS, row d = c / CHUNKS, 16-byte chunk i = c % CHUNKS.
+// Its source for the block's key t0 is the 16-byte boundary at or before
+// row d's key t0, plus 16 i (a row of an odd-length cache starts inside a
+// chunk; t0 is a multiple of TK, whose bytes are a multiple of 16, so the
+// boundary moves with the tile by TK keys); every byte of a key at or past
+// the block's end t1 is zero-filled (never read), so a row's tail reads
+// nothing of the next row, head or audio.  Row d's key t0 lands off(d)
+// bytes into its tile row.  V's rows lie where K's do, dv bytes on.
+template <typename KT>
+struct Copies {
+  static constexpr int SLOTS = (HD * Tile<KT>::CHUNKS + THREADS - 1) / THREADS;
+  uintptr_t src[SLOTS], stop[SLOTS];
+  int dst[SLOTS];  // -1: no chunk
+  ptrdiff_t dv;
+
+  __device__ __forceinline__ Copies(const KT* kh, const KT* vh, size_t ld, int t0, int t1) {
+    using G = Tile<KT>;
+    dv = reinterpret_cast<const char*>(vh) - reinterpret_cast<const char*>(kh);
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      const int c = threadIdx.x + THREADS * s;
+      const int d = c / G::CHUNKS, i = c - d * G::CHUNKS;
+      const KT* row = kh + (size_t)min(d, HD - 1) * ld;
+      src[s] = (reinterpret_cast<uintptr_t>(row + t0) & ~uintptr_t(15)) + 16 * (uintptr_t)i;
+      stop[s] = reinterpret_cast<uintptr_t>(row + t1);
+      dst[s] = c < HD * G::CHUNKS ? d * G::ROW + 16 * i : -1;
+    }
+  }
+
+  // K (or V) tile j of the block's keys into dst
+  __device__ __forceinline__ void load(unsigned char* tile, int j, bool value) const {
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      if (dst[s] < 0) continue;
+      const uintptr_t from = src[s] + (uintptr_t)j * TK * sizeof(KT);
+      const int bytes = from >= stop[s] ? 0 : (stop[s] - from >= 16 ? 16 : (int)(stop[s] - from));
+      const uintptr_t at = bytes ? from : stop[s] & ~uintptr_t(15);  // a valid address where nothing is read
+      cp_async16_n(tile + dst[s], reinterpret_cast<const void*>(at + (value ? dv : 0)), bytes);
+    }
+  }
+};
+
+// the byte at which a row's keys start inside its tile rows
+template <typename KT>
+__device__ __forceinline__ int row_offset(const KT* row) {
+  return (int)(reinterpret_cast<uintptr_t>(row) & 15);
+}
+
+// tile i of a block's stream into its stage of the ring: K tiles 0 ..
+// tiles - 1, then the V tiles; one commit group per tile (empty past the end)
+template <typename KT>
+__device__ __forceinline__ void issue_tile(unsigned char* ring, int i, int tiles, const Copies<KT>& cp) {
+  if (i < 2 * tiles) cp.load(ring + (i % NSTAGE) * Tile<KT>::BYTES, i < tiles ? i : i - tiles, i >= tiles);
+  cp_async_commit();
+}
+
+// two neighbouring keys of a tile row as floats
+__device__ __forceinline__ float2 load2(const unsigned char* p, __nv_bfloat16) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const unsigned char* p, float) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const unsigned char* p, int8_t) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2((float)c.x, (float)c.y);
+}
+
+// both values times s, each rounded to T (one packed conversion in bf16)
+template <typename T>
+__device__ __forceinline__ float2 scale_round2(float2 v, float s) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __bfloat1622float2(__float22bfloat162_rn(make_float2(v.x * s, v.y * s)));
+  else
+    return make_float2(v.x * s, v.y * s);
+}
+
+// As qkv_attention_kt / decoder_step: q * D^-0.25 and k * D^-0.25 each
+// rounded to T, f32 scores, an f32 softmax over the row's keys, weights
+// normalised and rounded to T before PV, f32 PV, output rounded to T.
+// Block `rank` of the (group, head)'s split takes keys [rank * chunk, ...)
+// of its n, chunk = ceil(n / split) rounded up to whole tiles; it streams
+// its K tiles, then its V tiles, through the NSTAGE-deep ring (the cache is
+// read-only within a step, so the first tiles are asked for before
+// pdl_wait()), one barrier per tile.  Scores: the eight lanes 8 kp + e of
+// a warp take the keys 2 kp and 2 kp + 1, lane e the rows d = 8 i + e (8 of
+// the 64 products of each), the eighths added by a shuffle tree ((e0 + e1)
+// + (e2 + e3)) + ((e4 + e5) + (e6 + e7)).  PV: warp w owns rows d = w +
+// WARPS i, lane l the tile's keys 2 l and 2 l + 1.
 // int8 K/V (KT = int8_t, cross-attention): the scales of the group's audio,
 // k_scale/v_scale + (audio * n_head + h) * HD, as the plain version's int8
 // branch: the query is round(q * scale * k_scale[d]) with scale = D^-0.5,
 // the keys enter unscaled, and the output is round(PV * v_scale[d]).
-// PEND (self-attention with a pending block): after the n cache keys come
-// the first pend_w of the row's W pending columns, (H, D, W) per row at
-// pend_k/pend_v + row * H * D * W, taken as keys n .. n + pend_w - 1 of one
-// sequence that the cluster splits; the scores' shared memory holds a
-// chunk of t_cap + W keys.
+// Rank 0 of self-attention also scores the pending columns (PEND) and the
+// new token from device memory, which enter its max, its sum and its PV.
 template <typename T, typename KT, int NQ, bool PEND = false>
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
-decode_attention_kernel(const T* __restrict__ q, const KT* __restrict__ k,
-                        const KT* __restrict__ v, const T* __restrict__ k_new,
-                        const T* __restrict__ v_new, T* __restrict__ out, int n_head, int C,
-                        size_t kv_stride, int rows_per_kv, const int* __restrict__ lens,
-                        int n_max, int t_cap, float scale, const float* __restrict__ k_scale,
-                        const float* __restrict__ v_scale, const T* __restrict__ pend_k,
-                        const T* __restrict__ pend_v, int pend_W, int pend_w) {
+__global__ void __launch_bounds__(THREADS, 1) decode_attention_kernel(const Attn<T, KT> a) {
   constexpr bool Q8 = std::is_same<KT, int8_t>::value;
   static_assert(!PEND || (NQ == 1 && std::is_same<KT, T>::value),
                 "a pending block is self-attention's: one query, keys of the compute dtype");
-  extern __shared__ float4 sc4[];
-  float* sc = reinterpret_cast<float*>(sc4);  // (NQ, chunk)
-  __shared__ float qs[NQ][HD];
-  __shared__ float red[WARPS * NQ];
-  __shared__ float stat[2][NQ];    // this block's maxima, then its sums
+  static_assert(THREADS == 4 * TK, "eight lanes score each pair of keys of a tile");
+  using G = Tile<KT>;
+  extern __shared__ float4 smem4[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem4);   // NSTAGE tiles
+  float* sc = reinterpret_cast<float*>(ring + NSTAGE * G::BYTES);  // (NQ, chunk_max) scores, weights
+  // the queries d-major, NQ padded to whole float4s: one vector load gives
+  // a row d of four queries
+  constexpr int QP = NQ == 1 ? 1 : (NQ + 3) / 4 * 4;
+  __shared__ __align__(16) float qs[HD][QP];
+  __shared__ float bred[WARPS * NQ];
+  __shared__ float stat[2][NQ];    // this block's max, and its sum of exp(s - max)
   __shared__ float part[NQ][HD];   // this block's share of each output
+  __shared__ float ex[MAX_PEND + 1];  // rank 0, self: pending and new-token scores, then weights
+  // where row d's keys start in its tile rows; V's rows lie 16-byte
+  // multiples from K's (both caches 16-byte aligned, the same layout)
+  __shared__ int koff[HD];
 
   cg::cluster_group cluster = cg::this_cluster();
+  const int split = a.split;
   const int rank = (int)cluster.block_rank();
-  const int gh = blockIdx.x / CLUSTER;
-  const int g = gh / n_head, h = gh - g * n_head;
+  const int gh = blockIdx.x / split;
+  const int g = gh / a.n_head, h = gh - g * a.n_head;
   const size_t row0 = (size_t)g * NQ;
-  const int n = lens != nullptr ? min(max(lens[row0], 0), n_max) : n_max;
-  const int n_keys = n + (PEND ? pend_w : 0);  // cache keys, then pending ones
-  const int chunk = (n_keys + CLUSTER - 1) / CLUSTER;
-  const int t0 = rank * chunk, t1 = min(n_keys, t0 + chunk);
-  const size_t audio = row0 / rows_per_kv;
-  const size_t kv = audio * kv_stride + (size_t)h * HD * t_cap;
-  const KT* kh = k + kv;
-  const KT* vh = v + kv;
-  // key (or value) t: cache column t of rows t_cap apart, or with PEND
-  // pending column t - n of rows pend_W apart; chosen once per key, outside
-  // the loops over its HD elements
-  const size_t pend = (row0 * n_head + h) * (size_t)HD * pend_W;
-  const float* ks = Q8 ? k_scale + (audio * n_head + h) * HD : nullptr;
+  const int n = a.lens != nullptr ? min(max(a.lens[row0], 0), a.n_max) : a.n_max;
+  const int chunk = ((n + split - 1) / split + TK - 1) / TK * TK;
+  const int t0 = min(n, rank * chunk), t1 = min(n, t0 + chunk), nk = t1 - t0;
+  const int tiles = (nk + TK - 1) / TK;
+  const size_t audio = row0 / a.rows_per_kv;
+  const size_t kv = audio * a.kv_stride + (size_t)h * HD * a.t_cap;
+  const KT* kh = a.k + kv;
+  const KT* vh = a.v + kv;
+
+  const Copies<KT> cp(kh, vh, a.t_cap, t0, t1);
+#pragma unroll
+  for (int i = 0; i < NSTAGE - 1; ++i) issue_tile<KT>(ring, i, tiles, cp);
+  if (threadIdx.x < HD) koff[threadIdx.x] = row_offset(kh + (size_t)threadIdx.x * a.t_cap);
+  pdl_wait();  // q, and the new token's K/V, are the launch before's
+  pdl_trigger();
+
+  const float* ks = Q8 ? a.k_scale + (audio * a.n_head + h) * HD : nullptr;
   for (int i = threadIdx.x; i < NQ * HD; i += THREADS) {
     const int j = i / HD, d = i - j * HD;
-    const float qf = to_f(q[(row0 + j) * C + h * HD + d]) * scale;
-    qs[j][d] = round_to<T>(Q8 ? qf * ks[d] : qf);
+    const float qf = to_f(a.q[(row0 + j) * a.C + h * HD + d]) * a.scale;
+    qs[d][j] = round_to<T>(Q8 ? qf * ks[d] : qf);
   }
   __syncthreads();
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // rank 0 of self-attention: the pending columns, then the new token
+  const bool extras = a.k_new != nullptr && rank == 0;
+  const int n_ex = extras ? (PEND ? a.pend_w : 0) + 1 : 0;
+  const size_t pend = (row0 * a.n_head + h) * (size_t)HD * a.pend_W;
+  const T* kn = a.k_new != nullptr ? a.k_new + row0 * a.C + h * HD : nullptr;
+  const T* vn = a.v_new != nullptr ? a.v_new + row0 * a.C + h * HD : nullptr;
+  for (int e = warp; e < n_ex; e += WARPS) {
+    const T* ke = kn;
+    int ld = 1;
+    if constexpr (PEND) {
+      if (e < n_ex - 1) ke = a.pend_k + pend + e, ld = a.pend_W;
+    }
+    float s = 0.f;
+    for (int d = lane; d < HD; d += 32) s = fmaf(qs[d][0], round_to<T>(to_f(ke[d * ld]) * a.scale), s);
+    s = warp_sum(s);
+    if (lane == 0) ex[e] = s;
+  }
+  __syncthreads();  // ex[] is in (a block with no cache keys passes no other barrier first)
+
+  // scores of the K tiles
+  const int kp = threadIdx.x >> 3, e8 = threadIdx.x & 7;
+  int krow[HD / 8];  // this thread's rows d = 8 i + e8: their byte offsets in a tile
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) krow[i] = (8 * i + e8) * G::ROW + koff[8 * i + e8] + 2 * kp * (int)sizeof(KT);
   float m[NQ];
 #pragma unroll
   for (int j = 0; j < NQ; ++j) m[j] = -INFINITY;
-  for (int t = t0 + threadIdx.x; t < t1; t += THREADS) {
-    const KT* kt = kh + t;
-    size_t ld = t_cap;
-    if constexpr (PEND) {
-      if (t >= n) kt = pend_k + pend + (t - n), ld = pend_W;
-    }
-    float s[NQ];
+  for (int i = 0; i < tiles; ++i) {
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();  // tile i is in for every thread; tile i - 1 is consumed
+    issue_tile<KT>(ring, i + NSTAGE - 1, tiles, cp);
+    const unsigned char* tile = ring + (i % NSTAGE) * G::BYTES;
+    float s0[NQ], s1[NQ];
 #pragma unroll
-    for (int j = 0; j < NQ; ++j) s[j] = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < HD; ++d) {
-      const float raw = to_f(kt[(size_t)d * ld]);
-      const float kv = Q8 ? raw : round_to<T>(raw * scale);
+    for (int j = 0; j < NQ; ++j) s0[j] = s1[j] = 0.f;
 #pragma unroll
-      for (int j = 0; j < NQ; ++j) s[j] = fmaf(qs[j][d], kv, s[j]);
+    for (int dd = 0; dd < HD / 8; ++dd) {
+      const int d = 8 * dd + e8;
+      float2 kf = load2(tile + krow[dd], KT());
+      if constexpr (!Q8) kf = scale_round2<T>(kf, a.scale);
+      if constexpr (NQ == 1) {
+        s0[0] = fmaf(qs[d][0], kf.x, s0[0]);
+        s1[0] = fmaf(qs[d][0], kf.y, s1[0]);
+      } else {
+#pragma unroll
+        for (int j4 = 0; j4 < QP; j4 += 4) {
+          const float4 q4 = *reinterpret_cast<const float4*>(&qs[d][j4]);
+          const float qv[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (j4 + e < NQ) {
+              s0[j4 + e] = fmaf(qv[e], kf.x, s0[j4 + e]);
+              s1[j4 + e] = fmaf(qv[e], kf.y, s1[j4 + e]);
+            }
+          }
+        }
+      }
     }
+    const int idx = i * TK + 2 * kp;
 #pragma unroll
     for (int j = 0; j < NQ; ++j) {
-      sc[j * chunk + t - t0] = s[j];
-      m[j] = fmaxf(m[j], s[j]);
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1) {
+        s0[j] += __shfl_xor_sync(0xffffffffu, s0[j], o);
+        s1[j] += __shfl_xor_sync(0xffffffffu, s1[j], o);
+      }
+      if (e8 == 0) {
+        if (idx < nk) {
+          sc[j * a.chunk_max + idx] = s0[j];
+          m[j] = fmaxf(m[j], s0[j]);
+        }
+        if (idx + 1 < nk) {
+          sc[j * a.chunk_max + idx + 1] = s1[j];
+          m[j] = fmaxf(m[j], s1[j]);
+        }
+      }
     }
   }
-  block_reduce_n<NQ, true>(m, red);
-  if (threadIdx.x == 0) {  // static indices keep m[] in registers
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) stat[0][j] = m[j];
+  if (extras && threadIdx.x == 0) {
+    for (int e = 0; e < n_ex; ++e) m[0] = fmaxf(m[0], ex[e]);
   }
-  // the new token (self-attention, NQ = 1): every thread computes its
-  // score in one order, so no broadcast is needed
-  const bool has_new = k_new != nullptr;
-  const T* kn = has_new ? k_new + row0 * C + h * HD : nullptr;
-  const T* vn = has_new ? v_new + row0 * C + h * HD : nullptr;
-  float s_new = -INFINITY;
-  if (has_new) {
-    s_new = 0.f;
-    for (int d = 0; d < HD; ++d) s_new = fmaf(qs[0][d], round_to<T>(to_f(kn[d]) * scale), s_new);
-  }
-  cluster.sync();
-
+  block_reduce_n<NQ, true>(m, bred);
   float l[NQ];
 #pragma unroll
-  for (int j = 0; j < NQ; ++j) {
-    m[j] = j == 0 ? s_new : -INFINITY;
-    for (int rk = 0; rk < CLUSTER; ++rk) m[j] = fmaxf(m[j], *cluster.map_shared_rank(&stat[0][j], rk));
-    l[j] = 0.f;
+  for (int j = 0; j < NQ; ++j) l[j] = 0.f;
+  for (int idx = threadIdx.x; idx < nk; idx += THREADS) {
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) l[j] += expf(sc[j * a.chunk_max + idx] - m[j]);
   }
-  for (int t = t0 + threadIdx.x; t < t1; t += THREADS) {
+  if (extras && threadIdx.x == 0) {
+    for (int e = 0; e < n_ex; ++e) l[0] += expf(ex[e] - m[0]);
+  }
+  block_reduce_n<NQ, false>(l, bred);
+  if (threadIdx.x == 0) {  // static indices keep m[] and l[] in registers
 #pragma unroll
     for (int j = 0; j < NQ; ++j) {
-      const float p = expf(sc[j * chunk + t - t0] - m[j]);
-      sc[j * chunk + t - t0] = p;
-      l[j] += p;
+      stat[0][j] = m[j];
+      stat[1][j] = l[j];
     }
   }
-  block_reduce_n<NQ, false>(l, red);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int j = 0; j < NQ; ++j) stat[1][j] = l[j];
-  }
-  cluster.sync();
-  const float p_new = has_new ? expf(s_new - m[0]) : 0.f;
-  float denom[NQ];
+  cluster.sync();  // 1: every block's max and sum are out (its V tiles in flight)
+
+  // the exact maximum and denominator, in rank order
+  float mx[NQ], denom[NQ];
 #pragma unroll
   for (int j = 0; j < NQ; ++j) {
+    mx[j] = -INFINITY;
+    for (int rk = 0; rk < split; ++rk) mx[j] = fmaxf(mx[j], *cluster.map_shared_rank(&stat[0][j], rk));
     denom[j] = 0.f;
-    for (int rk = 0; rk < CLUSTER; ++rk) denom[j] += *cluster.map_shared_rank(&stat[1][j], rk);
+    for (int rk = 0; rk < split; ++rk) {
+      const float mr = *cluster.map_shared_rank(&stat[0][j], rk);
+      if (mr != -INFINITY) denom[j] += *cluster.map_shared_rank(&stat[1][j], rk) * expf(mr - mx[j]);
+    }
   }
-  denom[0] += p_new;
-  for (int t = t0 + threadIdx.x; t < t1; t += THREADS) {
+  for (int idx = threadIdx.x; idx < nk; idx += THREADS) {
 #pragma unroll
-    for (int j = 0; j < NQ; ++j)
-      sc[j * chunk + t - t0] = round_to<T>(sc[j * chunk + t - t0] / denom[j]);
+    for (int j = 0; j < NQ; ++j) {
+      float* p = sc + j * a.chunk_max + idx;
+      *p = round_to<T>(expf(*p - mx[j]) / denom[j]);
+    }
   }
-  __syncthreads();
+  if (threadIdx.x < n_ex) ex[threadIdx.x] = round_to<T>(expf(ex[threadIdx.x] - mx[0]) / denom[0]);
 
-  // PV: warp w owns rows d = w + WARPS * i; its lanes walk the chunk's
-  // keys and keep one accumulator per (row, query), so each value is read
-  // once and the rows' loads overlap
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // PV over the V tiles
   constexpr int ROWS = HD / WARPS;
+  int vrow[ROWS];  // this warp's rows d = warp + WARPS r: their byte offsets in a tile
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) vrow[r] = (warp + WARPS * r) * G::ROW + koff[warp + WARPS * r] + 2 * lane * (int)sizeof(KT);
   float acc[ROWS][NQ];
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i)
+  for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-    for (int j = 0; j < NQ; ++j) acc[i][j] = 0.f;
-  for (int t = t0 + lane; t < t1; t += 32) {
-    const KT* vt = vh + t;
-    size_t ld = t_cap;
-    if constexpr (PEND) {
-      if (t >= n) vt = pend_v + pend + (t - n), ld = pend_W;
-    }
-    float w[NQ];
+    for (int j = 0; j < NQ; ++j) acc[r][j] = 0.f;
+  for (int i = tiles; i < 2 * tiles; ++i) {
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();  // tile i is in (and, the first time, every weight); tile i - 1 is consumed
+    issue_tile<KT>(ring, i + NSTAGE - 1, tiles, cp);
+    const unsigned char* tile = ring + (i % NSTAGE) * G::BYTES;
+    const int idx = (i - tiles) * TK + 2 * lane;
+    if (idx < nk) {
+      // a key past the block's end has weight 0 (its value bytes are zero)
+      float w0[NQ], w1[NQ];
 #pragma unroll
-    for (int j = 0; j < NQ; ++j) w[j] = sc[j * chunk + t - t0];
+      for (int j = 0; j < NQ; ++j) {
+        w0[j] = sc[j * a.chunk_max + idx];
+        w1[j] = idx + 1 < nk ? sc[j * a.chunk_max + idx + 1] : 0.f;
+      }
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const float vv = to_f(vt[(size_t)(warp + WARPS * i) * ld]);
+      for (int r = 0; r < ROWS; ++r) {
+        const float2 vv = load2(tile + vrow[r], KT());
 #pragma unroll
-      for (int j = 0; j < NQ; ++j) acc[i][j] = fmaf(w[j], vv, acc[i][j]);
+        for (int j = 0; j < NQ; ++j) acc[r][j] = fmaf(w1[j], vv.y, fmaf(w0[j], vv.x, acc[r][j]));
+      }
     }
   }
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
+  for (int r = 0; r < ROWS; ++r) {
 #pragma unroll
     for (int j = 0; j < NQ; ++j) {
-      const float s = warp_sum(acc[i][j]);
-      if (lane == 0) part[j][warp + WARPS * i] = s;
+      const float s = warp_sum(acc[r][j]);
+      if (lane == 0) part[j][warp + WARPS * r] = s;
     }
   }
-  cluster.sync();
+  cluster.sync();  // 2: every block's part[] is out
   if (rank == 0) {
     for (int i = threadIdx.x; i < NQ * HD; i += THREADS) {
       const int j = i / HD, d = i - j * HD;
       float o = 0.f;
-      for (int rk = 0; rk < CLUSTER; ++rk) o += *cluster.map_shared_rank(&part[j][d], rk);
-      if (has_new) o = fmaf(round_to<T>(p_new / denom[0]), to_f(vn[d]), o);
-      if (Q8) o *= v_scale[(audio * n_head + h) * HD + d];
-      out[(row0 + j) * C + h * HD + d] = from_f<T>(o);
+      for (int rk = 0; rk < split; ++rk) o += *cluster.map_shared_rank(&part[j][d], rk);
+      for (int e = 0; e < n_ex; ++e) {  // j == 0 here
+        const T* ve = vn + d;
+        if constexpr (PEND) {
+          if (e < n_ex - 1) ve = a.pend_v + pend + (size_t)d * a.pend_W + e;
+        }
+        o = fmaf(ex[e], to_f(*ve), o);
+      }
+      if (Q8) o *= a.v_scale[(audio * a.n_head + h) * HD + d];
+      a.out[(row0 + j) * a.C + h * HD + d] = from_f<T>(o);
     }
   }
-  cluster.sync();  // rank 0 has read every block's part[] before any exits
+  cluster.sync();  // 3: rank 0 has read every block's part[] before any exits
+}
+
+// the card's SM count (the port drives one card)
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 132;
+    return sms;
+  }();
+  return n;
+}
+
+// decode_attention's launch: split blocks per (group, head), a cluster,
+// each taking at most chunk_max keys.  The split follows the keys (one
+// block per keys_per_block of the largest key count) as far as the
+// launch's (group, head) units leave the card room: 20 units of one row
+// take up to eight blocks each, 320 units of sixteen rows one.  The
+// dynamic shared memory: the ring and the score chunk.
+template <typename T, typename KT, int NQ, bool PEND = false>
+void attention_launch(Chain& chain, int groups, Attn<T, KT> a, int keys_per_block) {
+  const int n = a.n_max;
+  const int room = SPLIT_BLOCKS_PER_SM * sm_count() / (groups * a.n_head);
+  a.split = min(MAX_SPLIT, max(1, min(room, (n + keys_per_block - 1) / keys_per_block)));
+  a.chunk_max = max(TK, ((n + a.split - 1) / a.split + TK - 1) / TK * TK);
+  const size_t smem = (size_t)NSTAGE * Tile<KT>::BYTES + (size_t)NQ * a.chunk_max * sizeof(float);
+  chain.launch(decode_attention_kernel<T, KT, NQ, PEND>, dim3(groups * a.n_head * a.split), THREADS, smem,
+               a.split, a);
 }
 
 // weight table order: stacked (L, ...) tensors, torch (out, in) layout;
@@ -772,50 +1022,46 @@ enum W {
 enum PROJ { P_Q, P_K, P_V, P_O, P_XQ, P_XO, P_FC1, P_FC2, N_PROJ };
 
 template <typename T, typename WT, int NB, bool LN, bool GELU, bool RESID, bool F32OUT>
-void gemv_launch(const T* x, int n_rows, int n_in, const T* g, const T* b,
-                 Segments<T, WT> seg, int seg_rows, int rows, cudaStream_t stream) {
+void gemv_launch(Chain& chain, const T* x, int n_rows, int n_in, const T* g, const T* b,
+                 Segments<T, WT> seg, int seg_rows, int rows) {
   // a tile's input rows in chunks of at most SMEM_FLOATS floats in all
   const int nb = min(n_rows, TILE_ROWS);
   const int whole = (n_in + CHUNK_ALIGN - 1) / CHUNK_ALIGN * CHUNK_ALIGN;
   const int chunk = min(whole, SMEM_FLOATS / nb / CHUNK_ALIGN * CHUNK_ALIGN);
   const dim3 grid((rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK,
                   (n_rows + TILE_ROWS - 1) / TILE_ROWS);
-  gemv_kernel<T, WT, NB, LN, GELU, RESID, F32OUT>
-      <<<grid, THREADS, (size_t)nb * chunk * sizeof(float), stream>>>(
-          x, n_rows, n_in, chunk, g, b, seg, seg_rows, rows);
+  chain.launch(gemv_kernel<T, WT, NB, LN, GELU, RESID, F32OUT>, grid, THREADS,
+               (size_t)nb * chunk * sizeof(float), 0, x, n_rows, n_in, chunk, g, b, seg, seg_rows, rows);
 }
 
 // the tensor-core GEMV over row tiles of 16: two n tiles per block where
 // that still leaves 200 or more blocks (q|k|v and fc1 at C = 1280: 240 and
 // 320), else one (the C-row projections: 160 blocks at C = 1280)
 template <typename WT, bool LN, bool GELU, bool RESID, bool F32OUT>
-void gemv_tc_launch(const __nv_bfloat16* x, int n_rows, int n_in, const __nv_bfloat16* g,
-                    const __nv_bfloat16* b, Segments<__nv_bfloat16, WT> seg, int seg_rows,
-                    int rows, cudaStream_t stream) {
+void gemv_tc_launch(Chain& chain, const __nv_bfloat16* x, int n_rows, int n_in, const __nv_bfloat16* g,
+                    const __nv_bfloat16* b, Segments<__nv_bfloat16, WT> seg, int seg_rows, int rows) {
   const int chunk = min((n_in + CHUNK_ALIGN - 1) / CHUNK_ALIGN * CHUNK_ALIGN, TC_CHUNK);
   const size_t smem = (size_t)TILE_ROWS * (chunk + TC_PAD) * sizeof(__nv_bfloat16);
   const int tiles = (n_rows + TILE_ROWS - 1) / TILE_ROWS;
   if (seg_rows % 16 == 0 && rows / 16 >= 200)
-    gemv_tc_kernel<WT, 2, LN, GELU, RESID, F32OUT>
-        <<<dim3(tiles, rows / 16), THREADS, smem, stream>>>(x, n_rows, n_in, chunk, g, b, seg,
-                                                             seg_rows);
+    chain.launch(gemv_tc_kernel<WT, 2, LN, GELU, RESID, F32OUT>, dim3(tiles, rows / 16), THREADS, smem, 0,
+                 x, n_rows, n_in, chunk, g, b, seg, seg_rows);
   else
-    gemv_tc_kernel<WT, 1, LN, GELU, RESID, F32OUT>
-        <<<dim3(tiles, (rows + 7) / 8), THREADS, smem, stream>>>(x, n_rows, n_in, chunk, g, b,
-                                                                 seg, seg_rows);
+    chain.launch(gemv_tc_kernel<WT, 1, LN, GELU, RESID, F32OUT>, dim3(tiles, (rows + 7) / 8), THREADS, smem,
+                 0, x, n_rows, n_in, chunk, g, b, seg, seg_rows);
 }
 
 // the kernel for nb rows: in bf16 the CUDA-core instance for one row and
 // the tensor-core GEMV above it; in f32 the CUDA-core instance for the
 // smallest of 1, 2, 4, 5, 8, 16 >= nb (more than 16 rows as row tiles of 16)
 template <typename T, typename WT, bool LN, bool GELU, bool RESID, bool F32OUT = false>
-void gemv(const T* x, int nb, int n_in, const T* g, const T* b, Segments<T, WT> seg,
-          int seg_rows, int rows, cudaStream_t stream) {
+void gemv(Chain& chain, const T* x, int nb, int n_in, const T* g, const T* b, Segments<T, WT> seg,
+          int seg_rows, int rows) {
 #define GEMV(NB) \
-  gemv_launch<T, WT, NB, LN, GELU, RESID, F32OUT>(x, nb, n_in, g, b, seg, seg_rows, rows, stream)
+  gemv_launch<T, WT, NB, LN, GELU, RESID, F32OUT>(chain, x, nb, n_in, g, b, seg, seg_rows, rows)
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (nb <= 1) GEMV(1);
-    else gemv_tc_launch<WT, LN, GELU, RESID, F32OUT>(x, nb, n_in, g, b, seg, seg_rows, rows, stream);
+    else gemv_tc_launch<WT, LN, GELU, RESID, F32OUT>(chain, x, nb, n_in, g, b, seg, seg_rows, rows);
   } else {
     if (nb <= 1) GEMV(1);
     else if (nb <= 2) GEMV(2);
@@ -832,43 +1078,38 @@ void gemv(const T* x, int nb, int n_in, const T* g, const T* b, Segments<T, WT> 
 // the G / NQ groups of an audio read its K/V (one audio's stride apart).
 // int8 K/V carry their scales, (A, H, D) each.
 template <typename T, typename KT>
-void cross_attention(int G, int A, size_t stride, int n_head, int C, int ta,
-                     cudaStream_t stream, const T* q, const KT* k, const KT* v,
-                     const float* k_scale, const float* v_scale, T* out) {
+void cross_attention(Chain& chain, int G, int A, size_t stride, int n_head, int C, int ta, const T* q,
+                     const KT* k, const KT* v, const float* k_scale, const float* v_scale, T* out) {
   constexpr bool Q8 = std::is_same<KT, int8_t>::value;
-  const float scale = (float)pow((double)HD, Q8 ? -0.5 : -0.25);
   int per = 8;
   while (G % per) --per;
-  const size_t smem = (size_t)per * ((ta + CLUSTER - 1) / CLUSTER) * sizeof(float);
-  const int blocks = A * (G / per) * n_head * CLUSTER;
-#define CROSS(NQ)                                                                              \
-  decode_attention_kernel<T, KT, NQ><<<blocks, THREADS, smem, stream>>>(                       \
-      q, k, v, nullptr, nullptr, out, n_head, C, stride, G, nullptr, ta, ta, scale, k_scale,  \
-      v_scale, nullptr, nullptr, 0, 0)
+  const Attn<T, KT> a = {q, k, v, nullptr, nullptr, out, n_head, C, stride, G, nullptr, ta, ta,
+                         (float)pow((double)HD, Q8 ? -0.5 : -0.25), k_scale, v_scale,
+                         nullptr, nullptr, 0, 0, 0, 0};
+  const int groups = A * (G / per);
   switch (per) {
-    case 1: CROSS(1); break;
-    case 2: CROSS(2); break;
-    case 3: CROSS(3); break;
-    case 4: CROSS(4); break;
-    case 5: CROSS(5); break;
-    case 6: CROSS(6); break;
-    case 7: CROSS(7); break;
-    default: CROSS(8); break;
+    case 1: attention_launch<T, KT, 1>(chain, groups, a, CROSS_KEYS); break;
+    case 2: attention_launch<T, KT, 2>(chain, groups, a, CROSS_KEYS); break;
+    case 3: attention_launch<T, KT, 3>(chain, groups, a, CROSS_KEYS); break;
+    case 4: attention_launch<T, KT, 4>(chain, groups, a, CROSS_KEYS); break;
+    case 5: attention_launch<T, KT, 5>(chain, groups, a, CROSS_KEYS); break;
+    case 6: attention_launch<T, KT, 6>(chain, groups, a, CROSS_KEYS); break;
+    case 7: attention_launch<T, KT, 7>(chain, groups, a, CROSS_KEYS); break;
+    default: attention_launch<T, KT, 8>(chain, groups, a, CROSS_KEYS); break;
   }
-#undef CROSS
 }
 
-// K5, and K2's MLP stage: x (B, C) <- x + fc2(gelu(fc1(LayerNorm(x)))), in
-// place, through ff (B, F) of scratch; weights (F, C) and (C, F) of type WT
-// with scales s1 (F) and s2 (C) when int8 (else null), biases may be null
+// K5, and K2's MLP stage: out (B, C) = x + fc2(gelu(fc1(LayerNorm(x)))),
+// in place where out is x, through ff (B, F) of scratch; weights (F, C)
+// and (C, F) of type WT with scales s1 (F) and s2 (C) when int8 (else
+// null), biases may be null
 template <typename T, typename WT>
-void mlp_stage(T* x, T* ff, int B, int C, int F, const T* ln_g, const T* ln_b, const WT* w1,
-               const float* s1, const T* b1, const WT* w2, const float* s2, const T* b2,
-               cudaStream_t stream) {
+void mlp_stage(Chain& chain, const T* x, T* out, T* ff, int B, int C, int F, const T* ln_g, const T* ln_b,
+               const WT* w1, const float* s1, const T* b1, const WT* w2, const float* s2, const T* b2) {
   Segments<T, WT> s_fc1 = {{w1}, {s1}, {b1}, {ff}};
-  gemv<T, WT, true, true, false>(x, B, C, ln_g, ln_b, s_fc1, F, F, stream);
-  Segments<T, WT> s_fc2 = {{w2}, {s2}, {b2}, {x}};
-  gemv<T, WT, false, false, true>(ff, B, F, nullptr, nullptr, s_fc2, C, C, stream);
+  gemv<T, WT, true, true, false>(chain, x, B, C, ln_g, ln_b, s_fc1, F, F);
+  Segments<T, WT> s_fc2 = {{w2}, {s2}, {b2}, {out}, x == out ? nullptr : x};
+  gemv<T, WT, false, false, true>(chain, ff, B, F, nullptr, nullptr, s_fc2, C, C);
 }
 
 // one step's arguments, as fused_decoder_layers takes them
@@ -912,17 +1153,13 @@ int run(const Step& a, cudaStream_t stream) {
   const KT* cross_k = static_cast<const KT*>(a.cross_k) + a0 * cross_row;
   const KT* cross_v = static_cast<const KT*>(a.cross_v) + a0 * cross_row;
   // self-attention: every row at t, or row b at positions[b] clamped to
-  // [0, t_cap]; each block of a cluster holds its chunk of the scores,
-  // sized for the whole cache and the pending block (at most 260 bytes at
-  // t_cap = 448, W = 8)
+  // [0, t_cap]
   const int n_max = positions != nullptr ? t_cap : a.t;
-  const size_t self_smem = (size_t)((t_cap + a.W + CLUSTER - 1) / CLUSTER + 1) * sizeof(float);
   const size_t pend_row = (size_t)H * HD * a.W;
   const T* pend_k = a.pend_k != nullptr ? static_cast<const T*>(a.pend_k) + row0 * pend_row : nullptr;
   const T* pend_v = a.pend_v != nullptr ? static_cast<const T*>(a.pend_v) + row0 * pend_row : nullptr;
 
-  cudaError_t e = cudaMemcpyAsync(out, x, (size_t)B * C * sizeof(T), cudaMemcpyDeviceToDevice, stream);
-  if (e != cudaSuccess) return (int)e;
+  Chain chain(stream);
   for (int l = 0; l < L; ++l) {
     auto p = [&](W i, size_t per_layer) {  // LayerNorm and bias entries
       return static_cast<const T*>(a.table[i]) + l * per_layer;
@@ -936,40 +1173,39 @@ int run(const Step& a, cudaStream_t stream) {
     T* kn = k_new + (size_t)l * Bt * C;
     T* vn = v_new + (size_t)l * Bt * C;
 
+    // the first layer reads x; its o projection adds the residual to x and
+    // writes the hidden state, which every later launch updates in place
+    const T* h_in = l == 0 ? x : out;
     Segments<T, WT> s_qkv = {{w(Q_W, cc), w(K_W, cc), w(V_W, cc)},
                              {sc(P_Q, C), sc(P_K, C), sc(P_V, C)},
                              {p(Q_B, C), nullptr, p(V_B, C)},
                              {q, kn, vn}};
-    gemv<T, WT, true, false, false>(out, B, C, p(ATTN_LN_G, C), p(ATTN_LN_B, C), s_qkv, C, 3 * C,
-                                    stream);
+    gemv<T, WT, true, false, false>(chain, h_in, B, C, p(ATTN_LN_G, C), p(ATTN_LN_B, C), s_qkv, C, 3 * C);
+    const Attn<T, T> self = {q, self_k + l * Bt * self_row, self_v + l * Bt * self_row, kn, vn, attn, H, C,
+                             self_row, 1, positions, n_max, t_cap, scale, nullptr, nullptr,
+                             pend_k != nullptr ? pend_k + l * Bt * pend_row : nullptr,
+                             pend_v != nullptr ? pend_v + l * Bt * pend_row : nullptr, a.W, a.pend_w, 0, 0};
     if (pend_k != nullptr)
-      decode_attention_kernel<T, T, 1, true><<<B * H * CLUSTER, THREADS, self_smem, stream>>>(
-          q, self_k + l * Bt * self_row, self_v + l * Bt * self_row, kn, vn, attn, H, C, self_row, 1,
-          positions, n_max, t_cap, scale, nullptr, nullptr, pend_k + l * Bt * pend_row,
-          pend_v + l * Bt * pend_row, a.W, a.pend_w);
+      attention_launch<T, T, 1, true>(chain, B, self, SELF_KEYS);
     else
-      decode_attention_kernel<T, T, 1><<<B * H * CLUSTER, THREADS, self_smem, stream>>>(
-          q, self_k + l * Bt * self_row, self_v + l * Bt * self_row, kn, vn, attn, H, C, self_row, 1,
-          positions, n_max, t_cap, scale, nullptr, nullptr, nullptr, nullptr, 0, 0);
-    Segments<T, WT> s_o = {{w(O_W, cc)}, {sc(P_O, C)}, {p(O_B, C)}, {out}};
-    gemv<T, WT, false, false, true>(attn, B, C, nullptr, nullptr, s_o, C, C, stream);
+      attention_launch<T, T, 1>(chain, B, self, SELF_KEYS);
+    Segments<T, WT> s_o = {{w(O_W, cc)}, {sc(P_O, C)}, {p(O_B, C)}, {out}, l == 0 ? x : nullptr};
+    gemv<T, WT, false, false, true>(chain, attn, B, C, nullptr, nullptr, s_o, C, C);
 
     Segments<T, WT> s_xq = {{w(XQ_W, cc)}, {sc(P_XQ, C)}, {p(XQ_B, C)}, {q}};
-    gemv<T, WT, true, false, false>(out, B, C, p(XATTN_LN_G, C), p(XATTN_LN_B, C), s_xq, C, C,
-                                    stream);
+    gemv<T, WT, true, false, false>(chain, out, B, C, p(XATTN_LN_G, C), p(XATTN_LN_B, C), s_xq, C, C);
     const size_t kv_scales = ((size_t)l * At + a0) * C;  // (L, A_total, H, D) scales
-    cross_attention<T, KT>(B / A, A, cross_row, H, C, ta, stream, q, cross_k + l * At * cross_row,
+    cross_attention<T, KT>(chain, B / A, A, cross_row, H, C, ta, q, cross_k + l * At * cross_row,
                            cross_v + l * At * cross_row,
                            KV8 ? a.cross_k_scale + kv_scales : nullptr,
                            KV8 ? a.cross_v_scale + kv_scales : nullptr, attn);
     Segments<T, WT> s_xo = {{w(XO_W, cc)}, {sc(P_XO, C)}, {p(XO_B, C)}, {out}};
-    gemv<T, WT, false, false, true>(attn, B, C, nullptr, nullptr, s_xo, C, C, stream);
+    gemv<T, WT, false, false, true>(chain, attn, B, C, nullptr, nullptr, s_xo, C, C);
 
-    mlp_stage<T, WT>(out, ff, B, C, 4 * C, p(MLP_LN_G, C), p(MLP_LN_B, C), w(FC1_W, 4 * cc),
-                     sc(P_FC1, 4 * C), p(FC1_B, 4 * C), w(FC2_W, 4 * cc), sc(P_FC2, C),
-                     p(FC2_B, C), stream);
+    mlp_stage<T, WT>(chain, out, out, ff, B, C, 4 * C, p(MLP_LN_G, C), p(MLP_LN_B, C), w(FC1_W, 4 * cc),
+                     sc(P_FC1, 4 * C), p(FC1_B, 4 * C), w(FC2_W, 4 * cc), sc(P_FC2, C), p(FC2_B, C));
   }
-  return (int)cudaGetLastError();
+  return chain.result();
 }
 
 template <typename T>
@@ -1010,6 +1246,8 @@ extern "C" int fused_decoder_layers(int dtype, int w_int8, int kv_int8, int L, i
       pending != (pend_v != nullptr) || (pending ? W < 1 || W > MAX_PEND : W != 0) ||
       pend_w < 0 || pend_w > W)
     return (int)cudaErrorInvalidValue;
+  for (const void* p : {self_k, self_v, cross_k, cross_v, pend_k, pend_v})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   const Step a = {L, B, A, C, H, t_cap, t, ta, row0, B_total, W, pend_w, pend_k, pend_v,
                   static_cast<const int*>(positions), x, self_k,
                   self_v, cross_k, cross_v, static_cast<const float*>(cross_k_scale),
@@ -1020,6 +1258,37 @@ extern "C" int fused_decoder_layers(int dtype, int w_int8, int kv_int8, int L, i
   if (dtype == DTYPE_BF16) return run_weights<__nv_bfloat16>(w_int8, kv_int8, a, s);
   if (dtype == DTYPE_F32) return run_weights<float>(w_int8, kv_int8, a, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// K2's cross-attention launch on its own: q (A * G, C) of the compute
+// dtype against A audios' K/V (A, H, D, ta), of the compute dtype or int8
+// (kv_int8) with f32 scales (A, H, D) each; out (A * G, C)
+extern "C" int decode_cross_attention(int dtype, int kv_int8, int A, int G, int C, int H, int ta,
+                                      const void* q, const void* k, const void* v,
+                                      const void* k_scale, const void* v_scale, void* out, void* stream) {
+  if (C != H * HD || A < 1 || G < 1 || ta < 1 || (kv_int8 && (k_scale == nullptr || v_scale == nullptr)) ||
+      reinterpret_cast<uintptr_t>(k) % 16 != 0 || reinterpret_cast<uintptr_t>(v) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  Chain chain(static_cast<cudaStream_t>(stream));
+  const size_t stride = (size_t)H * HD * ta;
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+#define CROSS(T)                                                                                       \
+  do {                                                                                                 \
+    if (kv_int8)                                                                                       \
+      cross_attention<T, int8_t>(chain, G, A, stride, H, C, ta, static_cast<const T*>(q),              \
+                                 static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), ks, vs, \
+                                 static_cast<T*>(out));                                                \
+    else                                                                                               \
+      cross_attention<T, T>(chain, G, A, stride, H, C, ta, static_cast<const T*>(q),                   \
+                            static_cast<const T*>(k), static_cast<const T*>(v), nullptr, nullptr,      \
+                            static_cast<T*>(out));                                                     \
+  } while (0)
+  if (dtype == DTYPE_BF16) CROSS(__nv_bfloat16);
+  else if (dtype == DTYPE_F32) CROSS(float);
+  else return (int)cudaErrorInvalidValue;
+#undef CROSS
+  return chain.result();
 }
 
 // K5: out (B, C) = x + fc2(gelu(fc1(LayerNorm(x)))), K2's MLP stage on its
@@ -1038,15 +1307,14 @@ extern "C" int mlp_fused(int dtype, int w_int8, int B, int C, int F, const void*
   const float* f2 = static_cast<const float*>(s2);
 #define MLP(T, WT)                                                                             \
   do {                                                                                         \
-    cudaError_t e = cudaMemcpyAsync(out, x, (size_t)B * C * sizeof(T),                         \
-                                    cudaMemcpyDeviceToDevice, s);                              \
-    if (e != cudaSuccess) return (int)e;                                                       \
-    mlp_stage<T, WT>(static_cast<T*>(out), static_cast<T*>(scratch), B, C, F,                 \
-                     static_cast<const T*>(ln_g), static_cast<const T*>(ln_b),                 \
-                     static_cast<const WT*>(w1), w_int8 ? f1 : nullptr,                        \
-                     static_cast<const T*>(b1), static_cast<const WT*>(w2),                    \
-                     w_int8 ? f2 : nullptr, static_cast<const T*>(b2), s);                     \
-    return (int)cudaGetLastError();                                                            \
+    Chain chain(s);                                                                            \
+    mlp_stage<T, WT>(chain, static_cast<const T*>(x), static_cast<T*>(out),                    \
+                     static_cast<T*>(scratch), B, C, F, static_cast<const T*>(ln_g),           \
+                     static_cast<const T*>(ln_b), static_cast<const WT*>(w1),                  \
+                     w_int8 ? f1 : nullptr, static_cast<const T*>(b1),                         \
+                     static_cast<const WT*>(w2), w_int8 ? f2 : nullptr,                        \
+                     static_cast<const T*>(b2));                                               \
+    return chain.result();                                                                     \
   } while (0)
   if (dtype == DTYPE_BF16) {
     if (w_int8) MLP(__nv_bfloat16, int8_t);
@@ -1065,19 +1333,19 @@ extern "C" int mlp_fused(int dtype, int w_int8, int B, int C, int F, const void*
 extern "C" int int8_logits(int dtype, int n_rows, int C, int V, const void* x, const void* q,
                            const void* s, void* out, void* stream) {
   if (n_rows < 1 || C % 16 != 0 || V < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Chain chain(static_cast<cudaStream_t>(stream));
   const int8_t* w = static_cast<const int8_t*>(q);
   const float* sc = static_cast<const float*>(s);
   if (dtype == DTYPE_BF16) {
     Segments<__nv_bfloat16, int8_t> seg = {{w}, {sc}, {nullptr}, {out}};
     gemv<__nv_bfloat16, int8_t, false, false, false, true>(
-        static_cast<const __nv_bfloat16*>(x), n_rows, C, nullptr, nullptr, seg, V, V, st);
+        chain, static_cast<const __nv_bfloat16*>(x), n_rows, C, nullptr, nullptr, seg, V, V);
   } else if (dtype == DTYPE_F32) {
     Segments<float, int8_t> seg = {{w}, {sc}, {nullptr}, {out}};
-    gemv<float, int8_t, false, false, false, true>(static_cast<const float*>(x), n_rows, C,
-                                                   nullptr, nullptr, seg, V, V, st);
+    gemv<float, int8_t, false, false, false, true>(chain, static_cast<const float*>(x), n_rows, C,
+                                                   nullptr, nullptr, seg, V, V);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return chain.result();
 }

@@ -72,3 +72,10 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 __device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
+
+// the first `bytes` (0-16) of 16 from global to shared memory,
+// asynchronously, the rest zero-filled; src 16-byte aligned (and a valid
+// address even where bytes is 0)
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes));
+}

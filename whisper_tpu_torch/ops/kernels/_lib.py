@@ -52,6 +52,9 @@ SIGNATURES = {
     # (host), scale pointer table (host, or null), pending K and V (or
     # null), scratch, stream
     "fused_decoder_layers": [_I] * 15 + [_P] * 17,
+    # dtype, int8 K/V, A, G, C, H, Ta, q, k, v, k_scale, v_scale (or
+    # null), out, stream
+    "decode_cross_attention": [_I] * 7 + [_P] * 7,
     # dtype, int8 weights, B, C, F, x, out, ln_g, ln_b, w1, s1, b1, w2, s2,
     # b2, scratch, stream
     "mlp_fused": [_I] * 5 + [_P] * 12,

@@ -106,6 +106,39 @@ def _cross_attention(xq: torch.Tensor, cross_k, cross_v) -> torch.Tensor:
     return out.transpose(1, 2).reshape(B, H, 1, D)
 
 
+def _self_attention(q, k_new, v_new, self_k, self_v, t: Position, pend_k=None, pend_v=None,
+                    pend_w: int = 0) -> torch.Tensor:
+    """One layer's self-attention, (B, H, 1, D): q, k_new, v_new (B, H, 1,
+    D) against row b's cache positions < t[b] of self_k/self_v (B, H, D,
+    T), then the first pend_w columns of pend_k/pend_v (B, H, D, W) when
+    given, then the new token; q and k scaled by D^-0.25 and rounded, one
+    f32 softmax over the three, the weights rounded to the compute dtype
+    before an f32 PV."""
+    n_ctx = self_k.shape[-1]
+    positions = torch.arange(n_ctx, device=q.device)
+    if isinstance(t, int):
+        mask = torch.where(positions < t, 0.0, NEG_INF).float()
+    else:  # (B, 1, 1, T): each row its own length
+        mask = torch.where(positions < t[:, None], 0.0, NEG_INF).float()[:, None, None, :]
+    if pend_k is not None:
+        W = pend_k.shape[-1]
+        pend_mask = torch.where(torch.arange(W, device=q.device) < pend_w, 0.0, NEG_INF).float()
+        # the pending columns after the cache's
+        mask = torch.cat([mask, pend_mask.expand(*mask.shape[:-1], W)], dim=-1)
+        self_k = torch.cat([self_k, pend_k], dim=-1)
+        self_v = torch.cat([self_v, pend_v], dim=-1)
+        n_ctx += W
+    scale = q.shape[-1] ** -0.25
+    qs = (q * scale).float()
+    s_old = torch.matmul(qs, (self_k * scale).float()) + mask
+    s_new = torch.matmul(qs, (k_new * scale).float().transpose(-1, -2))
+    w = torch.softmax(torch.cat([s_old, s_new], dim=-1), dim=-1).to(q.dtype)
+    attn = torch.matmul(
+        w[..., :n_ctx].float(), self_v.float().transpose(-1, -2)
+    ) + w[..., n_ctx:].float() * v_new.float()
+    return attn.to(q.dtype)
+
+
 def fused_decoder_layers_plain(
     blocks: Dict[str, torch.Tensor],
     n_head: int,
@@ -123,27 +156,14 @@ def fused_decoder_layers_plain(
     [row b's cache positions < t[b] | its new token], in f32, and the
     weights round to the compute dtype before PV.  With a pending block, as
     whisper_tpu's ``decoder_step_pending``, over [cache positions < t[b] |
-    pending columns < pend_w | new token].  Cross-attention folds each
-    audio's rows into its query axis (``_cross_attention``).  int8 weights
-    go through ``_linear``'s int8 branch."""
+    pending columns < pend_w | new token] (``_self_attention``).
+    Cross-attention folds each audio's rows into its query axis
+    (``_cross_attention``).  int8 weights go through ``_linear``'s int8
+    branch."""
     L = self_k.shape[0]
-    n_ctx = self_k.shape[-1]
     A = _values(cross_k).shape[1]
     if A < 1 or x.shape[0] % A:
         raise ValueError(f"{A} audios do not divide {x.shape[0]} rows")
-    positions = torch.arange(n_ctx, device=x.device)
-    if isinstance(t, int):
-        pos_mask = torch.where(positions < t, 0.0, NEG_INF).float()
-    else:  # (B, 1, 1, T): each row its own length
-        pos_mask = torch.where(positions < t[:, None], 0.0, NEG_INF).float()[:, None, None, :]
-    if pend_k is not None:
-        W = pend_k.shape[-1]
-        pend_mask = torch.where(torch.arange(W, device=x.device) < pend_w, 0.0, NEG_INF).float()
-        # the pending columns after the cache's
-        pos_mask = torch.cat([pos_mask, pend_mask.expand(*pos_mask.shape[:-1], W)], dim=-1)
-        self_k = torch.cat([self_k, pend_k], dim=-1)
-        self_v = torch.cat([self_v, pend_v], dim=-1)
-        n_ctx += W
     x = x[:, None, :]  # (B, 1, C)
     k_news, v_news = [], []
     for i in range(L):
@@ -153,15 +173,9 @@ def fused_decoder_layers_plain(
         k_new = split_heads(_linear(h, p["k_w"]), n_head)
         v_new = split_heads(_linear(h, p["v_w"], p["v_b"]), n_head)
 
-        scale = q.shape[-1] ** -0.25
-        qs = (q * scale).float()
-        s_old = torch.matmul(qs, (self_k[i] * scale).float()) + pos_mask
-        s_new = torch.matmul(qs, (k_new * scale).float().transpose(-1, -2))
-        w = torch.softmax(torch.cat([s_old, s_new], dim=-1), dim=-1).to(q.dtype)
-        attn = torch.matmul(
-            w[..., :n_ctx].float(), self_v[i].float().transpose(-1, -2)
-        ) + w[..., n_ctx:].float() * v_new.float()
-        x = x + _linear(merge_heads(attn.to(q.dtype)), p["o_w"], p["o_b"])
+        pend = (pend_k[i], pend_v[i], pend_w) if pend_k is not None else ()
+        attn = _self_attention(q, k_new, v_new, self_k[i], self_v[i], t, *pend)
+        x = x + _linear(merge_heads(attn), p["o_w"], p["o_b"])
 
         hx = layer_norm(x, p["xattn_ln_g"], p["xattn_ln_b"])
         xq = split_heads(_linear(hx, p["xq_w"], p["xq_b"]), n_head)
@@ -254,6 +268,10 @@ def _check_args(blocks, n_head, x, positions, self_k, self_v, cross_k, cross_v,
             )
     for leaf in int8:
         _check_int8(leaf, x.device)
+    caches = [self_k, self_v, xk, xv] + ([] if pend_k is None else [pend_k, pend_v])
+    if any(a.data_ptr() % 16 for a in caches):
+        raise ValueError("fused decode-step kernel: the caches must start on a 16-byte boundary "
+                         "(decode-attention copies them in 16-byte chunks)")
     if any(_values(blocks[n]).shape[0] != L for n in WEIGHTS):
         raise ValueError(f"fused decode-step kernel: {L} layers expected")
     return w8, kv8
@@ -334,6 +352,7 @@ def fused_decoder_layers(
         _lib.check(err, "fused_decoder_layers")
         _lib.count_launch(fused_decoder_layers, layout=_layout(a1 - a0, G, w8, kv8, pending))
         _lib.count_launch(mlp_fused, L)  # its MLP stage, K5's code, once per layer
+        _lib.count_launch(cross_attention, L)  # its cross-attention launch, once per layer
     return hidden, k_new, v_new
 
 
@@ -341,6 +360,52 @@ fused_decoder_layers.launches = 0
 # (A, G) -> launches; the int8 forms and the pending block as (A, G, tag),
 # see _layout
 fused_decoder_layers.launches_by_layout = collections.Counter()
+
+
+def cross_attention_plain(q: torch.Tensor, cross_k, cross_v) -> torch.Tensor:
+    """K2's cross-attention on its own: q (B, C) against A audios' K/V (A,
+    H, D, Ta), of q's dtype or :class:`Int8Weight` with scales (A, H, D,
+    1), B = A * G rows group-major; (B, C) (``_cross_attention``)."""
+    H = _values(cross_k).shape[1]
+    return merge_heads(_cross_attention(split_heads(q[:, None], H), cross_k, cross_v))[:, 0]
+
+
+def cross_attention(q: torch.Tensor, cross_k, cross_v) -> torch.Tensor:
+    """K2's cross-attention launch on its own (the step runs it once per
+    layer).  A CPU tensor takes :func:`cross_attention_plain`; a CUDA
+    tensor launches the kernel (bf16 or f32, head_dim 64, K/V contiguous
+    and 16-byte aligned) or raises."""
+    if q.device.type == "cpu":
+        return cross_attention_plain(q, cross_k, cross_v)
+    if q.device.type != "cuda":
+        raise ValueError(f"cross-attention kernel: unsupported device {q.device}")
+    kv8 = _int8_form([cross_k, cross_v], "cross K/V")
+    xk, xv = _values(cross_k), _values(cross_v)
+    B, C = q.shape
+    A, H, D, Ta = xk.shape
+    if (D != HEAD_DIM or C != H * D or xv.shape != xk.shape or B % A or q.dtype not in _DTYPES
+            or not q.is_contiguous()):
+        raise ValueError(f"cross-attention kernel: q {tuple(q.shape)} {q.dtype} against K/V "
+                         f"{tuple(xk.shape)}")
+    for leaf in (cross_k, cross_v):
+        if kv8:
+            _check_int8(leaf, q.device)
+        elif leaf.dtype != q.dtype or leaf.device != q.device or not leaf.is_contiguous():
+            raise ValueError("cross-attention kernel: K/V contiguous, of q's dtype, on q's device")
+        if _values(leaf).data_ptr() % 16:
+            raise ValueError("cross-attention kernel: K/V must start on a 16-byte boundary")
+    out = torch.empty_like(q)
+    err = _lib.lib().decode_cross_attention(
+        _DTYPES[q.dtype], int(kv8), A, B // A, C, H, Ta, q.data_ptr(), xk.data_ptr(), xv.data_ptr(),
+        cross_k.s.data_ptr() if kv8 else None, cross_v.s.data_ptr() if kv8 else None,
+        out.data_ptr(), _lib.stream_ptr(q.device),
+    )
+    _lib.check(err, "decode_cross_attention")
+    _lib.count_launch(cross_attention)
+    return out
+
+
+cross_attention.launches = 0  # its own launches, and L per launch of K2's
 
 
 def int8_logits_plain(hidden: torch.Tensor, w: Int8Weight) -> torch.Tensor:

@@ -53,6 +53,9 @@ def logits_streamed(x: torch.Tensor, emb: torch.Tensor, layout: str = "vc") -> t
     for t in (x, emb):
         if t.dtype != torch.bfloat16 or t.device != x.device or not t.is_contiguous():
             raise ValueError(f"logits kernel: x and the embedding contiguous bf16 on {x.device}")
+        if t.data_ptr() % 16:
+            raise ValueError("logits kernel: x and the embedding must start on a 16-byte boundary "
+                             "(TMA and 16-byte copies)")
     out = torch.empty((B, V), dtype=torch.float32, device=x.device)
     err = _lib.lib().logits_streamed(
         LAYOUTS[layout], B, C, V, x.data_ptr(), emb.data_ptr(), out.data_ptr(),
