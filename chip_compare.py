@@ -20,13 +20,14 @@ one shared position), on random large-v3-turbo weights (seed 0, bf16):
   the CLI default path: transcribe(jfk.flac) with beam 5, best-of 5 on
       the 0.2-step ladder and word timestamps.
 
-It also times, through the K2 and E2 wrappers' calls (the same in every
-version of the port that has E2), K2 at every row of PERF.md's kernel
-table (one and five rows at t = 200, 16 x 1, 3 x 5, 16 x 5, 32 x 5 and
-160 x 1 at per-row positions, 5 x 5 and 4 x 5 at t = 200, the
-int8+kv_int8 form, the pending block at T = 448 with 7 of 8 columns) and
-E2 in both layouts at B = 1, 5 and 16 beside bf16 torch.mm: device time
-per call (a CUDA graph replayed) and the time of back-to-back calls (CUDA
+It also times, through the K2, K5 and E2 wrappers' calls (the same in
+every version of the port that has E2), K2 at every row of PERF.md's
+kernel table (one and five rows at t = 200, 16 x 1, 3 x 5, 16 x 5, 32 x 5
+and 160 x 1 at per-row positions, 5 x 5 and 4 x 5 at t = 200, the
+int8+kv_int8 form, the pending block at T = 448 with 7 of 8 columns), K5
+(mlp_fused) at 1, 5, 16 and 125 rows with bf16 and int8 weights, and E2
+in both layouts at B = 1, 5 and 16 beside bf16 torch.mm: device time per
+call (a CUDA graph replayed) and the time of back-to-back calls (CUDA
 events).
 
 Walls are medians of N runs after a warm-up.  The last line is one JSON
@@ -177,6 +178,35 @@ def k2_table(device) -> dict:
     return out
 
 
+def k5_table(device) -> dict:
+    """K5 (mlp_fused: K2's MLP stage alone) at turbo's width (C = 1280, F =
+    5120) for 1, 5, 16 and 125 rows (K2's first 32 x 5 slice), bf16 and
+    int8 weights, bf16 compute, random inputs from a seed: {label: [device
+    ms, events ms]}."""
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.mlp import mlp_fused
+    from whisper_tpu_torch.quantize import quantize_weight
+
+    C, F = 1280, 5120
+    out = {}
+    for B in (1, 5, 16, 125):
+        gen = torch.Generator(device=device).manual_seed(B)
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+        x, g, b = randn(B, C, scale=0.5), 1.0 + randn(C, scale=0.1), randn(C, scale=0.02)
+        w1, b1, w2, b2 = randn(F, C, scale=0.02), randn(F, scale=0.02), randn(C, F, scale=0.02), randn(C, scale=0.02)
+        for weights in ("bf16", "int8"):
+            ws = (w1, w2) if weights == "bf16" else (quantize_weight(w1), quantize_weight(w2))
+            args = (x, g, b, ws[0], b1, ws[1], b2)
+            label = f"{weights} B={B}"
+            out[label] = [device_ms(lambda: mlp_fused(*args)), events_ms(lambda: mlp_fused(*args))]
+            log(f"K5 {label}: {out[label][0]:.4f} ms device, {out[label][1]:.4f} ms back to back")
+    return out
+
+
 def e2_table(device) -> dict:
     """E2 in both layouts and bf16 torch.mm (f32 out) at turbo's vocabulary
     (51866 x 1280), B = 1, 5, 16: {label: [device ms, events ms]}."""
@@ -236,7 +266,7 @@ def main() -> int:
     log(f"kernel library ready: {time.perf_counter() - t0:.2f} s")
 
     row = {"tree": args.tree, "k2_b1_ms": k2_ms(device, 1), "k2_b5_ms": k2_ms(device, 5),
-           "k2": k2_table(device), "e2": e2_table(device)}
+           "k2": k2_table(device), "k5": k5_table(device), "e2": e2_table(device)}
     dims = KNOWN_MODELS["turbo"]
     model = whisper_tpu_torch.Whisper(
         dims, init_params(dims, torch.Generator(device=device).manual_seed(0), torch.bfloat16, device)

@@ -63,9 +63,12 @@ Phases, each of which must pass (any failure exits non-zero):
      16 audios x 1 at per-row positions, 5 x 5, and 16 x 5 at per-row
      positions; each case's bound counts every tensor at its own element
      size;
- 17. K5 (K2's MLP stage on its own) at C=1280 for B = 1, 5 and 16 rows,
-     bf16 and int8 weights; the int8 logits (51866 x 1280) against the
-     dequantised matmul, beside one bf16 torch.mm of the same rows;
+ 17. K5 (K2's MLP stage on its own: in bf16 two launches of
+     mlp_stream_kernel) at C=1280 for B = 1, 5 and 16 rows and the 125 rows
+     of K2's first 32 x 5 slice, bf16 and int8 weights, with its share of
+     the bound and one F.linear of each product's weight as a yardstick;
+     the int8 logits (51866 x 1280) against the dequantised matmul, beside
+     one bf16 torch.mm of the same rows;
  18. the int8 configuration end to end at full depth: the random turbo
      weights quantized "int8+logits" on the card (the model's bytes, bf16
      and int8), kv_cache_dtype="int8": the greedy transcribe(jfk.flac) with
@@ -138,7 +141,10 @@ Phases, each of which must pass (any failure exits non-zero):
      of five, 16 audios of one) against its plain version, beside
      F.scaled_dot_product_attention on (T, D) copies of the K/V (a
      yardstick the port never calls); its launches on the greedy path (L
-     per K2 step).
+     per K2 step);
+ 32. K5's two launches, fc1 and fc2, split as phase 30 splits a K2 step
+     (with the other kernel checks), at 1, 5 and 16 rows, bf16 and int8
+     weights: each launch's device time and the gap before it.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -231,9 +237,9 @@ def ptxas_summary(log: str) -> list:
 
 
 WGMMA_KERNELS = ("encoder_attention_wgmma_kernel", "matmul_residual_wgmma_kernel")  # K1's, E1's bf16
-# K2's (and K5's) and E2's kernels, redesigned for Hopper: none may spill
-SPILL_FREE_KERNELS = ("gemv_kernel", "gemv_tc_kernel", "decode_attention_kernel", "logits_vc_kernel",
-                      "logits_cv_kernel")
+# K2's, K5's and E2's kernels, redesigned for Hopper: none may spill
+SPILL_FREE_KERNELS = ("gemv_kernel", "gemv_tc_kernel", "decode_attention_kernel", "mlp_stream_kernel",
+                      "logits_vc_kernel", "logits_cv_kernel")
 
 
 def wgmma_check(log: str, lib_path: str) -> list:
@@ -252,7 +258,7 @@ def wgmma_check(log: str, lib_path: str) -> list:
     kernels = ptxas_kernels(log)
     spilled = {n: s for n, (_, s) in kernels.items() if s and any(k in n for k in SPILL_FREE_KERNELS)}
     if spilled:
-        raise RuntimeError(f"K2/E2 instances spill (mangled name: bytes): {spilled}")
+        raise RuntimeError(f"K2/K5/E2 instances spill (mangled name: bytes): {spilled}")
     checked = [n for n in kernels if any(k in n for k in SPILL_FREE_KERNELS)]
     regs = {n: rs for n, rs in kernels.items() if any(k in n for k in WGMMA_KERNELS)}
     cuobjdump = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
@@ -684,16 +690,63 @@ def check_cross_attention(gen, device) -> dict:
 K2_ROLES = ("q|k|v", "self-attention", "o", "xq", "cross-attention", "xo", "fc1", "fc2")
 
 
+def replay_split(fn, roles, iters: int = 20) -> dict:
+    """fn's launches split by launch: captured in a CUDA graph, replayed
+    iters times under torch.profiler (so the host's enqueue is out of the
+    numbers), each launch's device time and the gap between the end of the
+    launch before it and its start (negative: the two overlap), averaged
+    over the replays after the first and over the launches of one role.
+    roles(n) names the n launches of one call in order.  Returns {role:
+    (us, gap us), "step": (span us, busy us), "replay": replay ms}."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            graph.replay()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    n = len(events) // iters
+    if n == 0 or len(events) % iters:
+        raise RuntimeError(f"launch split: {len(events)} device events in {iters} replays")
+    names = roles(n)
+    per_role = {r: [0.0, 0.0, 0] for r in dict.fromkeys(names)}
+    spans, busy = [], []
+    for i in range(1, iters):
+        step = events[i * n:(i + 1) * n]
+        prev_end = events[i * n - 1]["ts"] + events[i * n - 1]["dur"]
+        for role, e in zip(names, step):
+            acc = per_role[role]
+            acc[0] += e["dur"]
+            acc[1] += e["ts"] - prev_end
+            acc[2] += 1
+            prev_end = e["ts"] + e["dur"]
+        spans.append(max(e["ts"] + e["dur"] for e in step) - step[0]["ts"])
+        busy.append(1e3 * busy_ms(step))
+    split = {r: (a[0] / a[2], a[1] / a[2]) for r, a in per_role.items()}
+    split["step"] = (sum(spans) / len(spans), sum(busy) / len(busy))
+    split["replay"] = time_ms(graph.replay, CUDA, iters=50)
+    return split
+
+
+def split_line(split: dict) -> str:
+    launches = {r: v for r, v in split.items() if r not in ("step", "replay")}
+    return ("; ".join(f"{r} {us:.2f} [{gap:+.2f}]" for r, (us, gap) in launches.items())
+            + f"; span {split['step'][0]:.2f} us, busy {split['step'][1]:.2f} us, "
+            f"replay {1000 * split['replay']:.2f} us")
+
+
 def k2_launch_split(gen, device, iters: int = 20) -> dict:
-    """One K2 step split by launch: the step's launches captured in a CUDA
-    graph, replayed iters times under torch.profiler (so the host's enqueue
-    is out of the numbers), each launch's device time and the gap between
-    the end of the launch before it and its start (negative: the two
-    overlap), averaged over the replays after the first and over the L
-    layers, per role (a leading copy, if the step has one, then K2_ROLES
-    per layer).  Cases: one row, one audio of five rows and 16 audios of
-    one row at t = 200, bf16 and int8+kv_int8.  Returns {(case, form):
-    {role: (us, gap us)}, "step": (span us, busy us)}."""
+    """One K2 step split by launch (replay_split): a leading copy, if the
+    step has one, then K2_ROLES per layer.  Cases: one row, one audio of
+    five rows and 16 audios of one row at t = 200, bf16 and int8+kv_int8.
+    Returns {(case, form): replay_split's dict}."""
     import torch
 
     from whisper_tpu_torch.ops.kernels.fused_step import fused_decoder_layers
@@ -701,51 +754,65 @@ def k2_launch_split(gen, device, iters: int = 20) -> dict:
     L = K2_DIMS["L"]
     cases = {"B=1": dict(), "1 x 5": dict(G=5), "16 x 1": dict(A=16)}
     inputs = {name: k2_inputs(gen, device, **kw) for name, kw in cases.items()}
+
+    def roles(n):  # a leading device-to-device copy (an older step) may show as a kernel
+        if not len(K2_ROLES) * L <= n <= len(K2_ROLES) * L + 1:
+            raise RuntimeError(f"K2 launch split: {n} launches a step, {len(K2_ROLES) * L} expected")
+        return ["copy"] * (n - len(K2_ROLES) * L) + list(K2_ROLES) * L
+
     out = {}
     for form in ("", "int8+kv_int8"):
         for name in cases:
             _, args = k2_args(inputs[name], torch.bfloat16, form)
-            fused_decoder_layers(*args)
-            torch.cuda.synchronize()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                fused_decoder_layers(*args)
-            graph.replay()
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    graph.replay()
-                torch.cuda.synchronize()
-            events = device_events(prof)
-            n = len(events) // iters
-            if n == 0 or len(events) % iters:
-                raise RuntimeError(f"K2 launch split {name}: {len(events)} device events in {iters} replays")
-            # a leading device-to-device copy (the parent's step) may show as a kernel
-            roles = ["copy"] * (n - len(K2_ROLES) * L) + list(K2_ROLES) * L
-            if len(roles) != n or n > len(K2_ROLES) * L + 1:
-                raise RuntimeError(f"K2 launch split {name}: {n} launches a step, {len(K2_ROLES) * L} expected")
-            per_role = {r: [0.0, 0.0, 0] for r in dict.fromkeys(roles)}
-            spans, busy = [], []
-            for i in range(1, iters):
-                step = events[i * n:(i + 1) * n]
-                prev_end = events[i * n - 1]["ts"] + events[i * n - 1]["dur"]
-                for role, e in zip(roles, step):
-                    acc = per_role[role]
-                    acc[0] += e["dur"]
-                    acc[1] += e["ts"] - prev_end
-                    acc[2] += 1
-                    prev_end = e["ts"] + e["dur"]
-                spans.append(max(e["ts"] + e["dur"] for e in step) - step[0]["ts"])
-                busy.append(1e3 * busy_ms(step))
-            split = {r: (a[0] / a[2], a[1] / a[2]) for r, a in per_role.items()}
-            split["step"] = (sum(spans) / len(spans), sum(busy) / len(busy))
-            replay_ms = time_ms(graph.replay, CUDA, iters=50)
+            split = replay_split(lambda: fused_decoder_layers(*args), roles, iters)
             log(f"K2 launch split {name} bf16{' ' + form if form else ''} (graph replays under "
-                f"torch.profiler, {n} launches a step; us per launch, gap before it): "
-                + "; ".join(f"{r} {us:.2f} [{gap:+.2f}]" for r, (us, gap) in split.items() if r != "step")
-                + f"; step span {split['step'][0]:.2f} us, busy {split['step'][1]:.2f} us, "
-                f"replay {1000 * replay_ms:.2f} us")
+                f"torch.profiler, us per launch, gap before it): {split_line(split)}")
             out[name, form] = split
+    return out
+
+
+K5_DIMS = dict(C=1280, F=5120)  # large-v3-turbo's decoder MLP
+
+
+def k5_inputs(gen, device, B: int, weights: str):
+    """K5's arguments at turbo's width for B rows, bf16 compute, weights
+    "bfloat16" or "int8" (quantize_weight of the same values)."""
+    import torch
+
+    from whisper_tpu_torch.quantize import quantize_weight
+
+    C, F = K5_DIMS["C"], K5_DIMS["F"]
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    x, g, b = randn(B, C, scale=0.5), 1.0 + randn(C, scale=0.1), randn(C, scale=0.02)
+    w1, b1, w2, b2 = randn(F, C, scale=0.02), randn(F, scale=0.02), randn(C, F, scale=0.02), randn(C, scale=0.02)
+    if weights == "int8":
+        w1, w2 = quantize_weight(w1), quantize_weight(w2)
+    return x, g, b, w1, b1, w2, b2
+
+
+def k5_launch_split(gen, device, iters: int = 20) -> dict:
+    """K5's two launches, fc1 (LayerNorm prologue, GELU) and fc2 (+
+    residual), split by launch (replay_split) at turbo's width, 1, 5 and 16
+    rows, bf16 and int8 weights.  Returns {(B, weights): replay_split's
+    dict}."""
+    from whisper_tpu_torch.ops.kernels.mlp import mlp_fused
+
+    def roles(n):
+        if n != 2:
+            raise RuntimeError(f"K5 launch split: {n} launches a call, 2 expected")
+        return ["fc1", "fc2"]
+
+    out = {}
+    for weights in ("bfloat16", "int8"):
+        for B in (1, 5, 16):
+            args = k5_inputs(gen, device, B, weights)
+            split = replay_split(lambda: mlp_fused(*args), roles, iters)
+            log(f"K5 launch split B={B} {weights} weights (graph replays under torch.profiler, us per "
+                f"launch, gap before it): {split_line(split)}")
+            out[B, weights] = split
     return out
 
 
@@ -834,26 +901,31 @@ def check_k4(gen, device):
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **kb)
 
 
+K5_ROWS = {"B=1": 1, "B=5": 5, "B=16": 16, "32 x 5 slice": 125}  # 32 x 5: K2's first slice, 25 audios
+
+
 def check_k5(gen, device):
     """K5 against its plain version at turbo's width (C = 1280, F = 5120)
-    for B = 1, 5 and 16 rows, bf16 weights and int8 weights (bf16 compute)."""
+    for 1, 5 and 16 rows and the 125 rows of K2's first 32 x 5 slice, bf16
+    weights and int8 weights (bf16 compute): the kernel's time (CUDA
+    events, and its device time from a CUDA graph), its share of the
+    bound, and, beside each product alone, one F.linear of the same
+    weight (bf16; int8: its bf16 values) on the same rows as a yardstick
+    (device time; the port never calls it).  Returns {(rows, weights):
+    kernel row}."""
     import torch
+    import torch.nn.functional as F
 
+    from whisper_tpu_torch.models.whisper import layer_norm
     from whisper_tpu_torch.ops.kernels.mlp import mlp_fused, mlp_fused_plain
-    from whisper_tpu_torch.quantize import quantize_weight
+    from whisper_tpu_torch.quantize import Int8Weight
 
-    C, F = 1280, 5120
+    C, F_ = K5_DIMS["C"], K5_DIMS["F"]
     rows = {}
-    for B in (1, 5, 16):
+    for label, B in K5_ROWS.items():
         for weights in ("bfloat16", "int8"):
-            def randn(*shape, scale=1.0):
-                return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
-
-            x, g, b = randn(B, C, scale=0.5), 1.0 + randn(C, scale=0.1), randn(C, scale=0.02)
-            w1, b1, w2, b2 = randn(F, C, scale=0.02), randn(F, scale=0.02), randn(C, F, scale=0.02), randn(C, scale=0.02)
-            if weights == "int8":
-                w1, w2 = quantize_weight(w1), quantize_weight(w2)
-            args = (x, g, b, w1, b1, w2, b2)
+            args = k5_inputs(gen, device, B, weights)
+            x, g, b, w1, b1, w2, b2 = args
             out, ref = mlp_fused(*args), mlp_fused_plain(*args)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
@@ -861,16 +933,23 @@ def check_k5(gen, device):
             ms = time_ms(lambda: mlp_fused(*args), CUDA)
             device_ms = graph_ms(lambda: mlp_fused(*args))
             plain_ms = time_ms(lambda: mlp_fused_plain(*args), CUDA)
-            # weights (and scales) read once, x read, out written; two GEMVs
-            kb = bound(nbytes(w1) + nbytes(w2) + 2 * (2 * F + 3 * C) + 2 * 2 * B * C,
-                       2 * B * 2 * F * C, "bfloat16")
-            log(f"K5 mlp_fused C={C} F={F} B={B} bf16, {weights} weights: max_abs_err {err:.3e}, "
+            dense = [(w.q.float() * w.s).to(torch.bfloat16) if isinstance(w, Int8Weight) else w for w in (w1, w2)]
+            h1 = layer_norm(x, g, b)
+            h2 = torch.randn((B, F_), generator=gen, device=device).to(torch.bfloat16)
+            fc1_ms = graph_ms(lambda: F.linear(h1, dense[0]))
+            fc2_ms = graph_ms(lambda: F.linear(h2, dense[1]))
+            # weights (and scales), LayerNorm weights and biases read once, x
+            # read and out written; two products
+            kb = bound(nbytes(w1) + nbytes(w2) + 2 * (2 * F_ + 3 * C) + 2 * 2 * B * C, 2 * B * 2 * F_ * C,
+                       "bfloat16")
+            log(f"K5 mlp_fused C={C} F={F_} {label} ({B} rows) bf16, {weights} weights: max_abs_err {err:.3e}, "
                 f"relative {rel:.3e} (tol {K2_REL_TOL['bfloat16']:.0e}) kernel {ms:.4f} ms "
-                f"({device_ms:.4f} ms replayed from a CUDA graph) plain {plain_ms:.4f} ms "
-                f"bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}")
+                f"({device_ms:.4f} ms replayed from a CUDA graph, {kb['bound_ms'] / device_ms:.3f} of the "
+                f"bound) plain {plain_ms:.4f} ms bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}; "
+                f"yardstick F.linear fc1 {fc1_ms:.4f} ms, fc2 {fc2_ms:.4f} ms (device)")
             if not rel <= K2_REL_TOL["bfloat16"]:
-                raise RuntimeError(f"K5 B={B} {weights} disagrees with its plain version: {rel}")
-            rows[(B, weights)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **kb)
+                raise RuntimeError(f"K5 {label} {weights} disagrees with its plain version: {rel}")
+            rows[label, weights] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **kb)
     return rows
 
 
@@ -1106,7 +1185,7 @@ def cli_default_path(model):
     import numpy as np
     import torch
 
-    from whisper_tpu_torch.ops.kernels import attention, dtw, fused_step, median
+    from whisper_tpu_torch.ops.kernels import attention, dtw, fused_step, median, mlp
     from whisper_tpu_torch.utils.writers import get_writer
 
     temperature = tuple(np.arange(0.0, 1.0 + 1e-6, 0.2))  # --temperature_increment_on_fallback 0.2
@@ -1122,6 +1201,7 @@ def cli_default_path(model):
     layout = dict(fused_step.fused_decoder_layers.launches_by_layout)
     launches = {"encoder_attention": attention.attention.launches,
                 "fused_decoder_layers_b5": layout.get((1, 5), 0),
+                "mlp_fused": mlp.mlp_fused.launches,  # K2's MLP stage: L per K2 launch
                 "median_filter": median.median_filter.launches,
                 "dtw_trace": dtw.dtw_trace.launches}
     with tempfile.TemporaryDirectory() as out_dir:
@@ -2030,6 +2110,7 @@ def main() -> int:
     check_k2(gen, device, A=4, G=5, label=" groups")
     k2p = check_k2_pending(gen, device)
     k2_launch_split(gen, device)
+    k5_launch_split(gen, device)
     xattn = check_cross_attention(gen, device)
     k3 = check_k3(gen, device)
     k4 = check_k4(gen, device)
@@ -2090,6 +2171,11 @@ def main() -> int:
              launches=launches["fused_decoder_layers"], **k2["bfloat16"]),
         dict(name="fused_decoder_layers_b5", **fused,
              launches=cli_launches["fused_decoder_layers_b5"], **k2g["bfloat16"]),
+        # K5 at five rows, bf16 weights: K2's MLP stage on the CLI default
+        # path (L per K2 launch; the beam and best-of groups), timed alone
+        dict(name="mlp_fused_b5", route="cuda", source="whisper_tpu_torch/csrc/fused_step.cu",
+             replaces="whisper_tpu/ops/kernels/mlp_pallas.py:128",
+             launches=cli_launches["mlp_fused"], **k5["B=5", "bfloat16"]),
         # K2's cross-attention launch alone, timed at one row beside SDPA;
         # launches: the greedy transcribe's, L per K2 step
         dict(name="decode_cross_attention", **fused,
@@ -2125,7 +2211,7 @@ def main() -> int:
              **k2q["int8+kv_int8", 25]["bfloat16"]),
         dict(name="mlp_fused", route="cuda", source="whisper_tpu_torch/csrc/fused_step.cu",
              replaces="whisper_tpu/ops/kernels/mlp_pallas.py:128",
-             launches=int8_launches["mlp_fused"], **k5[1, "int8"]),
+             launches=int8_launches["mlp_fused"], **k5["B=1", "int8"]),
         dict(name="int8_logits", route="cuda", source="whisper_tpu_torch/csrc/fused_step.cu",
              replaces="whisper_tpu/models/whisper.py:869",
              launches=int8_launches["int8_logits"], **logits[1]),

@@ -372,12 +372,8 @@ def test_k2_refuses_a_mixed_int8_form(cuda):
         k2.fused_decoder_layers(blocks, H, x, 3, *caches)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B", [1, 5, 16, 33])
-@pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("C", [256, 1280])
-def test_k5_matches_plain(cuda, dtype, B, int8, C):
-    gen = torch.Generator(device=cuda).manual_seed(B)
+def _k5_inputs(cuda, dtype, B, C, int8, seed, bias=True):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=cuda) * scale).to(dtype)
@@ -386,11 +382,69 @@ def test_k5_matches_plain(cuda, dtype, B, int8, C):
     w1, b1, w2, b2 = randn(4 * C, C, scale=0.05), randn(4 * C, scale=0.1), randn(C, 4 * C, scale=0.05), randn(C, scale=0.1)
     if int8:
         w1, w2 = quantize_weight(w1), quantize_weight(w2)
-    launches = k5.mlp_fused.launches
-    out = k5.mlp_fused(x, g, b, w1, b1, w2, b2)
-    assert k5.mlp_fused.launches == launches + 1
+    return x, g, b, w1, b1 if bias else None, w2, b2 if bias else None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 2, 5, 8, 9, 16, 17, 32, 33, 128])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("C", [256, 1280])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("in_place", [False, True])
+def test_k5_matches_plain(cuda, dtype, B, int8, C, bias, in_place):
+    """bf16: one or two n8 tiles of rows (1-8, 9-16) and row tiles of 16
+    above that; in place: out is x, as in K2's MLP stage."""
+    x, g, b, w1, b1, w2, b2 = _k5_inputs(cuda, dtype, B, C, int8, B, bias)
     ref = k5.mlp_fused_plain(x, g, b, w1, b1, w2, b2)
+    launches = k5.mlp_fused.launches
+    out = k5.mlp_fused(x, g, b, w1, b1, w2, b2, out=x if in_place else None)
+    assert k5.mlp_fused.launches == launches + 1
+    assert (out is x) == in_place
     assert max(_k2_rel_errors([out], [ref])) <= K2_REL_TOL[dtype]
+
+
+def _nan_padded(t: torch.Tensor, extra: int) -> torch.Tensor:
+    """A contiguous view of t's values whose storage goes on for `extra`
+    rows of NaN (or, for int8, of 127) past its end."""
+    fill = 127 if t.dtype == torch.int8 else float("nan")
+    buf = torch.full((t.shape[0] + extra, *t.shape[1:]), fill, dtype=t.dtype, device=t.device)
+    buf[:t.shape[0]] = t
+    return buf[:t.shape[0]]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B", [1, 9, 17])
+@pytest.mark.parametrize("C", [272, 1280])
+def test_k5_reads_nothing_past_its_ranges(cuda, monkeypatch, int8, B, C):
+    """NaN past the ends of what the kernels read: 16 rows past each
+    weight (int8: past its scales), 16 rows past x, 4096 values past the
+    ff scratch's B * F.  At C = 272 (F = 1088) neither width is a whole
+    number of 128-byte chunks, so a block's last weight box and a rank's
+    last staged chunk of x or ff reach past the ends of the rows: there the
+    kernel must take zeros (TMA's fill, the staging's guard), and a read
+    past the last row would bring a NaN into its output (NaN x 0 is NaN).
+    The output stays finite and within K2's bounds."""
+    x, g, b, w1, b1, w2, b2 = _k5_inputs(cuda, torch.bfloat16, B, C, int8, 3)
+    ref = k5.mlp_fused_plain(x, g, b, w1, b1, w2, b2)
+    if int8:
+        w1, w2 = (Int8Weight(_nan_padded(w.q, 16), _nan_padded(w.s, 16)) for w in (w1, w2))
+    else:
+        w1, w2 = _nan_padded(w1, 16), _nan_padded(w2, 16)
+    x = _nan_padded(x, 16)
+    real = k5._ff_scratch
+    monkeypatch.setattr(k5, "_ff_scratch", lambda n, F, like: _nan_padded(real(n, F, like)[:, None], 4096)[:, 0])
+    out = k5.mlp_fused(x, g, b, w1, b1, w2, b2)
+    assert torch.isfinite(out.float()).all()
+    assert max(_k2_rel_errors([out], [ref])) <= K2_REL_TOL[torch.bfloat16]
+
+
+def test_k5_refuses_a_misaligned_weight(cuda):
+    for int8 in (False, True):
+        x, g, b, w1, b1, w2, b2 = _k5_inputs(cuda, torch.bfloat16, 2, 256, int8, 1)
+        bad = Int8Weight(_misaligned(w1.q), w1.s) if int8 else _misaligned(w1)
+        assert (bad.q if int8 else bad).data_ptr() % 16 != 0
+        with pytest.raises(ValueError, match="16-byte"):
+            k5.mlp_fused(x, g, b, bad, b1, w2, b2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -774,11 +828,13 @@ def test_k2_back_to_back_steps_are_identical(cuda, mode, A, G):
 
 @pytest.mark.parametrize("mode", ["eager", "graph"])
 @pytest.mark.parametrize("int8", [False, True])
-def test_k5_back_to_back_calls_are_identical(cuda, mode, int8):
-    """K5 (fc1, then fc2 under programmatic dependent launch) 200 times back
-    to back at C = 1280, B = 1: each output equals the first bit for bit."""
+@pytest.mark.parametrize("B", [1, 5, 9, 16, 17, 128])
+def test_k5_back_to_back_calls_are_identical(cuda, mode, int8, B):
+    """K5 (fc1, then fc2 under programmatic dependent launch, its weights
+    streaming before it waits) 200 times back to back at C = 1280: each
+    output equals the first bit for bit."""
     C = 1280
-    x, g, b = _randn(cuda, 1, 1, C, scale=0.5), 1.0 + _randn(cuda, 2, C, scale=0.1), _randn(cuda, 3, C, scale=0.1)
+    x, g, b = _randn(cuda, 1, B, C, scale=0.5), 1.0 + _randn(cuda, 2, C, scale=0.1), _randn(cuda, 3, C, scale=0.1)
     w1, b1 = _randn(cuda, 4, 4 * C, C, scale=0.05), _randn(cuda, 5, 4 * C, scale=0.1)
     w2, b2 = _randn(cuda, 6, C, 4 * C, scale=0.05), _randn(cuda, 7, C, scale=0.1)
     if int8:

@@ -166,6 +166,11 @@ struct Chain {
     pdl = true;
   }
 
+  // an error found before a launch (that launch is not made)
+  void fail(cudaError_t e) {
+    if (err == cudaSuccess) err = e;
+  }
+
   // the chain's error, or a launch error the runtime recorded
   int result() const { return (int)(err != cudaSuccess ? err : cudaGetLastError()); }
 };

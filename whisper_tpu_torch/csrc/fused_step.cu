@@ -43,12 +43,14 @@
 //   decode_attention (self: cache positions < t[b] and the new token)
 //   gemv  (o, + residual)               gemv (LayerNorm prologue, xq)
 //   decode_attention (cross: Ta keys)
-//   gemv  (xo, + residual)              gemv (LayerNorm prologue, fc1, GELU)
-//   gemv  (fc2, + residual)
+//   gemv  (xo, + residual)
+//   mlp_stream (LayerNorm prologue, fc1, GELU)   mlp_stream (fc2, + residual)
+// (bf16; in f32 the MLP's two launches are GEMVs too).
 // The chain runs under programmatic dependent launch (common.cuh Chain):
 // each launch after the first may start while the one before it drains.
 // Before pdl_wait() a kernel touches only what no launch of the step
 // writes: a GEMV asks for its weight rows into L2 (cp.async.bulk.prefetch),
+// mlp_stream streams its first weight stages into shared memory,
 // decode_attention issues its first cache tiles; after it, it reads x, q,
 // the attention output or ff, and then lets the next launch start
 // (pdl_trigger), so a launch's weights stream while the one before it
@@ -113,11 +115,16 @@
 //
 // K5 (replaces whisper_tpu/ops/kernels/mlp_pallas.py:mlp_fused_pallas):
 // x + fc2(gelu(fc1(LayerNorm(x)))) for 1-128 rows, each weight read once
-// per row tile, int8 converted in the GEMV.  It is the host function that
-// queues K2's MLP stage (mlp_stage: the LayerNorm-prologue fc1 + GELU GEMV,
-// then the fc2 + residual GEMV), so one implementation serves both.  The
-// int8 logits projection is the same GEMV with an unrounded f32 epilogue
-// acc * s[v] (int8_logits).
+// per row tile, int8 converted in the kernel.  It is the host function that
+// queues K2's MLP stage (mlp_stage), so one implementation serves both: in
+// bf16 two launches of mlp_stream_kernel (fc1 with its LayerNorm prologue
+// and GELU, then fc2 with the residual), each a persistent grid streaming
+// its weights by TMA into mma.sync with the weights as M, fc2's inputs
+// split over a thread-block cluster; in f32 the CUDA-core GEMV.  The single
+// launch of the TPU kernel (fc2's partial sums over F meeting before its
+// epilogue) would need a grid-wide barrier here; the launch boundary that
+// Chain orders takes its place.  The int8 logits projection is the GEMV
+// with an unrounded f32 epilogue acc * s[v] (int8_logits).
 //
 // More than MAX_ROWS = 128 rows: the wrapper launches the step in slices
 // of at most 128 rows that hold whole audios (ops/kernels/fused_step.py
@@ -156,6 +163,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -181,6 +189,39 @@ constexpr int CHUNK_ALIGN = 256;       // 32 lanes x 8 bf16 (or 2 x 4 f32)
 constexpr int TC_CHUNK = 1280;
 constexpr int TC_PAD = 8;
 constexpr float LN_EPS = 1e-5f;
+// K5's weight stream (mlp_stream_kernel): consumer warps, one tile of a
+// group each (six: fc1's 320 tiles over 66 clusters give a block 4 or 5,
+// fc2's 80 over the 15 clusters of eight that fit beside fc1 5 or 6); a
+// box is 16 weight rows x 128 bytes (the swizzle's span), a stage
+// WS_CHUNKS boxes per consumer; ring stages (4 x 24 KB: most of a block's
+// ~100 KB of fc1 or fc2 at C = 1280 is asked for before the wait), at least
+// 2 where a block would not fit otherwise; tiles a cluster takes at most;
+// blocks a cluster at most (a portable cluster); the shared memory a block
+// may take, so that two fit an SM (one of the next launch beside it), and
+// one that leaves room for only one (to count the clusters that fit beside
+// the launch before); fc2's residuals a thread loads beside its share of
+// the input rows; a LayerNorm row's 16-byte vectors a lane holds (so C <=
+// 32 * 8 * LN_VECS = 2048)
+constexpr int WS_CONSUMERS = 6;
+constexpr int WS_THREADS = (WS_CONSUMERS + 1) * 32;
+constexpr int WS_BOX = TILE_ROWS * 128;
+constexpr int WS_CHUNKS = 2;
+constexpr int WS_STAGE = WS_CONSUMERS * WS_CHUNKS * WS_BOX;
+constexpr int WS_STAGES = 4;
+constexpr int WS_MIN_STAGES = 2;
+constexpr int WS_MAX_TILES = 8;
+constexpr int WS_MAX_SPLIT = 8;
+constexpr size_t WS_SMEM_MAX = 113 * 1024;
+constexpr size_t WS_ONE_PER_SM = 200 * 1024;
+constexpr int RES_REGS = 2;
+constexpr int LN_VECS = 8;
+// the staged input rows' padding in bf16: 16 bytes (bf16 weights: 4-byte
+// B loads, rows 4 banks apart) or 32 (int8: 8-byte loads, 8 banks apart),
+// so that a warp's B fragment loads fall on distinct banks
+template <typename WT>
+struct WsPad {
+  static constexpr int N = sizeof(WT) == 1 ? 16 : 8;
+};
 // decode_attention: keys per tile, the ring's tiles (all of a block's K
 // and V tiles at Ta = 1500 over eight blocks are in flight at once), blocks
 // per (row, head) at most (a portable cluster), the keys per block its
@@ -583,6 +624,371 @@ gemv_tc_kernel(const __nv_bfloat16* __restrict__ x, int n_rows, int n_in, int ch
       for (int v = 0; v < WARPS; ++v) sum += all[(v * TILE_ROWS + m) * OUT + n];
       epilogue<T, WT, GELU, RESID, F32OUT>(seg, s, rr0 + n, (size_t)(b0 + m), seg_rows, sum);
     }
+  }
+}
+
+// the sum of a 16-byte vector's eight bf16, and of their squared
+// deviations from m
+__device__ __forceinline__ float sum8(uint4 u) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = unpack_bf16x2(w[i]);
+    s += f.x + f.y;
+  }
+  return s;
+}
+
+__device__ __forceinline__ float sqdev8(uint4 u, float m) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = unpack_bf16x2(w[i]);
+    s += (f.x - m) * (f.x - m) + (f.y - m) * (f.y - m);
+  }
+  return s;
+}
+
+// row b0 + b's 16-byte vector at column k of x (rows of n values), or
+// zeros where b >= nb or k >= end: a predicated load, whose use the caller
+// keeps apart, so that a thread's loads are in flight together (a load and
+// its use under one branch wait for the load before them), and no load for
+// a row or column past the end (an address that every block asks for at
+// once would queue them all at one L2 slice)
+__device__ __forceinline__ uint4 row_vec(const __nv_bfloat16* x, int b0, int b, int nb, int n, int k, int end) {
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  if (b < nb && k < end) u = *reinterpret_cast<const uint4*>(x + (size_t)(b0 + b) * n + k);
+  return u;
+}
+
+// LayerNorm of one row a warp holds, lane l its 16-byte vectors l + 32 i
+// (zeros past n): the mean, then the mean square deviation (as layer_norm
+// takes them), each over the warp in warp_sum's order; the vectors in
+// columns [k0, k1) normalised and rounded into row[k - k0], with the
+// weights of column k at g[k - k0] and b[k - k0]
+__device__ __forceinline__ void ln_row(const uint4 (&v)[LN_VECS], int n, int k0, int k1,
+                                       const __nv_bfloat16* g, const __nv_bfloat16* b, __nv_bfloat16* row) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < LN_VECS; ++i) s += sum8(v[i]);  // zeros past n
+  const float mean = warp_sum(s) / n;
+  float s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < LN_VECS; ++i)
+    if (8 * (lane + 32 * i) < n) s2 += sqdev8(v[i], mean);
+  const float rstd = rsqrtf(warp_sum(s2) / n + LN_EPS);
+#pragma unroll
+  for (int i = 0; i < LN_VECS; ++i) {
+    const int k = 8 * (lane + 32 * i);
+    if (k < k0 || k >= k1) continue;
+    const uint4 gv = *reinterpret_cast<const uint4*>(g + k - k0);
+    const uint4 bv = *reinterpret_cast<const uint4*>(b + k - k0);
+    const uint32_t xw[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+    const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w}, bw[4] = {bv.x, bv.y, bv.z, bv.w};
+    uint32_t o[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 f = unpack_bf16x2(xw[q]), gf = unpack_bf16x2(gw[q]), bf = unpack_bf16x2(bw[q]);
+      o[q] = pack_bf16x2((f.x - mean) * rstd * gf.x + bf.x, (f.y - mean) * rstd * gf.y + bf.y);
+    }
+    *reinterpret_cast<uint4*>(row + k - k0) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// mlp_stream_kernel's output i of a rank that owns `own` rows of each of
+// its cluster's tiles from t0 on, nb input rows: tile i / (own nb), input
+// row n, owned row fastest; returns the output row
+__device__ __forceinline__ int owned_row(int i, int own, int nb, int t0, int rank, int& n) {
+  const int tl = i / (own * nb), e = i - tl * own * nb;
+  n = e / own;
+  return (t0 + tl) * TILE_ROWS + rank * own + (e - n * own);
+}
+
+// acc += the NB (1 or 2) boxes at box (16 weight rows x 128 bytes each,
+// swizzled, WS_BOX apart, columns col, col + KC, ... of the staged rows xs)
+// times the staged rows: box i's k16 steps into the chains acc[2 i + step
+// % 2], so that a warp has four independent chains of mma in flight.
+// 16-byte chunk q of a box row r lies where the 128-byte swizzle put it:
+// q ^ (r % 8).  int8: ldmatrix moves four int8 a lane as one 32-bit pair;
+// lane (g, t) holds bytes 4t .. 4t + 3 of rows g and g + 8 of a chunk,
+// converted to bf16 in registers (exactly), as the step's k 2t, 2t + 1 and
+// 2t + 8, 2t + 9, and takes the input row's four bf16 there (the same
+// permutation on both sides of the dot product).
+template <typename WT, int NT, int NB>
+__device__ __forceinline__ void mma_boxes(const unsigned char* box, const __nv_bfloat16* xs, int ldx, int col,
+                                          float (&acc)[4][NT][4]) {
+  using T = __nv_bfloat16;
+  constexpr int KC = 128 / (int)sizeof(WT);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, r = lane & 15;
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+#pragma unroll
+    for (int kk = 0; kk < 8; kk += 2) {
+      uint32_t raw[4];
+      ldmatrix_x4(raw, box + i * WS_BOX + r * 128 + (((kk + (lane >> 4)) ^ (r & 7)) << 4));
+      if constexpr (std::is_same<WT, int8_t>::value) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // chunks kk + h: a k16 step of 16 int8 each
+          const uint32_t lo = raw[2 * h] ^ 0x80808080u, hi = raw[2 * h + 1] ^ 0x80808080u;
+          const uint32_t a[4] = {bf16x2_of_i8(lo, 0), bf16x2_of_i8(hi, 0), bf16x2_of_i8(lo, 2),
+                                 bf16x2_of_i8(hi, 2)};
+          const int k = col + i * KC + 16 * (kk + h) + 4 * t;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const uint2 bv = *reinterpret_cast<const uint2*>(xs + (8 * j + g) * ldx + k);
+            const uint32_t bb[2] = {bv.x, bv.y};
+            mma_bf16_m16n8k16(acc[2 * i + h][j], a, bb);
+          }
+        }
+      } else {  // chunks kk and kk + 1: a k16 step of 16 bf16
+        const int k = col + i * KC + 8 * kk + 2 * t;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const T* hp = xs + (8 * j + g) * ldx + k;
+          const uint32_t bb[2] = {*reinterpret_cast<const uint32_t*>(hp), *reinterpret_cast<const uint32_t*>(hp + 8)};
+          mma_bf16_m16n8k16(acc[2 * i + ((kk >> 1) & 1)][j], raw, bb);
+        }
+      }
+    }
+  }
+}
+
+// K5's products in bf16 (mlp_stream_kernel): y[b, r] = epilogue(W[r, :] .
+// h[b, :]) for W (n_out, n_in) of type WT, bf16 or int8 (scales in the
+// epilogue), and the rows b of this block's row tile, blockIdx.y * 16 + [0,
+// nb), h = x or LayerNorm(x) rowwise, rounded to bf16.
+// At one to sixteen rows the product is a stream of weights, each read once
+// for every row, so the weights are the M side of mma.m16n8k16 (tiles of 16
+// output rows) and the input rows its N side (n8 tiles: NT = 1 up to 8
+// rows, 2 up to 16; one row pads to 8), as E2's logits_vc_kernel multiplies.
+// The grid is persistent: clusters of `split` blocks, one block per SM (so
+// that a block of the next launch fits beside each under programmatic
+// dependent launch), cluster q owning a contiguous range of the tiles and
+// rank r of it a contiguous range of the inputs, both equal to within one
+// (chunks of 128 bytes of weights: 64 bf16 or 128 int8 columns, `per` at
+// most): fc2's 80 tiles over eight ranks leave no cluster a second wave.
+// A producer warp streams the block's weights through a ring of `stages`
+// stages by TMA (boxes of 16 rows x 128 bytes, 128-byte swizzle, zero-filled
+// past the tensor's edges); the weights are constants of the step, so it
+// starts before pdl_wait() and its stages land while the launch before this
+// one drains.  Stage u holds chunks c, c + 1 of a group of up to
+// WS_CONSUMERS tiles, and consumer warp w owns tile w of each group: it
+// accumulates the tile over the rank's chunks alone, in four chains of mma
+// (two boxes, even and odd k16 steps) added at the tile's end, so no two
+// warps share a tile.  Before the wait the consumers fetch what is constant
+// (the epilogue's scales and biases, fc1's LayerNorm weights); after it
+// they stage the rows' slice of the inputs once (fc1: each warp a row pair's
+// LayerNorm from registers; fc2: with its residuals) and only then let the
+// next launch start, whose weight stream would otherwise queue ahead of
+// these reads; then they take their boxes: A fragments from the swizzled
+// box by ldmatrix, B fragments from the staged rows.  A finished tile's
+// rows go to the ranks that own them (rank r: rows r * 16 / split ...,
+// through distributed shared memory), and after one cluster barrier each
+// rank adds its rows' parts in rank order (deterministic) and runs the
+// epilogue: one rounding of the f32 sum (times the int8 scale), then the
+// bias, GELU and residual each rounded, as epilogue() does.
+template <typename WT, int NT, bool LN, bool GELU, bool RESID>
+__global__ void __launch_bounds__(WS_THREADS, 2)
+mlp_stream_kernel(const __grid_constant__ CUtensorMap tw, const __nv_bfloat16* __restrict__ x, int n_rows,
+                  int n_in, int n_out, const __nv_bfloat16* __restrict__ ln_g,
+                  const __nv_bfloat16* __restrict__ ln_b, Segments<__nv_bfloat16, WT> seg, int per,
+                  int stages) {
+  using T = __nv_bfloat16;
+  static_assert(!(LN && RESID), "fc1 normalises its input, fc2 adds the residual");
+  constexpr int NC = WS_CONSUMERS;
+  constexpr int KC = 128 / (int)sizeof(WT);  // weight columns per box
+  constexpr int OUT = 8 * NT;                // input rows of a tile, padded
+  extern __shared__ unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int clusters = (int)gridDim.x / split, cq = (int)blockIdx.x / split;
+  const int n_tiles = (n_out + TILE_ROWS - 1) / TILE_ROWS;
+  const int tq = n_tiles / clusters, trem = n_tiles % clusters, tmax = tq + (trem > 0);
+  const int t0 = cq * tq + min(cq, trem), n_tl = tq + (cq < trem ? 1 : 0);
+  const int chunks = (n_in + KC - 1) / KC, cn = chunks / split, crem = chunks % split;
+  const int c0 = rank * cn + min(rank, crem), nkc = cn + (rank < crem ? 1 : 0);
+  const int spg = (nkc + WS_CHUNKS - 1) / WS_CHUNKS;  // stages per group of tiles
+  const int n_stages = (n_tl + NC - 1) / NC * spg;
+  const int k0 = c0 * KC, k1 = min(n_in, k0 + nkc * KC), kw = per * KC, ldx = kw + WsPad<WT>::N;
+  const int own = TILE_ROWS / split;  // output rows of a tile each rank finishes
+  const int b0 = blockIdx.y * TILE_ROWS, nb = min(TILE_ROWS, n_rows - b0);
+  const int n_fin = n_tl * own * nb;  // this rank's outputs
+  // shared memory: the ring (1024-byte aligned, the swizzle's period), the
+  // parts of the tiles' rows this rank owns (tiles, split, own, OUT), the
+  // epilogue's scale, bias and residual per output, the staged rows (OUT,
+  // ldx), the LayerNorm weights of the rank's columns, the barriers
+  unsigned char* ring = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  float* recv = reinterpret_cast<float*>(ring + stages * WS_STAGE);
+  float* ep = recv + tmax * TILE_ROWS * OUT;  // (3, tmax * 16 * OUT / split)
+  const int ep_n = tmax * own * OUT;
+  T* xs = reinterpret_cast<T*>(ep + 3 * ep_n);
+  T* lns = xs + OUT * ldx;  // (2, kw): the LayerNorm weights of the rank's columns, LN only
+  uint64_t* full = reinterpret_cast<uint64_t*>(lns + (LN ? 2 * kw : 0));
+  uint64_t* empty = full + stages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], NC);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  // every block of the cluster has started before any writes into another's
+  // shared memory: this arrival, and the wait before the first such write
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+
+  if (warp == NC) {  // the producer: every stage of the block, before the wait
+    if (lane == 0) {
+      for (int u = 0; u < n_stages; ++u) {
+        const int s = u % stages, gi = u / spg, c = (u - gi * spg) * WS_CHUNKS;
+        const int tiles = min(NC, n_tl - gi * NC), nch = min(WS_CHUNKS, nkc - c);
+        hopper::mbar_wait(&empty[s], ((u / stages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], tiles * nch * WS_BOX);
+        for (int w = 0; w < tiles; ++w)
+          for (int i = 0; i < nch; ++i)
+            hopper::tma_load_2d(ring + s * WS_STAGE + (w * WS_CHUNKS + i) * WS_BOX, &tw, &full[s],
+                                (c0 + c + i) * KC, (t0 + gi * NC + w) * TILE_ROWS);
+      }
+    }
+    __syncwarp();  // the warp meets the cluster barriers converged
+    asm volatile("barrier.cluster.wait;\n" ::: "memory");
+  } else {
+    const int ct = threadIdx.x;  // 0 .. NC * 32
+    // Output i of this rank: tile i / (own nb), input row n, owned row m
+    // (fastest); before the wait its scale and bias (constants), after it
+    // the residual.
+#pragma unroll 4
+    for (int i = ct; i < n_fin; i += NC * 32) {
+      int n;
+      const int rr = min(owned_row(i, own, nb, t0, rank, n), n_out - 1);
+      ep[i] = seg.s[0] != nullptr ? seg.s[0][rr] : 1.f;
+      ep[ep_n + i] = seg.b[0] != nullptr ? to_f(seg.b[0][rr]) : 0.f;
+    }
+    if (LN) {  // the rank's LayerNorm weights, constants: before the wait
+      for (int v = ct; v < kw / 8; v += NC * 32) {
+        *reinterpret_cast<uint4*>(lns + 8 * v) = row_vec(ln_g, 0, 0, 1, 0, k0 + 8 * v, k1);
+        *reinterpret_cast<uint4*>(lns + kw + 8 * v) = row_vec(ln_b, 0, 0, 1, 0, k0 + 8 * v, k1);
+      }
+    }
+    pdl_wait();  // x (and the residual) are the launches before's
+    // rows [0, OUT) of the tile, columns [k0, k0 + kw): x (LayerNorm-ed and
+    // rounded for fc1) inside [k0, k1) of the rows < nb, zeros elsewhere
+    if (LN) {
+      // warp w takes rows w and w + NC together (then w + 2 NC, ...), each
+      // lane the row's 16-byte vectors lane + 32 i, i < LN_VECS, held in
+      // registers from one round trip: the mean, then the mean square
+      // deviation, over the whole row (as layer_norm takes them), then the
+      // vectors in the rank's columns normalised into the staged rows
+      const int vecs = kw / 8;
+      for (int v = ct; v < OUT * vecs; v += NC * 32) {  // zeros past nb and past k1
+        const int b = v / vecs, k = k0 + 8 * (v - b * vecs);
+        if (b >= nb || k >= k1) *reinterpret_cast<uint4*>(xs + b * ldx + k - k0) = make_uint4(0u, 0u, 0u, 0u);
+      }
+      asm volatile("bar.sync 1, %0;\n" ::"n"(NC * 32) : "memory");  // the LayerNorm weights are in
+#pragma unroll 1
+      for (int b = warp; b < nb; b += 2 * NC) {
+        uint4 r0[LN_VECS], r1[LN_VECS];
+#pragma unroll
+        for (int i = 0; i < LN_VECS; ++i) {
+          r0[i] = row_vec(x, b0, b, nb, n_in, 8 * (lane + 32 * i), n_in);
+          r1[i] = row_vec(x, b0, b + NC, nb, n_in, 8 * (lane + 32 * i), n_in);
+        }
+        ln_row(r0, n_in, k0, k1, lns, lns + kw, xs + b * ldx);
+        if (b + NC < nb) ln_row(r1, n_in, k0, k1, lns, lns + kw, xs + (b + NC) * ldx);
+      }
+    } else {
+      // the residual of the rank's first outputs loaded beside x (one round
+      // trip), the rest after
+      const T* res = seg.res != nullptr ? seg.res : static_cast<const T*>(seg.out[0]);
+      float rv[RES_REGS];
+#pragma unroll
+      for (int r = 0; r < RES_REGS; ++r) {
+        const int i = ct + NC * 32 * r;
+        int n = 0;
+        const int rr = i < n_fin ? owned_row(i, own, nb, t0, rank, n) : n_out;
+        rv[r] = RESID && rr < n_out ? to_f(res[(size_t)(b0 + n) * n_out + rr]) : 0.f;
+      }
+      const int vecs = kw / 8;
+#pragma unroll 4
+      for (int v = ct; v < OUT * vecs; v += NC * 32) {
+        const int b = v / vecs, k = k0 + 8 * (v - b * vecs);
+        *reinterpret_cast<uint4*>(xs + b * ldx + k - k0) = row_vec(x, b0, b, nb, n_in, k, k1);
+      }
+      if (RESID) {
+#pragma unroll
+        for (int r = 0; r < RES_REGS; ++r)
+          if (ct + NC * 32 * r < n_fin) ep[2 * ep_n + ct + NC * 32 * r] = rv[r];
+        for (int i = ct + NC * 32 * RES_REGS; i < n_fin; i += NC * 32) {
+          int n;
+          const int rr = min(owned_row(i, own, nb, t0, rank, n), n_out - 1);
+          ep[2 * ep_n + i] = to_f(res[(size_t)(b0 + n) * n_out + rr]);
+        }
+      }
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(NC * 32) : "memory");  // the rows are staged
+    // the next launch may start now: its weights then stream beside this
+    // launch's, not ahead of the reads of x above
+    pdl_trigger();
+    asm volatile("barrier.cluster.wait;\n" ::: "memory");
+
+    const int g = lane >> 2, t = lane & 3;
+    float acc[4][NT][4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) acc[h][j][0] = acc[h][j][1] = acc[h][j][2] = acc[h][j][3] = 0.f;
+    for (int u = 0; u < n_stages; ++u) {
+      const int s = u % stages, gi = u / spg, c = (u - gi * spg) * WS_CHUNKS;
+      const bool mine = gi * NC + warp < n_tl;
+      hopper::mbar_wait(&full[s], (u / stages) & 1);
+      if (mine) {
+        const unsigned char* box = ring + s * WS_STAGE + warp * WS_CHUNKS * WS_BOX;
+        if (nkc - c >= 2) mma_boxes<WT, NT, 2>(box, xs, ldx, c * KC, acc);
+        else mma_boxes<WT, NT, 1>(box, xs, ldx, c * KC, acc);
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+      if (mine && c + WS_CHUNKS >= nkc) {  // the tile is done: its rows to their owners
+        const int tl = gi * NC + warp;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {  // rows g and g + 8
+            const int m = g + 8 * hh;
+            const float2 v = make_float2(
+                (acc[0][j][2 * hh] + acc[1][j][2 * hh]) + (acc[2][j][2 * hh] + acc[3][j][2 * hh]),
+                (acc[0][j][2 * hh + 1] + acc[1][j][2 * hh + 1]) + (acc[2][j][2 * hh + 1] + acc[3][j][2 * hh + 1]));
+            float* dst = recv + ((tl * split + rank) * own + m % own) * OUT + 8 * j + 2 * t;
+            *reinterpret_cast<float2*>(cluster.map_shared_rank(dst, m / own)) = v;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) acc[h][j][0] = acc[h][j][1] = acc[h][j][2] = acc[h][j][3] = 0.f;
+      }
+    }
+  }
+
+  cluster.sync();  // every rank's parts are in their owners' shared memory
+  if (warp == NC) return;
+  for (int i = threadIdx.x; i < n_fin; i += NC * 32) {
+    const int tl = i / (own * nb), e = i - tl * own * nb, n = e / own, m = e - n * own;
+    const int rr = (t0 + tl) * TILE_ROWS + rank * own + m;
+    if (rr >= n_out) continue;
+    const float* p = recv + (tl * split * own + m) * OUT + n;
+    float sum = 0.f;
+    for (int rk = 0; rk < split; ++rk) sum += p[rk * own * OUT];
+    float y = round_to<T>(sum * ep[i]);
+    if (seg.b[0] != nullptr) y = round_to<T>(y + ep[ep_n + i]);
+    if (GELU) y = round_to<T>(gelu_erf(y));
+    if (RESID) y = round_to<T>(ep[2 * ep_n + i] + y);
+    static_cast<T*>(seg.out[0])[(size_t)(b0 + n) * n_out + rr] = from_f<T>(y);
   }
 }
 
@@ -1073,6 +1479,129 @@ void gemv(Chain& chain, const T* x, int nb, int n_in, const T* g, const T* b, Se
 #undef GEMV
 }
 
+// mlp_stream_kernel's dynamic shared memory: the ring (and its alignment),
+// the parts of the owned rows of tmax tiles, the epilogue's values per
+// output, OUT staged rows of `per` chunks, fc1's LayerNorm weights, the
+// barriers
+template <typename WT, bool LN>
+size_t stream_smem(int nt, int tmax, int split, int per, int stages) {
+  const int out = 8 * nt, kw = per * (128 / (int)sizeof(WT));
+  return 1024 + (size_t)stages * WS_STAGE + (size_t)tmax * TILE_ROWS * out * sizeof(float) +
+         (size_t)3 * tmax * (TILE_ROWS / split) * out * sizeof(float) +
+         (size_t)out * (kw + WsPad<WT>::N) * sizeof(__nv_bfloat16) + (LN ? 2 * kw * sizeof(__nv_bfloat16) : 0) +
+         2 * stages * sizeof(uint64_t);
+}
+
+// the clusters of `split` blocks of `kernel` at `smem` that the card holds
+// at once (cudaOccupancyMaxActiveClusters), asked once per kernel, split
+// and size
+inline int active_clusters(const void* kernel, int split, size_t smem) {
+  static std::mutex mu;
+  static std::unordered_map<const void*, std::unordered_map<uint64_t, int>> known;
+  std::lock_guard<std::mutex> lock(mu);
+  auto& of = known[kernel];
+  const uint64_t key = (uint64_t)split << 32 | (uint64_t)smem;
+  auto it = of.find(key);
+  if (it != of.end()) return it->second;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)split;
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)split);
+  cfg.blockDim = dim3(WS_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (allow_smem(kernel, smem) != cudaSuccess || cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess)
+    n = 0;
+  return of[key] = n;
+}
+
+// mlp_stream_kernel's grid for NT n tiles: clusters of `split` blocks, as
+// many as fit beside a block of the launch before on every SM (one block an
+// SM), more where a cluster would otherwise take more than WS_MAX_TILES
+// tiles.  The split (1, 2, 4 or 8) is the one whose busiest block takes the
+// fewest stages (times the waves of clusters), the smaller on a tie, among
+// those whose block fits WS_SMEM_MAX: at C = 1280, F = 5120 fc1 takes 2
+// (66 clusters of 4-5 tiles, half the inputs each), fc2 8 (15 clusters of
+// 5-6 tiles, an eighth of the inputs each), so a block streams 100-120 KB
+// of bf16 weights where 13.1 MB over 132 SMs is 99 KB.  Row tiles of 16
+// rows are the grid's y, each streaming the weights (from L2 after the
+// first).
+template <typename WT, int NT, bool LN, bool GELU, bool RESID>
+void stream_grid(Chain& chain, const CUtensorMap& tw, const __nv_bfloat16* x, int n_rows, int n_in,
+                 const __nv_bfloat16* g, const __nv_bfloat16* b, Segments<__nv_bfloat16, WT> seg, int n_out) {
+  constexpr int KC = 128 / (int)sizeof(WT);
+  const void* kernel = reinterpret_cast<const void*>(mlp_stream_kernel<WT, NT, LN, GELU, RESID>);
+  const int sms = sm_count(), tiles = (n_out + TILE_ROWS - 1) / TILE_ROWS, chunks = (n_in + KC - 1) / KC;
+  int split = 0, clusters = 0, per = 0, stages = 0;
+  size_t smem = 0;
+  long best = 0;
+  for (int sp = 1; sp <= WS_MAX_SPLIT && sp <= chunks; sp *= 2) {
+    // the clusters that fit beside a block of the launch before on every SM
+    // (shared memory for one block an SM): 15 of eight blocks, not 16, on an
+    // H100, whose GPCs are not all a multiple of eight SMs
+    const int fit = active_clusters(kernel, sp, WS_ONE_PER_SM);
+    if (fit < 1) continue;
+    const int q = max(min(sms / sp, fit), (tiles + WS_MAX_TILES - 1) / WS_MAX_TILES);
+    const int tmax = (tiles + q - 1) / q, pr = (chunks + sp - 1) / sp;
+    int st = WS_STAGES;  // the deepest ring that fits, at least WS_MIN_STAGES deep
+    while (st > WS_MIN_STAGES && stream_smem<WT, LN>(NT, tmax, sp, pr, st) > WS_SMEM_MAX) --st;
+    const size_t sm = stream_smem<WT, LN>(NT, tmax, sp, pr, st);
+    // the stages a block takes (a stage takes a warp's time, whether or not
+    // every warp has a box in it), times the waves of clusters
+    const long cost = (long)((tmax + WS_CONSUMERS - 1) / WS_CONSUMERS) * pr * ((q + fit - 1) / fit);
+    if (sm <= WS_SMEM_MAX && (split == 0 || cost < best))
+      split = sp, clusters = q, per = pr, stages = st, smem = sm, best = cost;
+  }
+  // every SM's shared memory as shared memory, so that a block of the next
+  // launch (fc2 after fc1) fits beside this one: a carveout chosen for this
+  // kernel alone holds two of its blocks and may leave too little for a
+  // larger block of the next
+  static const cudaError_t carveout =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (split == 0 || carveout != cudaSuccess) {
+    chain.fail(split == 0 ? cudaErrorInvalidConfiguration : carveout);
+    return;
+  }
+  chain.launch(mlp_stream_kernel<WT, NT, LN, GELU, RESID>, dim3(clusters * split, (n_rows + TILE_ROWS - 1) / TILE_ROWS),
+               WS_THREADS, smem, split, tw, x, n_rows, n_in, n_out, g, b, seg, per, stages);
+}
+
+// K5's products in bf16: out = epilogue(W . h) for W = seg.w[0] (n_out,
+// n_in) through mlp_stream_kernel, its TMA map built here per launch (a
+// launch captured in a CUDA graph keeps its own)
+template <typename WT, bool LN, bool GELU, bool RESID>
+void stream_launch(Chain& chain, const __nv_bfloat16* x, int n_rows, int n_in, const __nv_bfloat16* g,
+                   const __nv_bfloat16* b, Segments<__nv_bfloat16, WT> seg, int n_out) {
+  constexpr bool W8 = std::is_same<WT, int8_t>::value;
+  const WT* w = seg.w[0];
+  if (reinterpret_cast<uintptr_t>(w) % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      (LN && (reinterpret_cast<uintptr_t>(g) % 16 != 0 || reinterpret_cast<uintptr_t>(b) % 16 != 0))) {
+    chain.fail(cudaErrorMisalignedAddress);
+    return;
+  }
+  if (n_in % 8 != 0 || (LN && n_in > 256 * LN_VECS)) {
+    chain.fail(cudaErrorInvalidValue);
+    return;
+  }
+  CUtensorMap tw;
+  const uint64_t dims[2] = {(uint64_t)n_in, (uint64_t)n_out};
+  const uint64_t strides[1] = {(uint64_t)n_in * sizeof(WT)};
+  const uint32_t box[2] = {128 / (uint32_t)sizeof(WT), (uint32_t)TILE_ROWS};
+  if (hopper::make_tmap(&tw, W8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, 2, dims,
+                        strides, box) != 0) {
+    chain.fail(cudaErrorInvalidValue);
+    return;
+  }
+  if (min(n_rows, TILE_ROWS) <= 8)
+    stream_grid<WT, 1, LN, GELU, RESID>(chain, tw, x, n_rows, n_in, g, b, seg, n_out);
+  else
+    stream_grid<WT, 2, LN, GELU, RESID>(chain, tw, x, n_rows, n_in, g, b, seg, n_out);
+}
+
 // cross-attention launch for A audios of G rows each: the kernel instance
 // for the largest NQ <= 8 that divides G, over A * G / NQ query groups;
 // the G / NQ groups of an audio read its K/V (one audio's stride apart).
@@ -1102,14 +1631,20 @@ void cross_attention(Chain& chain, int G, int A, size_t stride, int n_head, int 
 // K5, and K2's MLP stage: out (B, C) = x + fc2(gelu(fc1(LayerNorm(x)))),
 // in place where out is x, through ff (B, F) of scratch; weights (F, C)
 // and (C, F) of type WT with scales s1 (F) and s2 (C) when int8 (else
-// null), biases may be null
+// null), biases may be null.  bf16: mlp_stream_kernel (x, ff, ln_g, ln_b
+// and the weights 16-byte aligned, C <= 2048); f32: the CUDA-core GEMV.
 template <typename T, typename WT>
 void mlp_stage(Chain& chain, const T* x, T* out, T* ff, int B, int C, int F, const T* ln_g, const T* ln_b,
                const WT* w1, const float* s1, const T* b1, const WT* w2, const float* s2, const T* b2) {
   Segments<T, WT> s_fc1 = {{w1}, {s1}, {b1}, {ff}};
-  gemv<T, WT, true, true, false>(chain, x, B, C, ln_g, ln_b, s_fc1, F, F);
   Segments<T, WT> s_fc2 = {{w2}, {s2}, {b2}, {out}, x == out ? nullptr : x};
-  gemv<T, WT, false, false, true>(chain, ff, B, F, nullptr, nullptr, s_fc2, C, C);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    stream_launch<WT, true, true, false>(chain, x, B, C, ln_g, ln_b, s_fc1, F);
+    stream_launch<WT, false, false, true>(chain, ff, B, F, nullptr, nullptr, s_fc2, C);
+  } else {
+    gemv<T, WT, true, true, false>(chain, x, B, C, ln_g, ln_b, s_fc1, F, F);
+    gemv<T, WT, false, false, true>(chain, ff, B, F, nullptr, nullptr, s_fc2, C, C);
+  }
 }
 
 // one step's arguments, as fused_decoder_layers takes them

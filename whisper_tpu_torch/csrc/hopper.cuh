@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's kernels that feed the
-// tensor cores by TMA and wgmma: K1's bf16 instance (attention.cu) and E1's
-// (matmul_residual.cu).  mma.cuh keeps the mma.sync / ldmatrix / cp.async
-// blocks of K2, E2 and E3.
+// tensor cores by TMA: K1's bf16 instance (attention.cu) and E1's
+// (matmul_residual.cu) on wgmma; E2's (V, C) ring (logits.cu) and K5's
+// weight stream (fused_step.cu) on mma.sync.  mma.cuh keeps the mma.sync
+// / ldmatrix / cp.async blocks of K2, E2 and E3.
 //
 // - mbarrier: init, arrive, arrive_expect_tx and try_wait.parity.  A ring
 //   stage has a "full" barrier (the producer's expected bytes; TMA counts
@@ -112,18 +113,23 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// A row-major bf16 tensor of `rank` dims (dims[0] innermost, contiguous;
-// strides[i] the byte stride of dim i + 1, multiples of 16), read in boxes
-// of box[0] x box[1] (x 1 ...) elements, box[0] = 64 (128 bytes, the
-// swizzle's span), with the 128-byte swizzle and zero fill past the edges.
-// The global address must be 16-byte aligned.  Returns a CUresult.
+// A row-major tensor of `rank` dims of `type` (dims[0] innermost,
+// contiguous; strides[i] the byte stride of dim i + 1, multiples of 16),
+// read in boxes of box[0] x box[1] (x 1 ...) elements, box[0] 128 bytes
+// wide (the swizzle's span: 64 bf16, 128 int8), with the 128-byte swizzle
+// and zero fill past the edges.  The global address must be 16-byte
+// aligned.  Returns a CUresult.
+inline int make_tmap(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                     const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return (int)cuTensorMapEncodeTiled(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box,
+                                     elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 inline int make_tmap_bf16(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                           const uint64_t* strides, const uint32_t* box) {
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return (int)cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                                     const_cast<void*>(base), dims, strides, box, elem,
-                                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return make_tmap(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
 }
 
 // before every launch of a kernel with a producer warpgroup and
