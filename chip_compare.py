@@ -20,6 +20,7 @@ one shared position), on random large-v3-turbo weights (seed 0, bf16):
   the CLI default path: transcribe(jfk.flac) with beam 5, best-of 5 on
       the 0.2-step ladder and word timestamps.
 
+``--only`` picks parts (k2, k5, e2, words, windows, cli; all by default).
 It also times, through the K2, K5 and E2 wrappers' calls (the same in
 every version of the port that has E2), K2 at every row of PERF.md's
 kernel table (one and five rows at t = 200, 16 x 1, 3 x 5, 16 x 5, 32 x 5
@@ -28,7 +29,8 @@ int8+kv_int8 form, the pending block at T = 448 with 7 of 8 columns), K5
 (mlp_fused) at 1, 5, 16 and 125 rows with bf16 and int8 weights, and E2
 in both layouts at B = 1, 5 and 16 beside bf16 torch.mm: device time per
 call (a CUDA graph replayed) and the time of back-to-back calls (CUDA
-events).
+events); and the word-timing kernels, K3 at (40, 1, 256, 1500) width 7 and
+K4 at n = 253, m = 1500 for one matrix and 16, the same two ways.
 
 Walls are medians of N runs after a warm-up.  The last line is one JSON
 object with the tree's numbers.  Run it for two trees in turns in one call
@@ -230,10 +232,38 @@ def e2_table(device) -> dict:
     return out
 
 
+def word_timing_table(device) -> dict:
+    """K3 (median_filter) at the word-timing shape (40, 1, 256, 1500) f32,
+    width 7, and K4 (dtw_trace) at n = 253, m = 1500 for one matrix and 16,
+    random inputs from a seed, through the wrappers' calls every version of
+    the port has: {label: [device ms, events ms]}."""
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.dtw import dtw_trace
+    from whisper_tpu_torch.ops.kernels.median import median_filter
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    x3 = torch.randn((40, 1, 256, 1500), generator=gen, device=device)
+    calls = {"K3 (40,1,256,1500) w7": lambda: median_filter(x3, 7)}
+    for B in (1, 16):
+        x4 = torch.randn((B, 253, 1500), generator=gen, device=device)
+        calls[f"K4 B={B} 253 x 1500"] = lambda x4=x4: dtw_trace(x4, 253, 1500)
+    out = {}
+    for label, fn in calls.items():
+        out[label] = [device_ms(fn), events_ms(fn)]
+        log(f"{label}: {out[label][0]:.4f} ms device, {out[label][1]:.4f} ms back to back")
+    return out
+
+
+PARTS = ("k2", "k5", "e2", "words", "windows", "cli")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("tree", help="root of the checkout to time")
     parser.add_argument("--runs", type=int, default=5, help="timed runs of each window")
+    parser.add_argument("--only", default=",".join(PARTS),
+                        help=f"comma-separated parts to time, of {','.join(PARTS)} (default: all)")
     args = parser.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -265,8 +295,18 @@ def main() -> int:
     _lib.lib()  # built from the tree's sources when missing or stale
     log(f"kernel library ready: {time.perf_counter() - t0:.2f} s")
 
-    row = {"tree": args.tree, "k2_b1_ms": k2_ms(device, 1), "k2_b5_ms": k2_ms(device, 5),
-           "k2": k2_table(device), "k5": k5_table(device), "e2": e2_table(device)}
+    parts = set(args.only.split(","))
+    if not parts <= set(PARTS):
+        raise SystemExit(f"--only: parts of {PARTS}, got {sorted(parts - set(PARTS))}")
+    row = {"tree": args.tree}
+    if "k2" in parts:
+        row.update(k2_b1_ms=k2_ms(device, 1), k2_b5_ms=k2_ms(device, 5), k2=k2_table(device))
+    for part, table in (("k5", k5_table), ("e2", e2_table), ("words", word_timing_table)):
+        if part in parts:
+            row[part] = table(device)
+    if not parts & {"windows", "cli"}:
+        print(json.dumps(row))
+        return 0
     dims = KNOWN_MODELS["turbo"]
     model = whisper_tpu_torch.Whisper(
         dims, init_params(dims, torch.Generator(device=device).manual_seed(0), torch.bfloat16, device)
@@ -274,27 +314,31 @@ def main() -> int:
     audio_path = os.path.join(tree, "tests", "jfk.flac")
     audio = whisper_tpu_torch.load_audio(audio_path)
 
-    # the pinned window: timestamp, 107 text tokens, final timestamp, EOT
-    tok = get_tokenizer(model.is_multilingual, num_languages=model.num_languages,
-                        language="en", task="transcribe")
-    text = np.random.RandomState(0).randint(1000, 20000, size=107)
-    forced = [tok.timestamp_begin, *map(int, text), tok.timestamp_begin + 1500, tok.eot]
-    DecodingTask._forced_tokens = forced
-    try:
-        row["pinned_s"] = median_wall(
-            lambda: model.transcribe(audio, language="en", temperature=0.0), args.runs)
-    finally:
-        DecodingTask._forced_tokens = None
-    row["pinned_ms_per_token"] = 1e3 * row["pinned_s"] / len(forced)
+    if "windows" in parts:
+        # the pinned window: timestamp, 107 text tokens, final timestamp, EOT
+        tok = get_tokenizer(model.is_multilingual, num_languages=model.num_languages,
+                            language="en", task="transcribe")
+        text = np.random.RandomState(0).randint(1000, 20000, size=107)
+        forced = [tok.timestamp_begin, *map(int, text), tok.timestamp_begin + 1500, tok.eot]
+        DecodingTask._forced_tokens = forced
+        try:
+            row["pinned_s"] = median_wall(
+                lambda: model.transcribe(audio, language="en", temperature=0.0), args.runs)
+        finally:
+            DecodingTask._forced_tokens = None
+        row["pinned_ms_per_token"] = 1e3 * row["pinned_s"] / len(forced)
 
-    mel = log_mel_spectrogram(pad_or_trim(audio), model.dims.n_mels, device=model.device)
-    features = model.embed_audio(mel[None])
-    task = DecodingTask(model, DecodingOptions(language="en", beam_size=5))
-    before = fused_decoder_layers.launches
-    task.run(features)
-    steps = fused_decoder_layers.launches - before
-    row["beam5_s"] = median_wall(lambda: task.run(features), args.runs)
-    row["beam5_ms_per_step"] = 1e3 * row["beam5_s"] / steps
+        mel = log_mel_spectrogram(pad_or_trim(audio), model.dims.n_mels, device=model.device)
+        features = model.embed_audio(mel[None])
+        task = DecodingTask(model, DecodingOptions(language="en", beam_size=5))
+        before = fused_decoder_layers.launches
+        task.run(features)
+        steps = fused_decoder_layers.launches - before
+        row["beam5_s"] = median_wall(lambda: task.run(features), args.runs)
+        row["beam5_ms_per_step"] = 1e3 * row["beam5_s"] / steps
+        log(f"pinned window {row['pinned_s']:.4f} s ({row['pinned_ms_per_token']:.4f} ms per token); "
+            f"beam-5 window {row['beam5_s']:.4f} s ({steps} steps, {row['beam5_ms_per_step']:.4f} ms "
+            f"per step)")
 
     def cli_path():
         np.random.seed(0)  # the best-of rungs draw their seeds from numpy's RNG
@@ -305,11 +349,9 @@ def main() -> int:
             logprob_threshold=-1.0, no_speech_threshold=0.6,
         )
 
-    row["cli_s"] = median_wall(cli_path, max(1, args.runs // 2))
-    log(f"K2 B=1 {row['k2_b1_ms']:.4f} ms, B=5 {row['k2_b5_ms']:.4f} ms; pinned window "
-        f"{row['pinned_s']:.4f} s ({row['pinned_ms_per_token']:.4f} ms per token); beam-5 window "
-        f"{row['beam5_s']:.4f} s ({steps} steps, {row['beam5_ms_per_step']:.4f} ms per step); "
-        f"CLI default path {row['cli_s']:.3f} s")
+    if "cli" in parts:
+        row["cli_s"] = median_wall(cli_path, max(1, args.runs // 2))
+        log(f"CLI default path {row['cli_s']:.3f} s")
     print(json.dumps(row))
     return 0
 

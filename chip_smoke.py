@@ -9,7 +9,7 @@ Phases, each of which must pass (any failure exits non-zero):
      process per source), with ptxas's registers and spills in short; K1's
      and E1's bf16 instances (TMA + wgmma) must use wgmma (HGMMA in the
      SASS), spill nothing and draw no "serialized" report from ptxas, and
-     no instance of K2's, K5's or E2's kernels may spill;
+     no instance of K2's, K5's, E2's, K3's or K4's kernels may spill;
   3. K1, encoder self-attention, against its plain PyTorch version at
      large-v3-turbo encoder shapes (1, 20, 1500, 64), bf16 and f32, and at
      the 16-window batch (16, 20, 1500, 64) in bf16, beside SDPA, with
@@ -21,9 +21,12 @@ Phases, each of which must pass (any failure exits non-zero):
      operations at the peak of their type, whichever takes longer) and,
      where one PyTorch call computes the same function, that call's time;
   5. K3, the median filter, against its plain version at the word-timing
-     shape (40 heads, 1, 256 tokens, 1500 frames) f32, width 7: bit-equal;
-  6. K4, the DTW trace, against its plain version at n = 253, m = 1500:
-     bit-equal;
+     shape (40 heads, 1, 256 tokens, 1500 frames) f32, width 7, with signed
+     zeros and NaN payloads planted: bit-equal; its time beside its bound;
+  6. K4, the DTW trace, against its plain version at n = 253, m = 1500,
+     one matrix and 16: bit-equal; its time beside its byte bound and its
+     latency bound (n + m - 1 cell updates at the time one takes in a
+     dependent chain, measured by dtw_chain);
   7. the greedy path end to end: a large-v3-turbo model with random weights
      (init_params from a seeded generator, bf16, on the card; the repo holds
      no checkpoint for load_model), transcribe tests/jfk.flac with language
@@ -144,7 +147,15 @@ Phases, each of which must pass (any failure exits non-zero):
      per K2 step);
  32. K5's two launches, fc1 and fc2, split as phase 30 splits a K2 step
      (with the other kernel checks), at 1, 5 and 16 rows, bf16 and int8
-     weights: each launch's device time and the gap before it.
+     weights: each launch's device time and the gap before it;
+ 33. K2 for one audio's group wider than a launch: 1 x 129 and 1 x 200
+     rows at per-row positions against its plain version (launched in two
+     parts of the group), with the other kernel checks; then a best-of-129
+     and a best-of-200 decode of jfk's window on the turbo weights at
+     T = 0.7: K2 launched in parts of 65 + 64 and 100 + 100 rows;
+ 34. a decoder K2 does not take (head dim 32, the tests' tiny dims) decodes
+     on the card through the PyTorch step, chosen by shape, greedy and
+     beam 5 in f32: no K2 launch, the tokens of the same decode on the CPU.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -237,9 +248,9 @@ def ptxas_summary(log: str) -> list:
 
 
 WGMMA_KERNELS = ("encoder_attention_wgmma_kernel", "matmul_residual_wgmma_kernel")  # K1's, E1's bf16
-# K2's, K5's and E2's kernels, redesigned for Hopper: none may spill
+# K2's, K5's, E2's, K3's and K4's kernels, redesigned for Hopper: none may spill
 SPILL_FREE_KERNELS = ("gemv_kernel", "gemv_tc_kernel", "decode_attention_kernel", "mlp_stream_kernel",
-                      "logits_vc_kernel", "logits_cv_kernel")
+                      "logits_vc_kernel", "logits_cv_kernel", "median_kernel", "dtw_trace_kernel")
 
 
 def wgmma_check(log: str, lib_path: str) -> list:
@@ -247,7 +258,7 @@ def wgmma_check(log: str, lib_path: str) -> list:
     spills from ptxas -v, and their HGMMA (wgmma) instructions in the
     library's SASS (cuobjdump).  Raises on ptxas's "wgmma.mma_async
     instructions are serialized" report for any kernel, on a spill in one
-    of them or in any instance of K2's, K5's or E2's kernels
+    of them or in any instance of K2's, K5's, E2's, K3's or K4's kernels
     (SPILL_FREE_KERNELS), or on a wgmma instance without HGMMA."""
     import re
     import shutil
@@ -258,7 +269,7 @@ def wgmma_check(log: str, lib_path: str) -> list:
     kernels = ptxas_kernels(log)
     spilled = {n: s for n, (_, s) in kernels.items() if s and any(k in n for k in SPILL_FREE_KERNELS)}
     if spilled:
-        raise RuntimeError(f"K2/K5/E2 instances spill (mangled name: bytes): {spilled}")
+        raise RuntimeError(f"K2/K5/E2/K3/K4 instances spill (mangled name: bytes): {spilled}")
     checked = [n for n in kernels if any(k in n for k in SPILL_FREE_KERNELS)]
     regs = {n: rs for n, rs in kernels.items() if any(k in n for k in WGMMA_KERNELS)}
     cuobjdump = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
@@ -845,12 +856,16 @@ def check_k3(gen, device):
     x = torch.randn((40, 1, 256, 1500), generator=gen, device=device)
     x[..., ::97] = 0.0  # equal values and signed zeros: the order rule decides
     x[..., 5::89] = -0.0
+    x.view(torch.int32)[..., 7::101] = 0x7FC00001  # NaNs of two payloads
+    x.view(torch.int32)[..., 8::103] = -0x00400001
     out = median_filter(x, 7)
     ref = median_filter_plain(x, 7)
     torch.cuda.synchronize()
     mismatches = int((out.view(torch.int32) != ref.view(torch.int32)).sum().item())
-    err = (out - ref).abs().max().item()
+    finite = torch.isfinite(ref)
+    err = (out[finite] - ref[finite]).abs().max().item()
     ms = time_ms(lambda: median_filter(x, 7), CUDA)
+    device_ms = graph_ms(lambda: median_filter(x, 7))
     plain_ms = time_ms(lambda: median_filter_plain(x, 7), CUDA, iters=5)
 
     def library():  # one PyTorch call chain: reflect pad, windows, median
@@ -858,16 +873,31 @@ def check_k3(gen, device):
         return torch.median(rows.unfold(-1, 7, 1), -1).values
 
     library_ms = time_ms(library, CUDA, iters=5)
-    # read once, written once; per output the 21 compare-exchanges (42
-    # min/max) of a 7-wide odd-even transposition sort, in f32
-    kb = bound(2 * x.numel() * 4, 42 * x.numel(), "float32")
+    # read once, written once; per output 14 32-bit min/max (a pair's 12
+    # compare-exchanges of its six shared keys and one clamp each), counted
+    # at the f32 rate
+    kb = bound(2 * x.numel() * 4, 14 * x.numel(), "float32")
     log(f"K3 median_filter (40,1,256,1500) f32 width 7: {mismatches} outputs differ in any bit "
-        f"(bound 0), max_abs_err {err:.3e}, kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-        f"library (torch.median of unfolded windows) {library_ms:.4f} ms "
-        f"bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}")
+        f"(bound 0), max_abs_err {err:.3e}, kernel {ms:.4f} ms ({device_ms:.4f} ms replayed from a "
+        f"CUDA graph) plain {plain_ms:.4f} ms library (torch.median of unfolded windows) "
+        f"{library_ms:.4f} ms bound {kb['bound_ms']:.4f} ms by {kb['bound_by']} "
+        f"({kb['bound_ms'] / ms:.3f} of it)")
     if mismatches:
         raise RuntimeError(f"K3 disagrees with its plain version in {mismatches} outputs")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **kb)
+
+
+def dtw_update_us(device, iters: int = 1 << 20) -> float:
+    """K4's cell update as one dependent chain (csrc/dtw.cu dtw_chain: each
+    update's cost the next one's upper neighbour) in one thread: us per
+    update, from CUDA events over one launch of `iters` updates."""
+    import torch
+
+    from whisper_tpu_torch.ops.kernels.dtw import dtw_chain
+
+    seed = torch.tensor([0.5, 0.25, 2.0, 0.125], device=device)
+    ms = time_ms(lambda: dtw_chain(seed, iters), CUDA, iters=3)
+    return 1e3 * ms / iters
 
 
 def check_k4(gen, device):
@@ -877,27 +907,38 @@ def check_k4(gen, device):
 
     n, m = 253, 1500
     rows = {}
-    for kind in ("random", "ties"):
-        x = torch.randn((1, n, m), generator=gen, device=device)
+    # 16 matrices from a generator of their own: the phases after this one
+    # keep the inputs they had before it was added
+    gen16 = torch.Generator(device=device).manual_seed(16)
+    for kind, B in (("random", 1), ("ties", 1), ("random", 16)):
+        x = torch.randn((B, n, m), generator=gen if B == 1 else gen16, device=device)
         if kind == "ties":  # integer costs: the tie rule decides many cells
-            x = torch.randint(0, 3, (1, n, m), generator=gen, device=device).float()
+            x = torch.randint(0, 3, (B, n, m), generator=gen, device=device).float()
         out = dtw_trace(x, n, m)
         ref = dtw_trace_plain(x, n, m)
         torch.cuda.synchronize()
         mismatches = int((out != ref).sum().item())
-        log(f"K4 dtw_trace n={n} m={m} {kind} costs: {mismatches} trace codes differ (bound 0)")
+        log(f"K4 dtw_trace B={B} n={n} m={m} {kind} costs: {mismatches} trace codes differ (bound 0)")
         if mismatches:
             raise RuntimeError(f"K4 disagrees with its plain version in {mismatches} codes")
-        rows[kind] = x
-    x = rows["random"]
+        rows[kind, B] = x
+    x, x16 = rows["random", 1], rows["random", 16]
     ms = time_ms(lambda: dtw_trace(x, n, m), CUDA)
+    device_ms = graph_ms(lambda: dtw_trace(x, n, m))
+    ms16 = time_ms(lambda: dtw_trace(x16, n, m), CUDA)
     plain_ms = time_ms(lambda: dtw_trace_plain(x, n, m), CUDA, iters=2)
     # the cost matrix read once, the (n+m+1, n+1) int32 trace written once;
     # three adds and two compares per cell
     kb = bound(4 * n * m + 4 * (n + m + 1) * (n + 1), 5 * n * m, "float32")
-    log(f"K4 dtw_trace n={n} m={m}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-        f"bound {kb['bound_ms']:.4f} ms by {kb['bound_by']} (the chain of {n + m + 1} "
-        f"dependent anti-diagonals: {1e3 * ms / (n + m + 1):.3f} us each)")
+    # the latency bound: n + m - 1 dependent cell updates, at the chain's
+    # measured time per update
+    update_us = dtw_update_us(device)
+    chain_ms = 1e-3 * update_us * (n + m - 1)
+    log(f"K4 dtw_trace n={n} m={m}: kernel {ms:.4f} ms ({device_ms:.4f} ms replayed from a CUDA "
+        f"graph), B=16 {ms16:.4f} ms; plain {plain_ms:.4f} ms; bound {kb['bound_ms']:.4f} ms by "
+        f"{kb['bound_by']}; latency bound {chain_ms:.4f} ms ({n + m - 1} dependent cell updates at "
+        f"{1e3 * update_us:.3f} ns each, dtw_chain), the kernel at {chain_ms / ms:.3f} of it "
+        f"({1e6 * ms / (n + m - 1):.1f} ns a diagonal)")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **kb)
 
 
@@ -1938,6 +1979,73 @@ def experiments_path():
     return launches
 
 
+def wide_group(model, audio) -> dict:
+    """Best-of groups of 129 and 200 rows of jfk's window at T = 0.7 (a
+    group wider than one K2 launch, cut into parts of one audio): the K2
+    launches by layout, finite log-probs and tokens in the vocabulary."""
+    import torch
+
+    from whisper_tpu_torch import log_mel_spectrogram, pad_or_trim
+    from whisper_tpu_torch.decoding import DecodingOptions
+    from whisper_tpu_torch.ops.kernels import fused_step
+
+    mel = log_mel_spectrogram(pad_or_trim(audio), model.dims.n_mels, device=model.device)
+    out = {}
+    for best_of in (129, 200):
+        fused_step.fused_decoder_layers.launches_by_layout.clear()
+        t0 = time.perf_counter()
+        result = model.decode(mel, DecodingOptions(language="en", temperature=0.7, best_of=best_of,
+                                                   sample_len=32))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        layout = dict(fused_step.fused_decoder_layers.launches_by_layout)
+        parts = [(1, g) for g in ((65, 64) if best_of == 129 else (100,))]
+        log(f"best-of-{best_of} decode (one audio's group of {best_of} rows): K2 launches by layout "
+            f"{layout}, {len(result.tokens)} tokens, avg_logprob {result.avg_logprob:.4f}, wall {wall:.3f} s")
+        if (set(layout) != set(parts) or not math.isfinite(result.avg_logprob)
+                or not all(0 <= t < model.dims.n_vocab for t in result.tokens)):
+            raise RuntimeError(f"best-of-{best_of}: layouts {layout}, tokens {result.tokens[:8]}")
+        out[best_of] = layout
+    return out
+
+
+def narrow_decoder(device) -> None:
+    """A decoder K2 does not take (head dim 32): greedy and beam-5 decodes
+    in f32 on the card through the PyTorch step, chosen by shape before any
+    launch; no K2 launch, and the CPU's tokens."""
+    import numpy as np
+    import torch
+
+    import whisper_tpu_torch
+    from whisper_tpu_torch.decoding import DecodingOptions
+    from whisper_tpu_torch.models import ModelDimensions
+    from whisper_tpu_torch.models.whisper import init_params
+    from whisper_tpu_torch.ops.kernels import fused_step
+
+    dims = ModelDimensions(n_mels=80, n_audio_ctx=1500, n_audio_state=64, n_audio_head=2, n_audio_layer=2,
+                           n_vocab=51865, n_text_ctx=448, n_text_state=64, n_text_head=2, n_text_layer=2)
+    params = init_params(dims, torch.Generator().manual_seed(0), torch.float32)
+    mel = torch.from_numpy(np.random.RandomState(0).randn(80, 3000).astype(np.float32))
+
+    def to(tree, where):
+        return {k: to(v, where) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(where)
+
+    launches = fused_step.fused_decoder_layers.launches
+    tokens = {}
+    for where in ("cpu", device):
+        model = whisper_tpu_torch.Whisper(dims, to(params, where))
+        for beam in (None, 5):
+            result = model.decode(mel.to(where), DecodingOptions(language="en", temperature=0.0,
+                                                                 sample_len=24, beam_size=beam))
+            tokens[torch.device(where).type, beam] = list(result.tokens)
+    same = all(tokens["cuda", b] == tokens["cpu", b] for b in (None, 5))
+    k2 = fused_step.fused_decoder_layers.launches - launches
+    log(f"head dim 32 decoder on the card (PyTorch step by shape): K2 launches {k2} (bound 0), greedy "
+        f"{len(tokens['cuda', None])} and beam-5 {len(tokens['cuda', 5])} tokens, equal to the CPU's: {same}")
+    if k2 or not same:
+        raise RuntimeError(f"head dim 32 decoder: {k2} K2 launches, tokens {tokens}")
+
+
 def batch_beam_160(model, audio):
     """transcribe_batch on 32 files cut from jfk (4-26 s, phase 12's way)
     with batch_size 32 and beam 5 at T = 0: one round of 160 rows, which K2
@@ -2121,6 +2229,11 @@ def main() -> int:
     e3 = check_e3(gen, device)
     k2_160 = check_k2(gen, device, A=32, G=5, t=[(37 * i) % 257 for i in range(160)], label=" slices")
     check_k2(gen, device, A=160, t=[(53 * i) % 257 for i in range(160)], label=" slices")
+    # one audio's group wider than a launch, in parts of it (inputs from a
+    # generator of their own, so that the phases after keep theirs)
+    wide = torch.Generator(device=device).manual_seed(129)
+    for G in (129, 200):
+        check_k2(wide, device, G=G, t=[(37 * i) % 257 for i in range(G)], label=" wide group")
     launches, model, audio, forced = end_to_end(device)
     cli_launches = cli_default_path(model)
     beam = beam_window(model, audio)
@@ -2150,6 +2263,8 @@ def main() -> int:
     d128_launches = encoder_d128(model, audio)
     experiment_launches = experiments_path()
     k2_slice_launches = batch_beam_160(model, audio)
+    wide_group(model, audio)
+    narrow_decoder(device)
     if args.profile:
         profile_window(model, audio, forced, beam, prompts, int8)
 

@@ -185,13 +185,17 @@ def test_engine_steps_at_one_shared_or_per_row_positions(models, mels, monkeypat
 
     _, tmodel = models
     seen = []
-    step = te.decoder_step_fused
 
-    def spy(params, dims, tokens, t, cache):
-        seen.append(t if isinstance(t, int) else t.tolist())
-        return step(params, dims, tokens, t, cache)
+    def spying(step):
+        def spy(params, dims, tokens, t, cache):
+            seen.append(t if isinstance(t, int) else t.tolist())
+            return step(params, dims, tokens, t, cache)
+        return spy
 
-    monkeypatch.setattr(te, "decoder_step_fused", spy)
+    # the engine takes K2's step or the PyTorch one by the decoder's shape
+    # (engine.decoder_steps); watch both
+    for name in ("decoder_step_fused", "decoder_step"):
+        monkeypatch.setattr(te, name, spying(getattr(te, name)))
     task = DecodingTask(tmodel, DecodingOptions(language="en", temperature=0.0, beam_size=2, sample_len=6))
     task.run(torch.from_numpy(mels))
     begin = task.sample_begin

@@ -280,6 +280,62 @@ def test_k2_pending_above_128_rows_matches_plain(cuda, dtype, form):
     assert max(_k2_rel_errors(out, ref)) <= K2_REL_TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("A,G", [(1, 129), (1, 200), (2, 150)])
+@pytest.mark.parametrize("pending", [False, True])
+def test_k2_kernel_splits_a_group_wider_than_a_launch(cuda, dtype, A, G, pending):
+    """One audio's group of more than 128 rows (best_of 200) launches in
+    parts of that audio's group (129: 65 + 64, 200: 100 + 100), each
+    reading the audio's cross K/V and its own rows, at per-row positions,
+    with and without a pending block: K2's bounds against the plain step."""
+    B, T, W = A * G, 64, 8
+    blocks, H, x, caches = _k2_inputs(cuda, dtype, L=2, T=T, B=B, A=A)
+    gen = torch.Generator(device=cuda).manual_seed(G)
+    t = torch.randint(0, T + 1, (B,), generator=gen, device=cuda)
+    t[0], t[-1] = 0, T
+    pend = ()
+    if pending:
+        pend = (*(torch.randn((2, B, H, 64, W), generator=gen, device=cuda).to(dtype) for _ in range(2)), 5)
+    slices = k2.row_slices(B, A)
+    assert len(slices) == A * 2 and all(a1 - a0 == 1 for _, (a0, a1) in slices)
+    launches = k2.fused_decoder_layers.launches
+    out = k2.fused_decoder_layers(blocks, H, x, t, *caches, *pend)
+    assert k2.fused_decoder_layers.launches == launches + len(slices)
+    ref = k2.fused_decoder_layers_plain(blocks, H, x, t, *caches, *pend)
+    assert max(_k2_rel_errors(out, ref)) <= K2_REL_TOL[dtype]
+
+
+def test_a_decoder_k2_does_not_take_decodes_on_the_card(cuda):
+    """The tests' tiny dims (head dim 32) decode on the card through the
+    PyTorch step, chosen by shape before any launch, token for token as on
+    the CPU in f32; K2 is not launched."""
+    import whisper_tpu_torch
+    from whisper_tpu_torch.decoding import DecodingOptions
+    from whisper_tpu_torch.models import ModelDimensions
+    from whisper_tpu_torch.models.whisper import init_params
+
+    dims = ModelDimensions(n_mels=80, n_audio_ctx=1500, n_audio_state=64, n_audio_head=2,
+                           n_audio_layer=2, n_vocab=51865, n_text_ctx=448, n_text_state=64,
+                           n_text_head=2, n_text_layer=2)
+    params = init_params(dims, torch.Generator().manual_seed(0), torch.float32)
+    mel = torch.from_numpy(np.random.RandomState(0).randn(80, 3000).astype(np.float32))
+
+    def to(tree, device):
+        return {k: to(v, device) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(device)
+
+    tokens = {}
+    launches = k2.fused_decoder_layers.launches
+    for device in ("cpu", cuda):
+        model = whisper_tpu_torch.Whisper(dims, to(params, device))
+        for beam in (None, 5):
+            result = model.decode(mel.to(device), DecodingOptions(language="en", temperature=0.0,
+                                                                  sample_len=24, beam_size=beam))
+            tokens[str(device), beam] = list(result.tokens)
+    assert k2.fused_decoder_layers.launches == launches
+    for beam in (None, 5):
+        assert tokens["cuda", beam] == tokens["cpu", beam] and len(tokens["cpu", beam]) > 0
+
+
 def _int8_form(blocks, caches, form):
     """blocks and caches with the projections (form "int8"), the cross K/V
     ("kv_int8") or both ("int8+kv_int8") quantized."""
@@ -570,6 +626,71 @@ def test_k4_kernel_equals_plain(cuda, B, n, m, ties):
     out = k4.dtw_trace(x, n, m)
     assert k4.dtw_trace.launches == launches + 1
     assert torch.equal(out, k4.dtw_trace_plain(x, n, m))
+
+
+def _nan_and_zero_ties(x: torch.Tensor) -> torch.Tensor:
+    """x with +0 beside -0, NaNs of distinct payloads and both signs, and
+    infinities planted along its last axis (bits set through an int32 view)."""
+    bits = x.view(torch.int32)
+    bits[..., 1::9] = 0
+    bits[..., 2::9] = -(2**31)
+    bits[..., 5::13] = 0x7FC00001
+    bits[..., 6::17] = 0x7F800123
+    bits[..., 7::19] = -0x00400001  # 0xFFBFFFFF, a negative NaN
+    x[..., 8::23] = float("inf")
+    x[..., 3::29] = float("-inf")
+    return x
+
+
+@pytest.mark.parametrize("width", [1, 3, 7, 13])
+@pytest.mark.parametrize("shape", [(40, 1, 256, 1500), (7, 1030), (3, 513), (5, 4099), (2, 9)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k3_kernel_keeps_ties_nans_and_ragged_rows(cuda, width, shape, offset):
+    """Rows whose length is no multiple of a thread's 4 outputs or of a
+    block's 512, rows that start off a 16-byte boundary (offset 1 into the
+    allocation), signed zeros and NaN payloads side by side: bit-equal to
+    the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    n = int(np.prod(shape))
+    x = torch.randn(n + offset, generator=gen, device=cuda)[offset:].view(shape)
+    x[..., ::4] = x[..., ::4].round()
+    x = _nan_and_zero_ties(x)
+    out = k3.median_filter(x, width)
+    ref = k3.median_filter_plain(x, width)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("B,n,m", [(16, 253, 1500), (1, 447, 1500), (1, 1023, 1500), (2, 1023, 37),
+                                   (2, 100, 1501), (3, 31, 17), (1, 32, 33), (2, 33, 15), (1, 64, 1)])
+@pytest.mark.parametrize("ties", [False, True])
+def test_k4_kernel_at_wide_and_ragged_shapes(cuda, B, n, m, ties):
+    """The word-timing shape batched, the decoder's 448-token context, the
+    largest n it takes (1023: 32 warps), m no multiple of a chunk of
+    diagonals, n at warp boundaries: bit-equal to the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(n + m)
+    x = torch.randn((B, n, m), generator=gen, device=cuda)
+    if ties:
+        x = torch.randint(0, 3, (B, n, m), generator=gen, device=cuda).float()
+    out = k4.dtw_trace(x, n, m)
+    assert torch.equal(out, k4.dtw_trace_plain(x, n, m))
+
+
+def test_k4_kernel_keeps_nan_and_inf_costs(cuda):
+    """Costs with NaN and +-inf: every slot's code follows the plain
+    version's comparisons (NaN compares false, ties to 2)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 70, 300), generator=gen, device=cuda)
+    x[0, 5, 7:40] = float("nan")
+    x[1, 20:30, 100] = float("inf")
+    x[1, 40, 200:220] = float("-inf")
+    assert torch.equal(k4.dtw_trace(x, 70, 300), k4.dtw_trace_plain(x, 70, 300))
+
+
+def test_k4_kernel_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="n <= 1023"):
+        k4.dtw_trace(torch.zeros((1, 1024, 8), device=cuda), 1024, 8)
+    with pytest.raises(ValueError, match="float32"):
+        k4.dtw_trace(torch.zeros((1, 4, 8), device=cuda, dtype=torch.float64), 4, 8)
 
 
 def test_slice_windows_on_the_card(cuda):

@@ -284,6 +284,22 @@ def test_port_runs_from_a_tree_without_whisper_tpu(tmp_path):
     assert proc.stdout.split() == ["176000", "(128,", "100)", "[7751,", "1002]", "False"]
 
 
+def test_pyproject_lists_every_port_package():
+    """Every directory of whisper_tpu_torch/ with an __init__.py is among
+    pyproject.toml's packages, so that an installed copy has it (the
+    experiments' entry points, which chip_smoke.py imports, among them)."""
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        packages = set(tomllib.load(f)["tool"]["setuptools"]["packages"])
+    found = {
+        os.path.relpath(root, REPO).replace(os.sep, ".")
+        for root, _, files in os.walk(os.path.join(REPO, "whisper_tpu_torch"))
+        if "__init__.py" in files
+    }
+    assert "whisper_tpu_torch.experiments" in found and found <= packages, found - packages
+
+
 def test_load_model_never_falls_back_to_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks the behaviour without one")

@@ -254,15 +254,21 @@ def test_engine_runs_blocks_at_the_block_starts(models, mels, monkeypatch):
 
     _, tmodel = models
     seen, flushed = [], []
-    step, flush = te.decoder_step_fused_pending, te.flush_pending
+    flush = te.flush_pending
 
-    def spy(params, dims, tokens, t, block_start, w, pk, pv, cache):
-        seen.append((block_start if isinstance(block_start, int) else block_start.tolist(), w))
-        return step(params, dims, tokens, t, block_start, w, pk, pv, cache)
+    def spying(step):
+        def spy(params, dims, tokens, t, block_start, w, pk, pv, cache):
+            seen.append((block_start if isinstance(block_start, int) else block_start.tolist(), w))
+            return step(params, dims, tokens, t, block_start, w, pk, pv, cache)
+        return spy
 
-    monkeypatch.setattr(te, "decoder_step_fused_pending", spy)
+    # the engine takes K2's pending step or the PyTorch one by the decoder's
+    # shape (engine.decoder_steps); watch both
+    for name in ("decoder_step_fused_pending", "decoder_step_pending"):
+        monkeypatch.setattr(te, name, spying(getattr(te, name)))
     monkeypatch.setattr(te, "flush_pending", lambda *a: flushed.append(1) or flush(*a))
-    monkeypatch.setattr(te, "decoder_step_fused", None)  # a per-step write would fail
+    for name in ("decoder_step_fused", "decoder_step"):
+        monkeypatch.setattr(te, name, None)  # a per-step write would fail
     task = DecodingTask(tmodel, DecodingOptions(language="en", temperature=0.0, sample_len=11))
     task.write_block = lambda n_audio: W
     task.run(torch.from_numpy(mels))

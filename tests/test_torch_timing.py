@@ -76,6 +76,76 @@ def test_median_filter_equals_jax(shape, width):
     assert np.array_equal(got.view(np.int32), ref.view(np.int32))
 
 
+def _batcher(n):
+    """csrc/median.cu's sort_net<n> comparators: Batcher's merge-exchange
+    (Knuth, TAOCP 5.2.2, Algorithm M)."""
+    top = 1 << ((n - 1).bit_length() - 1) if n > 1 else 0
+    pairs, p = [], top
+    while p > 0:
+        q = top
+        while q >= p:
+            d, r = (p, 0) if q == top else (2 * q - p, p)
+            pairs += [(i, i + d) for i in range(n - d) if i & p == r]
+            q >>= 1
+        p >>= 1
+    return pairs
+
+
+def _k3_selection(x: torch.Tensor, width: int) -> torch.Tensor:
+    """csrc/median.cu's selection restated in PyTorch: 32-bit keys; for the
+    pair (t, t + 1), t even, the 2P shared values sorted by the network and
+    each median the output's own value clamped between ranks P - 1 and P
+    (output t's first window value, output t + 1's last); a median key of
+    0 or NaN resolved by window position among the equal keys."""
+    P, T = width // 2, x.shape[-1]
+    pos = torch.arange(T)[:, None] + torch.arange(width) - P
+    pos = torch.where(pos < 0, -pos, torch.where(pos >= T, 2 * (T - 1) - pos, pos))
+    win, vals = (k3._sort_keys(x) // 16)[..., pos], x[..., pos]  # (..., T, width)
+    if width == 1:
+        med = win[..., 0]
+    else:
+        even = (torch.arange(T) % 2 == 0)[:, None]
+        core = torch.where(even, win[..., 1:], win[..., :-1])
+        extra = torch.where(even[:, 0], win[..., 0], win[..., -1])
+        s = list(core.unbind(-1))
+        for i, j in _batcher(2 * P):
+            s[i], s[j] = torch.minimum(s[i], s[j]), torch.maximum(s[i], s[j])
+        med = torch.maximum(s[P - 1], torch.minimum(extra, s[P]))
+    bits = (med ^ ((med >> 31) & 0x7FFFFFFF)).to(torch.int32).view(torch.float32)
+    eq = win == med[..., None]
+    q = P - (win < med[..., None]).sum(-1)
+    chosen = eq & (eq.cumsum(-1) - 1 == q[..., None])
+    tied = vals.gather(-1, chosen.int().argmax(-1, keepdim=True))[..., 0]
+    return torch.where((med == 0) | (med == 0x7FC00000), tied, bits)
+
+
+@pytest.mark.parametrize("shape", [(3, 7), (2, 5, 345), (4, 1030), (1, 513)])
+@pytest.mark.parametrize("width", [1, 3, 5, 7, 9, 11, 13])
+def test_k3_selection_keeps_the_stable_sort(shape, width):
+    """The kernel's pair selection (a sorted shared core, each output's own
+    value clamped into it, ties resolved by window position) equals the
+    plain version and whisper_tpu's _median_filter_xla bit for bit, on
+    values with ties, signed zeros, infinities and NaNs of distinct
+    payloads and signs side by side."""
+    if shape[-1] <= width // 2:
+        pytest.skip("the dispatcher returns such rows unchanged")
+    rng = np.random.RandomState(width)
+    x = rng.randn(*shape).astype(np.float32)
+    x[..., ::4] = np.round(x[..., ::4])
+    bits = x.view(np.int32)
+    bits[..., 1::9] = 0  # +0 beside -0
+    bits[..., 2::9] = np.int32(-(2**31))
+    bits[..., 5::13] = np.int32(0x7FC00001)  # NaNs of distinct payloads, both signs
+    bits[..., 6::17] = np.int32(0x7F800123)
+    bits[..., 7::19] = np.int32(-0x00400001)  # 0xFFBFFFFF: a negative NaN
+    x[..., 8::23] = np.inf
+    x[..., 3::29] = -np.inf
+    got = _k3_selection(torch.from_numpy(x), width).numpy().view(np.int32)
+    assert np.array_equal(got, k3.median_filter_plain(torch.from_numpy(x), width).numpy().view(np.int32))
+    ref = np.asarray(_median_filter_xla(jnp.asarray(x), width)).view(np.int32)
+    assert np.array_equal(got, ref)
+
+
 @pytest.mark.parametrize("N, M", [(10, 20), (32, 16), (60, 200)])
 @pytest.mark.parametrize("ties", [False, True])
 def test_dtw_trace_equals_jax(N, M, ties):

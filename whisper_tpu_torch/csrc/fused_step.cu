@@ -127,16 +127,19 @@
 // with an unrounded f32 epilogue acc * s[v] (int8_logits).
 //
 // More than MAX_ROWS = 128 rows: the wrapper launches the step in slices
-// of at most 128 rows that hold whole audios (ops/kernels/fused_step.py
-// row_slices), each slice one call of fused_decoder_layers with the first
-// row of its slice (row0) and the tensors' full row count (B_total).  The
-// entry point indexes from those two: x, the hidden state, the positions,
-// k_new/v_new (L, B_total, C), the self cache and the pending block (L,
-// B_total, ...) start at row row0 of each layer, the cross K/V and their
-// scales (L, B_total / G, ...) at audio row0 / G, and every layer stride
-// counts B_total rows (B_total / G audios).  No slice of a cache is
-// copied: a slice's launches read and write the full tensors in place.
-// One slice is the whole step at B <= 128 (row0 = 0, B_total = B).
+// of at most 128 rows (ops/kernels/fused_step.py row_slices) that hold
+// whole audios or, for a group wider than 128 rows, part of one audio's
+// group; each slice is one call of fused_decoder_layers with its first row
+// (row0), the tensors' full row count (B_total), its first audio (a0) and
+// the tensors' audio count (A_total).  The entry point indexes from those
+// four: x, the hidden state, the positions, k_new/v_new (L, B_total, C),
+// the self cache and the pending block (L, B_total, ...) start at row row0
+// of each layer, the cross K/V and their scales (L, A_total, ...) at audio
+// a0, and every layer stride counts B_total rows (A_total audios).  A
+// slice's B / A rows share an audio, so a part of a group is a slice of
+// one audio (A = 1).  No slice of a cache is copied: a slice's launches
+// read and write the full tensors in place.  One slice is the whole step
+// at B <= 128 (row0 = a0 = 0, B_total = B, A_total = A).
 //
 // The pending block (fused_step_pallas.py:312-314, pend_k/pend_v/pend_w;
 // models/whisper.decoder_step_pending and decoder_step_fused_pending): the
@@ -1651,6 +1654,7 @@ void mlp_stage(Chain& chain, const T* x, T* out, T* ff, int B, int C, int F, con
 struct Step {
   int L, B, A, C, H, t_cap, t, ta;
   int row0, B_total;                // this slice's first row; the tensors' rows
+  int a0, A_total;                  // this slice's first audio; the tensors' audios
   int W, pend_w;                    // pending block: W columns, pend_w valid (W = 0: none)
   const void *pend_k, *pend_v;      // (L, B, H, D, W) each, or null
   const int* positions;
@@ -1670,7 +1674,7 @@ int run(const Step& a, cudaStream_t stream) {
   // this slice's rows [row0, row0 + B) of B_total, audios [a0, a0 + A) of
   // A_total; layer strides count every row (audio) of the tensors
   const size_t row0 = a.row0, Bt = a.B_total;
-  const size_t a0 = row0 / (B / A), At = Bt / (B / A);
+  const size_t a0 = a.a0, At = a.A_total;
   const T* x = static_cast<const T*>(a.x) + row0 * C;
   T* out = static_cast<T*>(a.out) + row0 * C;
   T* k_new = static_cast<T*>(a.k_new) + row0 * C;
@@ -1752,10 +1756,10 @@ int run_weights(int w_int8, int kv_int8, const Step& a, cudaStream_t stream) {
 
 }  // namespace
 
-// One slice of the step: rows [row0, row0 + B) (1 <= B <= 128, A audios
-// of G = B / A rows, row0 a multiple of G) of tensors that hold B_total
-// rows, indexed from row0 and B_total (see the header); row0 = 0 and
-// B_total = B for a whole step.
+// One slice of the step: rows [row0, row0 + B) (1 <= B <= 128) of A
+// audios [a0, a0 + A), B / A rows each, of tensors that hold B_total rows
+// and A_total audios, indexed from those (see the header); row0 = a0 = 0,
+// B_total = B and A_total = A for a whole step.
 // positions: the rows' positions t[b], int32 in device memory, or null for
 // one position t (0 <= t <= t_cap) shared by every row.  w_int8: the eight
 // projections are int8 with their scales in scale_table (N_PROJ pointers);
@@ -1764,7 +1768,7 @@ int run_weights(int w_int8, int kv_int8, const Step& a, cudaStream_t stream) {
 // neither (W = 0, pend_w = 0); with it the positions are the block's start
 // and the first pend_w of its W columns are attended (0 <= pend_w <= W).
 extern "C" int fused_decoder_layers(int dtype, int w_int8, int kv_int8, int L, int B, int A,
-                                    int row0, int B_total,
+                                    int row0, int B_total, int a0, int A_total,
                                     int C, int H, int t_cap, int t, int ta, int W, int pend_w,
                                     const void* positions, const void* x, void* out,
                                     void* k_new, void* v_new, const void* self_k,
@@ -1775,7 +1779,7 @@ extern "C" int fused_decoder_layers(int dtype, int w_int8, int kv_int8, int L, i
                                     void* stream) {
   const bool pending = pend_k != nullptr;
   if (C != H * HD || C % 16 != 0 || B < 1 || B > MAX_ROWS || A < 1 || B % A != 0 ||
-      row0 < 0 || row0 % (B / A) != 0 || B_total % (B / A) != 0 || row0 + B > B_total ||
+      row0 < 0 || row0 + B > B_total || a0 < 0 || a0 + A > A_total ||
       t < 0 || t > t_cap || ta <= 0 || (w_int8 && scale_table == nullptr) ||
       (kv_int8 && (cross_k_scale == nullptr || cross_v_scale == nullptr)) ||
       pending != (pend_v != nullptr) || (pending ? W < 1 || W > MAX_PEND : W != 0) ||
@@ -1783,7 +1787,7 @@ extern "C" int fused_decoder_layers(int dtype, int w_int8, int kv_int8, int L, i
     return (int)cudaErrorInvalidValue;
   for (const void* p : {self_k, self_v, cross_k, cross_v, pend_k, pend_v})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  const Step a = {L, B, A, C, H, t_cap, t, ta, row0, B_total, W, pend_w, pend_k, pend_v,
+  const Step a = {L, B, A, C, H, t_cap, t, ta, row0, B_total, a0, A_total, W, pend_w, pend_k, pend_v,
                   static_cast<const int*>(positions), x, self_k,
                   self_v, cross_k, cross_v, static_cast<const float*>(cross_k_scale),
                   static_cast<const float*>(cross_v_scale), out, k_new, v_new, scratch,

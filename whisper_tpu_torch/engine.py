@@ -30,13 +30,16 @@ from .models.whisper import (
     compute_cross_kv,
     decoder_forward,
     decoder_prefill,
+    decoder_step,
     decoder_step_fused,
     decoder_step_fused_pending,
+    decoder_step_pending,
     encoder_apply,
     flush_pending,
     init_kv_cache,
     project_logits,
 )
+from .ops.kernels import fused_step
 from .quantize import quantize_kv
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 448)
@@ -391,6 +394,20 @@ def _beam_update(spec: EngineSpec, state: _LoopState, logits: torch.Tensor) -> _
 # ---------------------------------------------------------------------------
 
 
+def decoder_steps(params, dims: ModelDimensions):
+    """The token loop's step and its pending form, chosen by the decoder's
+    shape once per decode, before any launch, as whisper_tpu's
+    ``_fused_ok`` (``whisper_tpu/decoding.py:324-328``): through kernel K2
+    where it takes the shape (``fused_step.takes``: every published model),
+    else the PyTorch step, the way ``ops.attention`` sends K1 only the head
+    dims it takes.  This is a dispatch by shape: a K2 launch that fails
+    raises."""
+    dtype = params["decoder"]["tok_emb"].dtype
+    if fused_step.takes(dims.n_text_head, dims.n_text_state, dtype):
+        return decoder_step_fused, decoder_step_fused_pending
+    return decoder_step, decoder_step_pending
+
+
 def _per_audio(x: Union[int, Sequence[int]], n_audio: int) -> List[int]:
     return [int(x)] * n_audio if isinstance(x, int) else [int(v) for v in x]
 
@@ -497,9 +514,11 @@ def decode_engine(
         fin_count=torch.zeros(n_audio, dtype=torch.int64, device=device),
     )
 
+    step, step_pending = decoder_steps(params, dims)
     if spec.write_block > 1 and spec.beam_size == 0:
         state = _block_loop(params, dims, spec, state, cur_logits, lens[0] if uniform else None,
-                            sample_len, temperature, filter_args, generator, forced_tokens)
+                            sample_len, temperature, filter_args, generator, forced_tokens,
+                            step_pending)
     else:
         while state.step < sample_len:
             filtered = apply_logit_filters(spec, cur_logits, state.tokens, state.t, filter_args)
@@ -514,7 +533,7 @@ def decode_engine(
             else:
                 pos = state.t - 1
                 prev = state.tokens.gather(1, pos.clamp(0, n_ctx)[:, None])[:, 0]
-            h, cache = decoder_step_fused(params, dims, prev, pos, state.cache)
+            h, cache = step(params, dims, prev, pos, state.cache)
             state = state._replace(cache=cache)
             cur_logits = project_logits(params, h)
             if bool(state.completed):  # the loop's one host sync per step
@@ -544,6 +563,7 @@ def _block_loop(
     filter_args: FilterArgs,
     generator: Optional[torch.Generator],
     forced_tokens: Optional[List[int]],
+    step_pending,
 ) -> _LoopState:
     """The greedy/sampled token loop in blocks of W = spec.write_block
     steps (whisper_tpu/engine.py:599-662).  A block zeroes the pending
@@ -574,7 +594,7 @@ def _block_loop(
             else:
                 pos = state.t - 1
                 prev = state.tokens.gather(1, pos.clamp(0, n_ctx)[:, None])[:, 0]
-            h, pend_k, pend_v = decoder_step_fused_pending(
+            h, pend_k, pend_v = step_pending(
                 params, dims, prev, pos, block_start, w, pend_k, pend_v, cache)
             cur_logits = project_logits(params, h)
         flush_pending(cache, pend_k, pend_v, block_start)

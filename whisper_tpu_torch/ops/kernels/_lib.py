@@ -45,13 +45,14 @@ SIGNATURES = {
     # dtype, q, k, v, out, batch*heads, T, head_dim, stream
     "encoder_attention": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
     # dtype, int8 weights, int8 cross K/V, L, B, A (this launch's rows and
-    # audios), its first row, the tensors' rows, C, H, T_cap, t (shared),
+    # audios), its first row, the tensors' rows, its first audio, the
+    # tensors' audios, C, H, T_cap, t (shared),
     # Ta, pending columns W (0: none), valid pending columns, positions (B,)
     # int32 or null (every row at t), x, out, k_new, v_new, self_k, self_v,
     # cross_k, cross_v, cross K/V scales (or null), weight pointer table
     # (host), scale pointer table (host, or null), pending K and V (or
     # null), scratch, stream
-    "fused_decoder_layers": [_I] * 15 + [_P] * 17,
+    "fused_decoder_layers": [_I] * 17 + [_P] * 17,
     # dtype, int8 K/V, A, G, C, H, Ta, q, k, v, k_scale, v_scale (or
     # null), out, stream
     "decode_cross_attention": [_I] * 7 + [_P] * 7,
@@ -64,6 +65,8 @@ SIGNATURES = {
     "median_filter": [_P, _P, ctypes.c_longlong, _I, _I, _P],
     # x, trace, batch, n, m, stream
     "dtw_trace": [_P, _P, _I, _I, _I, _P],
+    # seed (4 f32), out (1 f32), codes (1 int32), iters, stream
+    "dtw_chain": [_P, _P, _P, _I, _P],
     # dtype, x, w, bias, res, out, M, K, N, stream
     "matmul_residual": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # layout (0: (V, C), 1: (C, V)), B, C, V, x, emb, out, stream

@@ -2,17 +2,22 @@
 
 Replaces ``whisper_tpu/ops/kernels/dtw_pallas.py:dtw_trace_pallas``.  The
 kernel is ``whisper_tpu_torch/csrc/dtw.cu`` (its header says what bounds
-it); :func:`dtw_trace_plain` is the same wavefront in PyTorch, one
-anti-diagonal per step, as ``whisper_tpu.ops.dtw._dtw_trace_device``.
-Codes: 0 diagonal, 1 up, 2 left, ties to 2; each cell adds its cost to the
-cost of the branch it chose, in f32.  The traces are bit-equal.
+it and how warps of one slot a lane walk the diagonals);
+:func:`dtw_trace_plain` is the same wavefront in PyTorch, one anti-diagonal
+per step, as ``whisper_tpu.ops.dtw._dtw_trace_device``.  Codes: 0 diagonal,
+1 up, 2 left, ties to 2; each cell adds its cost to the cost of the branch
+it chose, in f32.  The traces are bit-equal.  :func:`dtw_chain` runs the
+kernel's cell update as one dependent chain in one thread: its time per
+update, times the n + m - 1 diagonals, is the kernel's latency bound.
 """
+
+from typing import Tuple
 
 import torch
 
 from . import _lib
 
-MAX_ROWS = 1023  # n + 1 threads of one block
+MAX_ROWS = 1023  # n + 1 slots, one a lane, of one block
 
 
 def dtw_trace_plain(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
@@ -68,3 +73,19 @@ def dtw_trace(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
 
 
 dtw_trace.launches = 0
+
+
+def dtw_chain(seed: torch.Tensor, iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run ``iters`` dependent DTW cell updates in one CUDA thread (each
+    update's cost is the next one's upper neighbour, the wavefront's
+    critical path) from ``seed`` (4 f32 on the card: c0, c1, c2, the cell's
+    cost); returns the last cost and the sum of the codes (f32 and int32
+    tensors of one element), so that nothing is optimised away."""
+    if seed.device.type != "cuda" or seed.dtype != torch.float32 or seed.numel() != 4 or iters < 1:
+        raise ValueError("dtw chain: 4 f32 on a CUDA device and iters >= 1")
+    out = torch.empty(1, dtype=torch.float32, device=seed.device)
+    codes = torch.empty(1, dtype=torch.int32, device=seed.device)
+    err = _lib.lib().dtw_chain(seed.contiguous().data_ptr(), out.data_ptr(), codes.data_ptr(), iters,
+                               _lib.stream_ptr(seed.device))
+    _lib.check(err, "dtw_chain")
+    return out, codes

@@ -37,9 +37,9 @@ caller puts the new K/V into pending column ``pend_w``.
 
 Any number of rows: one launch takes at most 128 (``MAX_ROWS``), so a CUDA
 step of more rows launches once per slice of :func:`row_slices`, each
-slice whole audios; every launch reads and writes the full tensors in
-place from its first row (``csrc/fused_step.cu``'s header), so nothing is
-copied per step.
+slice whole audios or part of one audio's group; every launch reads and
+writes the full tensors in place from its first row and first audio
+(``csrc/fused_step.cu``'s header), so nothing is copied per step.
 """
 
 import collections
@@ -53,7 +53,7 @@ from ...models.whisper import NEG_INF, Position, _layer, _linear, layer_norm
 from ...quantize import Int8Weight, take_layer
 from ..attention import merge_heads, qkv_attention_kt, split_heads
 from . import _lib
-from .mlp import mlp_fused, mlp_fused_plain
+from .mlp import MAX_BF16_WIDTH, mlp_fused, mlp_fused_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIM = 64
@@ -188,18 +188,33 @@ def fused_decoder_layers_plain(
     return x[:, 0], torch.stack(k_news), torch.stack(v_news)
 
 
+def takes(n_head: int, width: int, dtype: torch.dtype) -> bool:
+    """Whether K2 takes a decoder of this shape: head_dim 64 (C = 64 H), C
+    a multiple of 16, bf16 or f32, and in bf16 C <= MAX_BF16_WIDTH (its MLP
+    stage).  The engine asks once per decode, before any launch, as
+    whisper_tpu's ``_fused_ok`` does; :func:`fused_decoder_layers` itself
+    still raises on a shape it refuses."""
+    return (width == n_head * HEAD_DIM and width % 16 == 0 and dtype in _DTYPES
+            and (dtype != torch.bfloat16 or width <= MAX_BF16_WIDTH))
+
+
 def row_slices(rows: int, audios: int) -> List[Tuple[Tuple[int, int], Tuple[int, int]]]:
     """The launches of a step of ``rows`` rows of ``audios`` audios (G =
     rows / audios rows each, group-major): ((first row, end row), (first
-    audio, end audio)) per launch, each of at most ``MAX_ROWS`` rows and
-    whole audios, as many audios to a launch as fit, in order (32 x 5:
-    25 audios, then 7).  Raises where an audio's G rows exceed MAX_ROWS."""
+    audio, end audio)) per launch, each of at most ``MAX_ROWS`` rows, in
+    order.  Groups that fit take whole audios, as many to a launch as fit
+    (32 x 5: 25 audios, then 7); a group wider than MAX_ROWS is cut into
+    ceil(G / MAX_ROWS) launches of its one audio, as even as they go (G =
+    200: 100 and 100 rows of audio a)."""
     if audios < 1 or rows < 1 or rows % audios:
         raise ValueError(f"{audios} audios do not divide {rows} rows")
     G = rows // audios
+    if G > MAX_ROWS:
+        parts = -(-G // MAX_ROWS)
+        cuts = [G * k // parts for k in range(parts + 1)]
+        return [((a * G + lo, a * G + hi), (a, a + 1))
+                for a in range(audios) for lo, hi in zip(cuts, cuts[1:])]
     per = MAX_ROWS // G
-    if per < 1:
-        raise ValueError(f"fused decode-step kernel: an audio's {G} rows exceed {MAX_ROWS}")
     return [((a0 * G, min(a0 + per, audios) * G), (a0, min(a0 + per, audios)))
             for a0 in range(0, audios, per)]
 
@@ -301,7 +316,8 @@ def fused_decoder_layers(
     """All decoder layers of one step for B rows.  A CPU tensor takes
     :func:`fused_decoder_layers_plain`; a CUDA tensor launches the kernels
     (B rows of A audios, A dividing B, in launches of at most 128 rows of
-    whole audios (:func:`row_slices`); head_dim 64; bf16 or
+    whole audios or of one audio's group (:func:`row_slices`); head_dim 64
+    (:func:`takes`); bf16 or
     f32; the projections and the cross K/V each in the compute dtype or
     int8; with or without a pending block of at most 64 columns) or raises.
 
@@ -336,10 +352,9 @@ def fused_decoder_layers(
     scratch = torch.empty(6 * max(r1 - r0 for (r0, r1), _ in slices) * C, dtype=x.dtype, device=x.device)
     table = (ctypes.c_void_p * len(WEIGHTS))(*(_values(blocks[n]).data_ptr() for n in WEIGHTS))
     scales = (ctypes.c_void_p * len(PROJECTIONS))(*(blocks[n].s.data_ptr() for n in PROJECTIONS)) if w8 else None
-    G = B // A
     for (r0, r1), (a0, a1) in slices:
         err = _lib.lib().fused_decoder_layers(
-            _DTYPES[x.dtype], int(w8), int(kv8), L, r1 - r0, a1 - a0, r0, B, C, H, T, shared,
+            _DTYPES[x.dtype], int(w8), int(kv8), L, r1 - r0, a1 - a0, r0, B, a0, A, C, H, T, shared,
             xk.shape[-1], pend_k.shape[-1] if pending else 0, pend_w if pending else 0,
             positions_ptr, x.data_ptr(), hidden.data_ptr(), k_new.data_ptr(),
             v_new.data_ptr(), self_k.data_ptr(), self_v.data_ptr(), xk.data_ptr(), xv.data_ptr(),
@@ -350,7 +365,8 @@ def fused_decoder_layers(
             _lib.stream_ptr(x.device),
         )
         _lib.check(err, "fused_decoder_layers")
-        _lib.count_launch(fused_decoder_layers, layout=_layout(a1 - a0, G, w8, kv8, pending))
+        _lib.count_launch(fused_decoder_layers,
+                          layout=_layout(a1 - a0, (r1 - r0) // (a1 - a0), w8, kv8, pending))
         _lib.count_launch(mlp_fused, L)  # its MLP stage, K5's code, once per layer
         _lib.count_launch(cross_attention, L)  # its cross-attention launch, once per layer
     return hidden, k_new, v_new
