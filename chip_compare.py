@@ -20,7 +20,8 @@ one shared position), on random large-v3-turbo weights (seed 0, bf16):
   the CLI default path: transcribe(jfk.flac) with beam 5, best-of 5 on
       the 0.2-step ladder and word timestamps.
 
-``--only`` picks parts (k2, k5, e2, words, windows, cli; all by default).
+``--only`` picks parts (k2, k5, e2, e3, words, windows, cli; all by
+default).
 It also times, through the K2, K5 and E2 wrappers' calls (the same in
 every version of the port that has E2), K2 at every row of PERF.md's
 kernel table (one and five rows at t = 200, 16 x 1, 3 x 5, 16 x 5, 32 x 5
@@ -30,7 +31,15 @@ int8+kv_int8 form, the pending block at T = 448 with 7 of 8 columns), K5
 in both layouts at B = 1, 5 and 16 beside bf16 torch.mm: device time per
 call (a CUDA graph replayed) and the time of back-to-back calls (CUDA
 events); and the word-timing kernels, K3 at (40, 1, 256, 1500) width 7 and
-K4 at n = 253, m = 1500 for one matrix and 16, the same two ways.
+K4 at n = 253, m = 1500 for one matrix and 16, the same two ways.  The
+``e3`` part times E3 (the packing experiment's score + PV pairs) through
+the two wrappers every version since E3's port has, unpacked and packed,
+at Q = 128, T = 1536, D = 64 for g = 28, 30, 32, 280, 300 and 320
+programs and reps = 8 and 64: CUDA events over a few calls, and the time
+per program.  At g = 32 every program's K/V fits in L2, at g = 320 it does
+not; g = 30 and 300 (unpacked) and 28 and 280 (packed) fill whole waves of
+the clusters of E3's kernel an H100 holds at once (30 of 4 blocks, 7 of
+16).
 
 Walls are medians of N runs after a warm-up.  The last line is one JSON
 object with the tree's numbers.  Run it for two trees in turns in one call
@@ -255,7 +264,37 @@ def word_timing_table(device) -> dict:
     return out
 
 
-PARTS = ("k2", "k5", "e2", "words", "windows", "cli")
+def e3_table(device, calls: int = 3) -> dict:
+    """E3 unpacked and packed (block-diagonal K/V) at Q = 128, T = 1536,
+    D = 64 for g = 28, 30, 32, 280, 300 and 320 programs and reps = 8 and
+    64, random inputs from a seed: {label: [events ms, ms per program]}."""
+    import torch
+
+    from whisper_tpu_torch.experiments.attn_packed import block_diagonal
+    from whisper_tpu_torch.ops.kernels.attn_packed import attn_pairs_packed, attn_pairs_unpacked
+
+    Q, T, D = 128, 1536, 64
+    out = {}
+    for g in (28, 30, 32, 280, 300, 320):
+        gen = torch.Generator(device=device).manual_seed(g)
+
+        def randn(*shape):
+            return (torch.randn(shape, generator=gen, device=device) * 0.1).to(torch.bfloat16)
+
+        q2 = randn(g, Q, 2 * D)
+        k1, v1, k2, v2 = (randn(g, T, D) for _ in range(4))
+        kp, vp = block_diagonal(k1, k2), block_diagonal(v1, v2)
+        for reps in (8, 64):
+            for name, fn in (("unpacked", lambda: attn_pairs_unpacked(q2, k1, v1, k2, v2, reps)),
+                             ("packed", lambda: attn_pairs_packed(q2, kp, vp, reps))):
+                label = f"{name} g={g} reps={reps}"
+                ms = events_ms(fn, iters=calls)
+                out[label] = [ms, ms / g]
+                log(f"E3 {label}: {ms:.4f} ms, {1e3 * ms / g:.3f} us per program")
+    return out
+
+
+PARTS = ("k2", "k5", "e2", "e3", "words", "windows", "cli")
 
 
 def main() -> int:
@@ -301,7 +340,7 @@ def main() -> int:
     row = {"tree": args.tree}
     if "k2" in parts:
         row.update(k2_b1_ms=k2_ms(device, 1), k2_b5_ms=k2_ms(device, 5), k2=k2_table(device))
-    for part, table in (("k5", k5_table), ("e2", e2_table), ("words", word_timing_table)):
+    for part, table in (("k5", k5_table), ("e2", e2_table), ("e3", e3_table), ("words", word_timing_table)):
         if part in parts:
             row[part] = table(device)
     if not parts & {"windows", "cli"}:

@@ -207,7 +207,7 @@ def test_draft_model_and_word_timestamps_raise(models, mel):
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, whisper_tpu_torch, whisper_tpu_torch.ops.kernels.fused_step, chip_smoke, "
-        "chip_compare, whisper_tpu_torch.quantize, whisper_tpu_torch.evaluation, "
+        "chip_compare, chip_trace_e3, whisper_tpu_torch.quantize, whisper_tpu_torch.evaluation, "
         "whisper_tpu_torch.ops.kernels.mlp, "
         "whisper_tpu_torch.timing, whisper_tpu_torch.__main__, whisper_tpu_torch.ops.kernels.median, "
         "whisper_tpu_torch.ops.kernels.dtw, whisper_tpu_torch.batch, whisper_tpu_torch.chunked, "
@@ -232,14 +232,15 @@ _SCRIPT_MODULES = sorted(f[:-3] for f in os.listdir(os.path.join(REPO, "scripts"
 
 def _port_sources():
     pkg = os.path.join(REPO, "whisper_tpu_torch")
-    paths = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "chip_compare.py")]
+    paths = [os.path.join(REPO, f) for f in ("chip_smoke.py", "chip_compare.py", "chip_trace_e3.py")]
     for root, _, files in os.walk(pkg):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return paths
 
 
 def test_port_reads_no_path_under_whisper_tpu():
-    """No module of the port, nor chip_smoke.py or chip_compare.py, imports
+    """No module of the port, nor chip_smoke.py, chip_compare.py or
+    chip_trace_e3.py, imports
     whisper_tpu or a module of scripts/, or builds a path into either tree:
     no "whisper_tpu" path component, no "whisper_tpu/..." or "scripts/..."
     string in code.  Docstrings that cite a

@@ -11,7 +11,11 @@ variants D and E (the einsums of variants A and B), E3 ``kernel_unpacked``
 and ``kernel_packed``.  Inputs are made with numpy from a seed and given to
 both.  On a CPU tensor each wrapper takes its plain version and counts no
 launch; the kernels are held to these plain versions on the card
-(tests/test_torch_cuda.py, chip_smoke.py).
+(tests/test_torch_cuda.py, chip_smoke.py).  Beside them: E1's bf16 check
+(``bf16_rounding_bound``) against a product summed in float64 and against
+planted faults, and E3 in the card kernel's order of sums (partial o over
+key slices, added in rank order), also on inputs where every rep's
+feedback moves the queries.
 """
 
 import os
@@ -85,6 +89,46 @@ def test_e1_plain_matches_linear_plus_residual(e1_inputs, dtype):
         *(torch.from_numpy(a.astype(np.float32)).to(td) for a in e1_inputs)).float().numpy()
     diff = np.abs(got - ref)
     assert diff.max() <= 1e-5 if dtype == "float32" else (diff <= _bf16_ulp(ref)).all()
+
+
+def _e1_reordered(x, w, bias, res, fault=None):
+    """E1 as a correct kernel may compute it: the product summed in another
+    order (float64 here) and rounded once to bf16, then the bias and the
+    residual added in bf16.  fault "bias" drops the bias from the epilogue;
+    "last_k_tile" skips the last 64 of K (the bf16 kernel's K step)."""
+    x64, w64 = x.double(), w.double()
+    if fault == "last_k_tile":
+        x64, w64 = x64[:, :-64], w64[:-64]
+    y = (x64 @ w64).to(torch.bfloat16)
+    return (y if fault == "bias" else y + bias) + res
+
+
+@pytest.mark.parametrize("fault", [None, "bias", "last_k_tile"])
+def test_e1_bf16_bound_holds_for_another_order_and_catches_faults(e1_inputs, fault):
+    """bf16_rounding_bound, the card's bf16 check of E1: a product summed in
+    float64 and rounded lies within it of matmul_residual_plain at every
+    element (and differs from it somewhere: the three roundings are
+    crossed); the planted faults break it at most elements."""
+    x, w, bias, res = (torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16) for a in e1_inputs)
+    ref = matmul_residual.matmul_residual_plain(x, w, bias, res).float()
+    bound = matmul_residual.bf16_rounding_bound(x, w, bias, res)
+    assert bound.shape == ref.shape and bound.dtype == torch.float32
+    diff = (_e1_reordered(x, w, bias, res, fault).float() - ref).abs()
+    if fault is None:
+        assert (diff <= bound).all() and (diff > 0).any()
+    else:
+        assert (diff > bound).float().mean().item() > 0.5
+
+
+def test_e1_bf16_bound_is_three_ulps_at_the_plain_binades():
+    """The bound's ulps: 2^(e - 8) in [2^(e - 1), 2^e), doubled at the
+    binade's largest value (one ulp below the next power of two)."""
+    v = torch.tensor([1.0, 1.0 - 2**-8, 2.0 - 2**-7, 2.0, 0.1, -3.0]).to(torch.bfloat16)
+    assert matmul_residual._ulp_bound(v).tolist() == [2**-7, 2**-7, 2**-6, 2**-6, 2**-11, 2**-6]
+    one = torch.ones(1, 1, dtype=torch.bfloat16)
+    # y = 1, t = 1 + 1 = 2, out = 2 + 1 = 3: ulps 2^-7, 2^-6, 2^-6
+    bound = matmul_residual.bf16_rounding_bound(one, one, one.reshape(1), one)
+    assert bound.item() == 2**-7 + 2**-6 + 2**-6
 
 
 def test_e1_shape_predicate():
@@ -202,6 +246,104 @@ def test_e3_packed_plain_matches_the_scripts_body_and_unpacked(e3_inputs):
     assert _close(got, ref) <= 8e-3
     unpacked = attn_packed.attn_pairs_unpacked(tq, tk1, tv1, tk2, tv2, REPS)
     assert _close(got, np.asarray(unpacked.float().numpy())) <= 8e-3
+
+
+def _e3_sliced(q, pairs, reps, split):
+    """E3 in the card's order of sums: for each pair, `split` ranks of a
+    cluster take `keys` keys each (ceil(T / split) rounded up to the 64-key
+    chunk; the last ranks may hold none), a rank's partial o adds its
+    chunks' bf16(s) v in f32, and the partials meet in rank order.  pairs:
+    [(q's columns, k, v)]."""
+    eps = torch.tensor(1e-9, dtype=torch.bfloat16)
+    acc = torch.zeros(q.shape, dtype=torch.float32)
+    for _ in range(reps):
+        outs = []
+        for cols, k, v in pairs:
+            qq = (q[..., cols] + acc[..., cols].to(q.dtype) * eps).float()
+            T = k.shape[1]
+            keys = -(-(-(-T // split)) // 64) * 64
+            o = None
+            for rank in range(split):
+                part = torch.zeros(qq.shape[:-1] + (v.shape[-1],))
+                for c0 in range(rank * keys, min(T, (rank + 1) * keys), 64):
+                    s = torch.matmul(qq, k[:, c0:c0 + 64].float().transpose(-1, -2))
+                    part = part + torch.matmul(s.to(q.dtype).float(), v[:, c0:c0 + 64].float())
+                o = part if o is None else o + part
+            outs.append(o)
+        acc = acc + torch.cat(outs, dim=-1) * 1e-9
+    return acc.to(q.dtype)
+
+
+def _e3_hoisted(q, k1, v1, k2, v2, reps):
+    """E3 unpacked as a kernel that hoisted its rep loop would compute it:
+    rep 0's o, times 1e-9, added reps times."""
+    pairs = [(slice(0, D), k1, v1), (slice(D, 2 * D), k2, v2)]
+    o = attn_packed._rep(q, torch.zeros(q.shape), pairs)
+    acc = torch.zeros(q.shape)
+    for _ in range(reps):
+        acc = acc + o
+    return acc.to(q.dtype)
+
+
+E3_SLICED_T = 320  # slices of 320, 192 + 128, 128 x 2 + 64 + 0, 64 x 5 + 0 x 3 keys
+
+
+@pytest.fixture(scope="module")
+def e3_sliced_refs():
+    """The scripts' bodies (jnp) on numpy-seeded inputs at T = 320 (packed
+    640), at the experiment's scale and at chain_scale: computed once for
+    the splits."""
+    refs = {}
+    for scale in ("0.1", "chain"):
+        rng = np.random.RandomState(5)
+        sk = 0.1 if scale == "0.1" else attn_packed_experiment.chain_scale(E3_SLICED_T)
+        q2 = (rng.randn(G, Q, 2 * D) * 0.1).astype(np.float32)
+        kv = [(rng.randn(G, E3_SLICED_T, D) * sk).astype(np.float32) for _ in range(4)]
+        t = _bf16(q2, *kv)
+        kp, vp = attn_packed_experiment.block_diagonal(t[1], t[3]), attn_packed_experiment.block_diagonal(t[2], t[4])
+        jb = [jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (*t, kp, vp)]
+        refs[scale] = dict(
+            t=t, kp=kp, vp=vp,
+            unpacked=np.asarray(_jnp_unpacked(*jb[:5], REPS).astype(jnp.float32)),
+            packed=np.asarray(_jnp_packed(jb[0], jb[5], jb[6], REPS).astype(jnp.float32)))
+    return refs
+
+
+@pytest.mark.parametrize("scale", ["0.1", "chain"])
+@pytest.mark.parametrize("variant", ["unpacked", "packed"])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_e3_slicing_keeps_the_scripts_numerics(e3_sliced_refs, scale, variant, split):
+    """The card's E3 order of sums (partial o over `split` key slices of
+    64-key chunks, added in rank order) against the scripts' bodies, within
+    8e-3 of the largest output, at the experiment's scale and where every
+    rep's feedback moves qq (chain_scale)."""
+    r = e3_sliced_refs[scale]
+    q2, k1, v1, k2, v2 = r["t"]
+    if variant == "unpacked":
+        got = _e3_sliced(q2, [(slice(0, D), k1, v1), (slice(D, 2 * D), k2, v2)], REPS, split)
+    else:
+        got = _e3_sliced(q2, [(slice(None), r["kp"], r["vp"])], REPS, split)
+    assert _close(got, jnp.asarray(r[variant])) <= 8e-3
+
+
+def test_e3_chain_visible_inputs_make_every_rep_count(e3_sliced_refs):
+    """At the experiment's scale the feedback is far under half an ulp of q:
+    every rep's o is the same, and the hoisted loop gives the plain output
+    bit for bit.  At chain_scale the plain outputs at reps and reps + 1,
+    and the hoisted loop's, lie beyond the tolerance, and the plain
+    versions still agree with the scripts' bodies within it."""
+    q2, k1, v1, k2, v2 = e3_sliced_refs["0.1"]["t"]
+    assert torch.equal(attn_packed.attn_pairs_unpacked_plain(q2, k1, v1, k2, v2, REPS),
+                       _e3_hoisted(q2, k1, v1, k2, v2, REPS))
+    r = e3_sliced_refs["chain"]
+    q2, k1, v1, k2, v2 = r["t"]
+    got = attn_packed.attn_pairs_unpacked_plain(q2, k1, v1, k2, v2, REPS)
+    ref = np.asarray(got.float().numpy())
+    for other in (attn_packed.attn_pairs_unpacked_plain(q2, k1, v1, k2, v2, REPS + 1),
+                  _e3_hoisted(q2, k1, v1, k2, v2, REPS)):
+        assert _close(other, jnp.asarray(ref)) > 8e-3
+    assert _close(got, jnp.asarray(r["unpacked"])) <= 8e-3
+    assert _close(attn_packed.attn_pairs_packed_plain(q2, r["kp"], r["vp"], REPS), jnp.asarray(r["packed"])) <= 8e-3
 
 
 # -- the entry points -------------------------------------------------------

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's kernels that feed the
-// tensor cores by TMA: K1's bf16 instance (attention.cu) and E1's
-// (matmul_residual.cu) on wgmma; E2's (V, C) ring (logits.cu) and K5's
-// weight stream (fused_step.cu) on mma.sync.  mma.cuh keeps the mma.sync
-// / ldmatrix / cp.async blocks of K2, E2 and E3.
+// tensor cores by TMA: K1's bf16 instance (attention.cu), E1's
+// (matmul_residual.cu) and E3 (attn_packed.cu) on wgmma; E2's (V, C) ring
+// (logits.cu) and K5's weight stream (fused_step.cu) on mma.sync.  mma.cuh
+// keeps the mma.sync / ldmatrix / cp.async blocks of K2 and E2.
 //
 // - mbarrier: init, arrive, arrive_expect_tx and try_wait.parity.  A ring
 //   stage has a "full" barrier (the producer's expected bytes; TMA counts
@@ -73,18 +73,30 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
 
 // A wait that has not completed after some 2^34 cycles (seconds) cannot
 // complete: a fault in the ring's bookkeeping traps rather than hangs.
+// CLUSTER: acquire at cluster scope, for bytes other blocks of the cluster
+// stored (st.async below); else at the block's.
+template <bool CLUSTER = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done = 0;
   long long start = 0;
   while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
+    if constexpr (CLUSTER)
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
+    else
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
     if (done) return;
     if (start == 0) {
       start = clock64();
@@ -92,6 +104,48 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       __trap();
     }
   }
+}
+
+// -- stores into another block of the cluster ----------------------------------
+//
+// st.async writes 4, 8 or 16 bytes into a block's shared memory (its address
+// from cluster_addr) and counts them on that block's mbarrier as
+// transaction bytes, which the block arms (mbar_arrive_expect_tx) once a
+// phase; the completion releases the bytes at cluster scope, so the block
+// waits with mbar_wait<true> (acquire at cluster scope) before it reads
+// them.  No fence or arrival: the barrier's bytes are the signal.
+
+// the address of p (in this block's shared memory) in block `rank`'s
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  return remote;
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, float a, float b, float c, float d, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(
+                   addr),
+               "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, uint32_t a, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(addr), "r"(a),
+               "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, uint32_t a, uint32_t b, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n" ::"r"(addr),
+               "r"(a), "r"(b), "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, uint4 v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(
+                   addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+               : "memory");
 }
 
 // -- TMA -----------------------------------------------------------------------

@@ -1,5 +1,5 @@
 // Tensor-core building blocks for the port's bf16 kernels that stage tiles
-// in shared memory (logits.cu, attn_packed.cu; the wgmma kernels use
+// in shared memory (fused_step.cu, logits.cu, dtw.cu; the wgmma kernels use
 // hopper.cuh):
 // mma.sync m16n8k16 (bf16 in, f32 accumulate), ldmatrix, and cp.async with
 // zero fill.  Fragment layouts (PTX ISA, mma.m16n8k16 for .bf16), for lane

@@ -15,6 +15,8 @@ verdict.  ``--q`` and ``--t`` shrink the shape (a run on the CPU).  Returns
 the rows.
 """
 
+import math
+
 import numpy as np
 import torch
 
@@ -26,6 +28,18 @@ def block_diagonal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(g, T, D) and (g, T, D) -> (g, 2T, 2D): [[a, 0], [0, b]]."""
     zero = torch.zeros_like(a)
     return torch.cat([torch.cat([a, zero], dim=-1), torch.cat([zero, b], dim=-1)], dim=1)
+
+
+def chain_scale(T: int, D: int = 64, q_scale: float = 0.1, ulps: float = 4.0) -> float:
+    """The scale of K and V (unit normal draws times it; q's is q_scale) at
+    which each rep's feedback moves qq by about ``ulps`` bf16 ulps of |q|.
+    The feedback is bf16(acc) * 1e-9 with acc growing by o * 1e-9 a rep, and
+    o = bf16(qq K^T) V is about sqrt(T D) q_scale scale^2.  At the
+    experiment's 0.1 the feedback is some 1e-17, far under half an ulp of
+    q: every rep's o is then the same, and a kernel that skipped reps would
+    pass a numeric check; at this scale the reps form a visible chain."""
+    ulp = 2.0 ** (math.floor(math.log2(q_scale)) - 7)
+    return math.sqrt(ulps * ulp / 1e-18 / (math.sqrt(T * D) * q_scale))
 
 
 def main(argv=None) -> list:

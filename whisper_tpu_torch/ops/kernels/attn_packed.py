@@ -9,7 +9,9 @@ Unpacked: q (g, Q, 2D) holds two heads side by side, each with its own K/V
 (g, T, D).  Packed: one (g, 2T, 2D) K/V pair, block-diagonal in the
 experiment, multiplied densely (zero blocks too).  The kernels are
 ``whisper_tpu_torch/csrc/attn_packed.cu`` (its header says what bounds
-them and how they are laid out); :func:`attn_pairs_unpacked_plain` and
+them and how they are laid out: a thread-block cluster holds a head's, or
+a packed program's, K/V in shared memory for every rep, so T is at most
+``MAX_KEYS``); :func:`attn_pairs_unpacked_plain` and
 :func:`attn_pairs_packed_plain` are the same functions in PyTorch.  No
 model path calls them: the experiment
 (:mod:`whisper_tpu_torch.experiments.attn_packed`) times the two.
@@ -20,6 +22,9 @@ import torch
 from . import _lib
 
 HEAD_DIM = 64  # the unpacked heads' D; packed, 2D = 128
+# the keys a cluster of 16 blocks holds (384 or 192 a block): T unpacked,
+# the packed operands' 2T
+MAX_KEYS = {0: 6144, 1: 3072}
 
 
 def _eps() -> torch.Tensor:
@@ -75,6 +80,11 @@ def _launch(wrapper, packed: int, q2, ks, reps: int) -> torch.Tensor:
     if any(tuple(t.shape) != (g, T, D) for t in ks):
         raise ValueError(f"attn_pairs kernel: K/V ({g}, T, {D}) each, got "
                          f"{[tuple(t.shape) for t in ks]}")
+    if T > MAX_KEYS[packed]:
+        raise ValueError(f"attn_pairs kernel: at most {MAX_KEYS[packed]} keys (a cluster's shared "
+                         f"memory), got {T}")
+    if any(t.data_ptr() % 16 for t in (q2, *ks)):
+        raise ValueError("attn_pairs kernel: every tensor must start on a 16-byte boundary (TMA)")
     out = torch.empty_like(q2)
     ptrs = [t.data_ptr() for t in ks] + [None] * (4 - len(ks))
     err = _lib.lib().attn_pairs(
@@ -89,7 +99,8 @@ def _launch(wrapper, packed: int, q2, ks, reps: int) -> torch.Tensor:
 def attn_pairs_unpacked(q2, k1, v1, k2, v2, reps: int) -> torch.Tensor:
     """Two (Q, T, 64) score + PV pairs per program, ``reps`` times.  A CPU
     tensor takes :func:`attn_pairs_unpacked_plain`; a CUDA tensor launches
-    the kernel (bf16, contiguous, D = 64) or raises."""
+    the kernel (bf16, contiguous, 16-byte aligned, D = 64, T <= 6144) or
+    raises."""
     if q2.device.type == "cpu":
         return attn_pairs_unpacked_plain(q2, k1, v1, k2, v2, reps)
     return _launch(attn_pairs_unpacked, 0, q2, (k1, v1, k2, v2), reps)
@@ -99,7 +110,7 @@ def attn_pairs_packed(q2, kp, vp, reps: int) -> torch.Tensor:
     """One (Q, 2T, 128) score + PV pair per program, ``reps`` times, dense
     over whatever kp, vp hold.  A CPU tensor takes
     :func:`attn_pairs_packed_plain`; a CUDA tensor launches the kernel
-    (bf16, contiguous) or raises."""
+    (bf16, contiguous, 16-byte aligned, 2T <= 3072) or raises."""
     if q2.device.type == "cpu":
         return attn_pairs_packed_plain(q2, kp, vp, reps)
     return _launch(attn_pairs_packed, 1, q2, (kp, vp), reps)

@@ -34,6 +34,35 @@ def matmul_residual_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return (y + bias) + res
 
 
+def _ulp_bound(v: torch.Tensor) -> torch.Tensor:
+    """Per element, the spacing of bf16 values at |v| (8 significant bits:
+    2^(e - 8) for |v| in [2^(e - 1), 2^e)), doubled where |v| is the
+    binade's largest value, one ulp below the next power of two, so that a
+    neighbour across that power is covered too."""
+    mag = v.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    _, e = torch.frexp(mag)  # mag = m 2^e, m in [0.5, 1)
+    ulp = torch.ldexp(torch.ones_like(mag), e - 8)
+    return torch.where(torch.ldexp(torch.ones_like(mag), e) - mag <= ulp, 2 * ulp, ulp)
+
+
+def bf16_rounding_bound(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                        res: torch.Tensor) -> torch.Tensor:
+    """How far, per element, a correct bf16 kernel may lie from
+    :func:`matmul_residual_plain`, which rounds three times: ``y = bf16(x @
+    w)``, ``t = bf16(y + bias)``, ``out = bf16(t + res)``.  A kernel's f32
+    product sums in another order, so where it lies near a rounding
+    boundary its y lands one ulp of |y| apart; the bias add then rounds
+    each side once more (one ulp of |t| between them), and the residual
+    add again (one ulp of |out|).  The bound is ``ulp(y) + ulp(t) +
+    ulp(out)`` (f32, the shape of out), each ulp taken at the plain value's
+    binade, or at the next binade up where the value lies within one ulp
+    of a power of two (the kernel's own intermediates cannot be read, and
+    may sit across it)."""
+    y = torch.matmul(x.float(), w.float()).to(torch.bfloat16)
+    t = y + bias
+    return _ulp_bound(y) + _ulp_bound(t) + _ulp_bound(t + res)
+
+
 def matmul_residual(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                     res: torch.Tensor) -> torch.Tensor:
     """x (M, K), w (K, N), bias (N,), res (M, N) -> (M, N).  A CPU tensor
