@@ -161,7 +161,19 @@ Phases, each of which must pass (any failure exits non-zero):
      T = 0.7: K2 launched in parts of 65 + 64 and 100 + 100 rows;
  34. a decoder K2 does not take (head dim 32, the tests' tiny dims) decodes
      on the card through the PyTorch step, chosen by shape, greedy and
-     beam 5 in f32: no K2 launch, the tokens of the same decode on the CPU.
+     beam 5 in f32: no K2 launch, the tokens of the same decode on the CPU;
+ 35. speculative greedy decoding at full width: large-v3 drafted for by
+     large-v3-turbo's decoder, the encoder shared, random weights on the
+     card; in f32 (TF32 off) the turbo draft and the self-draft equal the
+     plain greedy decode token for token, every draft step a K2 launch;
+     in bf16 the plain window, the turbo draft, the self-draft and the
+     all-accept ceiling in turns (ms per token, rounds, tokens per round,
+     K1 and K2 launches), the turbo draft equal to plain greedy or apart
+     only at a near-tie (K2's bf16 bound, re-scored by decoder_forward);
+     its stages on profiling.StageTimer, its idle share, the allocator's
+     statistics; one window of the int8 target with int8 cross K/V; and
+     K2 at the draft's step shape (B = 1, L = 4, T = 448, a per-row
+     position) against its plain version, with the other kernel checks.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -2207,7 +2219,7 @@ def profile_window(model, audio, forced, beam, prompts, int8) -> None:
         return DecodingTask(model, beam_options).run(beam_features)
 
     qmodel, (qfeatures, qbeam_options, _), qprompts = int8
-    qoptions = DecodingOptions(language="en", temperature=0.0, kv_cache_dtype="int8")
+    qoptions = DecodingOptions(language="en", temperature=0.0, sample_len=32, kv_cache_dtype="int8")
 
     # (label, fn, pinned): the pinned sequence is greedy-only
     parts = [
@@ -2250,6 +2262,179 @@ def profile_window(model, audio, forced, beam, prompts, int8) -> None:
         host_split(prompts, 224, "16-window run_with_prompts")
     finally:
         DecodingTask._forced_tokens = None
+
+
+def _cast(tree, dtype):
+    """A parameter tree with its floating leaves in dtype (int8 leaves kept)."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+@contextlib.contextmanager
+def spec_timer(timer):
+    """Every speculative decode in the block times its stages on timer."""
+    from whisper_tpu_torch import decoding
+
+    real = decoding.decode_engine_speculative
+
+    def timed(*args, **kwargs):
+        return real(*args, stage_timer=timer, **kwargs)
+
+    decoding.decode_engine_speculative = timed
+    try:
+        yield
+    finally:
+        decoding.decode_engine_speculative = real
+
+
+def spec_decode(target, draft, mel, options, force: bool = False):
+    """One window through DecodingTask.run with a draft (None: the plain
+    greedy decode), its stages on a StageTimer of the card: (result, wall
+    s, rounds, timer)."""
+    import torch
+
+    from whisper_tpu_torch.decoding import DecodingTask
+    from whisper_tpu_torch.profiling import StageTimer
+
+    timer = StageTimer(mel.device)
+    task = DecodingTask(target, options, draft_model=draft)
+    task._force_accept = force  # whisper_tpu's benchmark-only all-accept ceiling
+    with spec_timer(timer):
+        t0 = time.perf_counter()
+        result = task.run(mel)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return result, wall, timer.counts["verify"], timer
+
+
+def speculative_path(device, audio) -> dict:
+    """Phase 35: speculative greedy decoding at full width, large-v3 (32 +
+    32 layers) drafted for by large-v3-turbo's decoder (4 layers), the
+    encoder shared, random weights from seeded generators on the card.
+
+    f32 (TF32 off): the turbo-draft decode and the self-draft equal the
+    target's plain greedy decode token for token on jfk's first window,
+    and every draft step is a K2 launch ((S - 1) per round).  bf16, in
+    turns, median of 3 after a 16-token warm-up: the plain window, the turbo draft,
+    the self-draft and whisper_tpu's all-accept ceiling (_force_accept):
+    ms per token, rounds, tokens per round, K1 and K2 launches; the turbo
+    draft's tokens equal the plain ones, or at the first position where
+    they differ the target's two candidates, re-scored teacher-forced by
+    decoder_forward, lie within K2's bf16 bound (K2_REL_TOL relative to the
+    largest logit).  The stages of the timed turbo window on a StageTimer
+    (CUDA events), its device idle share under torch.profiler (64 tokens),
+    the allocator's statistics, and a 32-token window of the int8 target
+    with int8 cross K/V, well-formed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch import Whisper, log_mel_spectrogram, pad_or_trim
+    from whisper_tpu_torch.decoding import DecodingOptions, DecodingTask
+    from whisper_tpu_torch.models import KNOWN_MODELS
+    from whisper_tpu_torch.models.whisper import decoder_forward, init_params
+    from whisper_tpu_torch.ops.kernels.attention import attention
+    from whisper_tpu_torch.ops.kernels.fused_step import fused_decoder_layers
+    from whisper_tpu_torch.profiling import device_memory_stats
+    from whisper_tpu_torch.quantize import quantize_params
+
+    t0 = time.perf_counter()
+    tdims, ddims = KNOWN_MODELS["large-v3"], KNOWN_MODELS["turbo"]
+    tparams = init_params(tdims, torch.Generator(device=device).manual_seed(35), torch.float32, device)
+    dparams = init_params(ddims, torch.Generator(device=device).manual_seed(36), torch.float32, device)
+    dparams["encoder"] = tparams["encoder"]  # turbo kept large-v3's encoder
+    target, draft = Whisper(tdims, tparams), Whisper(ddims, dparams)
+    mel = log_mel_spectrogram(pad_or_trim(audio), tdims.n_mels, device=device)[None]
+    S = DecodingOptions.draft_len
+    options = DecodingOptions(language="en", temperature=0.0)
+    torch.cuda.synchronize()
+    log(f"speculative: random large-v3 ({target.num_parameters()} parameters) and turbo's decoder, "
+        f"f32, the encoder shared: {time.perf_counter() - t0:.3f} s")
+
+    # f32, TF32 off: token-exact
+    plain, _, _, _ = spec_decode(target, None, mel, options)
+    for name, d in (("turbo draft", draft), ("self-draft", target)):
+        reset_launches()
+        spec, wall, rounds, _ = spec_decode(target, d, mel, options)
+        k2 = fused_decoder_layers.launches
+        log(f"speculative f32 {name}, S = {S}: {len(spec.tokens)} tokens in {rounds} rounds, "
+            f"{len(spec.tokens) / rounds:.4f} tokens per round, K2 launches {k2} "
+            f"((S - 1) x rounds = {(S - 1) * rounds}), equal to plain greedy "
+            f"({len(plain.tokens)} tokens): {spec.tokens == plain.tokens}, avg_logprob "
+            f"{spec.avg_logprob:.6f} / {plain.avg_logprob:.6f}, wall {wall:.4f} s")
+        if spec.tokens != plain.tokens:
+            raise RuntimeError(f"speculative f32 ({name}) differs from plain greedy")
+        if k2 != (S - 1) * rounds or k2 <= 0:
+            raise RuntimeError(f"speculative f32 ({name}): {k2} K2 launches for {rounds} rounds")
+
+    # bf16: the four windows in turns
+    target, draft = Whisper(tdims, _cast(tparams, torch.bfloat16)), Whisper(ddims, _cast(dparams, torch.bfloat16))
+    del tparams, dparams
+    torch.cuda.empty_cache()
+    runs = {"plain": (None, False), "turbo draft": (draft, False), "self-draft": (target, False),
+            "all-accept ceiling": (draft, True)}
+    walls = {name: [] for name in runs}
+    out = {}
+    short = DecodingOptions(language="en", temperature=0.0, sample_len=16)
+    for turn in range(4):  # the first is a short warm-up
+        for name, (d, force) in runs.items():
+            reset_launches()
+            result, wall, rounds, timer = spec_decode(target, d, mel, options if turn else short, force)
+            walls[name].append(wall)
+            out[name] = dict(result=result, rounds=rounds, timer=timer, k1=attention.launches,
+                             k2=fused_decoder_layers.launches)
+    for name, o in out.items():
+        wall = sorted(walls[name][1:])[1]
+        n = len(o["result"].tokens)
+        per_round = f"{o['rounds']} rounds, {n / o['rounds']:.4f} tokens per round, " if o["rounds"] else ""
+        log(f"speculative bf16 {name}: {n} tokens, wall {wall:.4f} s (median of 3 after a short warm-up), "
+            f"{1000 * wall / n:.4f} ms per token, {per_round}K1 launches {o['k1']}, K2 launches {o['k2']}")
+    base, turbo = out["plain"]["result"], out["turbo draft"]["result"]
+    if turbo.tokens != base.tokens:
+        j = next((i for i, (a, b) in enumerate(zip(base.tokens, turbo.tokens)) if a != b),
+                 min(len(base.tokens), len(turbo.tokens)))
+        eot = DecodingTask(target, options).tokenizer.eot
+        a, b = (r.tokens[j] if j < len(r.tokens) else eot for r in (base, turbo))
+        prefix = list(DecodingTask(target, options).initial_tokens) + list(base.tokens[:j])
+        logits = decoder_forward(target.params, tdims, torch.tensor([prefix], device=device),
+                                 target.embed_audio(mel))[0, -1]
+        rel = (logits[a] - logits[b]).abs().item() / logits.abs().max().item()
+        log(f"speculative bf16 turbo draft: first differs from plain greedy at token {j} ({a} against "
+            f"{b}); teacher-forced logits {logits[a].item():.6f} / {logits[b].item():.6f}, apart "
+            f"{rel:.3e} of the largest (K2's bf16 bound {K2_REL_TOL['bfloat16']:.0e})")
+        if not rel <= K2_REL_TOL["bfloat16"]:
+            raise RuntimeError(f"speculative bf16: not a near-tie at token {j}: {rel}")
+    else:
+        log("speculative bf16 turbo draft: equal to plain greedy token for token")
+    report = out["turbo draft"]["timer"].report(audio_seconds=len(audio) / 16000)
+    rounds = out["turbo draft"]["rounds"]
+    log(f"speculative bf16 turbo draft, stages on CUDA events (the last run): {report}; per round "
+        + ", ".join(f"{k} {1000 * out['turbo draft']['timer'].totals[k] / rounds:.4f} ms"
+                    for k in ("draft", "verify", "accept")))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result, wall, rounds, _ = spec_decode(target, draft, mel, DecodingOptions(
+            language="en", temperature=0.0, sample_len=64))
+    busy = busy_ms(device_events(prof))
+    log(f"speculative bf16 turbo draft, 64 tokens, under torch.profiler: {rounds} rounds, wall "
+        f"{1000 * wall:.2f} ms, device busy {busy:.2f} ms, idle share {1 - busy / (1000 * wall):.4f}")
+    stats = device_memory_stats(device)
+    log("device_memory_stats: " + ", ".join(f"{k} {stats.get(k)}" for k in (
+        "allocated_bytes.all.current", "allocated_bytes.all.peak", "reserved_bytes.all.peak",
+        "num_alloc_retries", "num_ooms")))
+
+    # int8 weights and int8 cross K/V in the target
+    qtarget = Whisper(tdims, quantize_params(target.params))
+    qoptions = DecodingOptions(language="en", temperature=0.0, sample_len=32, kv_cache_dtype="int8")
+    reset_launches()
+    result, wall, rounds, _ = spec_decode(qtarget, draft, mel, qoptions)
+    ok = (0 < len(result.tokens) and all(0 <= t < tdims.n_vocab for t in result.tokens)
+          and math.isfinite(result.avg_logprob) and isinstance(result.text, str))
+    log(f"speculative int8 target (kv_cache_dtype int8), turbo draft bf16: {len(result.tokens)} "
+        f"tokens in {rounds} rounds, avg_logprob {result.avg_logprob:.6f}, wall {wall:.4f} s, "
+        f"K2 launches {fused_decoder_layers.launches}, well-formed: {ok}")
+    if not ok:
+        raise RuntimeError("speculative int8: malformed result")
+    return dict(k1=out["turbo draft"]["k1"], k2=out["turbo draft"]["k2"])
 
 
 def main() -> int:
@@ -2314,6 +2499,10 @@ def main() -> int:
     wide = torch.Generator(device=device).manual_seed(129)
     for G in (129, 200):
         check_k2(wide, device, G=G, t=[(37 * i) % 257 for i in range(G)], label=" wide group")
+    # the speculative draft's one-token step: turbo's decoder, one row at a
+    # per-row position in a 448-column cache (a generator of its own)
+    k2d = check_k2(torch.Generator(device=device).manual_seed(448), device, t=[116], T=448,
+                   label=" draft")
     launches, model, audio, forced = end_to_end(device)
     cli_launches = cli_default_path(model)
     beam = beam_window(model, audio)
@@ -2345,6 +2534,7 @@ def main() -> int:
     k2_slice_launches = batch_beam_160(model, audio)
     wide_group(model, audio)
     narrow_decoder(device)
+    spec_launches = speculative_path(device, audio)
     if args.profile:
         profile_window(model, audio, forced, beam, prompts, int8)
 
@@ -2352,10 +2542,13 @@ def main() -> int:
                  replaces="whisper_tpu/ops/kernels/fused_step_pallas.py:301")
     pending = dict(fused, replaces="whisper_tpu/ops/kernels/fused_step_pallas.py:312")
     kernels = [
+        # launches_speculative: the target's encoder in phase 35's bf16
+        # turbo-draft window (large-v3, 32 layers)
         dict(name="encoder_attention", route="cuda",
              source="whisper_tpu_torch/csrc/attention.cu",
              replaces="whisper_tpu/ops/kernels/attention_pallas.py:62",
-             launches=launches["encoder_attention"], **k1[1, "bfloat16"]),
+             launches=launches["encoder_attention"], launches_speculative=spec_launches["k1"],
+             **k1[1, "bfloat16"]),
         # K1 at batch 16: timed at (16, 20, 1500, 64); launches: transcribe_batch's
         # encoder passes (groups of up to 16 files)
         dict(name="encoder_attention_b16", route="cuda", source="whisper_tpu_torch/csrc/attention.cu",
@@ -2423,6 +2616,10 @@ def main() -> int:
         # more than 128 rows: 32 x 5 in launches of 25 and 7 audios, timed as
         # one step; launches: transcribe_batch's 160-row steps (each two)
         dict(name="fused_decoder_layers_160", **fused, launches=k2_slice_launches, **k2_160["bfloat16"]),
+        # the speculative draft's one-token steps (turbo's decoder, one row,
+        # per-row position, T = 448): phase 35's bf16 turbo-draft window
+        dict(name="fused_decoder_layers_draft", **fused, launches=spec_launches["k2"],
+             **k2d["bfloat16"]),
         # K1 at head dim 128: timed at the encoder pass's (1, 10, 1500, 128)
         dict(name="encoder_attention_d128", route="cuda", source="whisper_tpu_torch/csrc/attention.cu",
              replaces="whisper_tpu/ops/kernels/attention_pallas.py:62", launches=d128_launches,

@@ -33,7 +33,6 @@ tserve = importlib.import_module("whisper_tpu_torch.serve")
 
 # (where, name) -> why the port differs
 ALLOWED = {
-    ("DecodingOptions", "draft_len"): "speculative decoding: ROADMAP Queue 1 item 16",
     ("DecodingOptions", "fused_step"): "K2 always runs on the card; the XLA/Pallas switch has no port",
     # the port never picks a device by itself: CUDA unless told otherwise
     ("load_model", "device"): "default 'cuda' (whisper_tpu: None, JAX's default backend)",

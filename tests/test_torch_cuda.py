@@ -23,7 +23,9 @@ exact products in f32; only the order differs).  K3 and K4 select: their
 outputs must equal the plain versions' bit for bit.  A wide decoder's
 batch decodes in write blocks, through K2's pending variant, the tokens of
 per-step writes.  K1 at head dim 128 takes K1's bounds.  K2 above 128 rows
-(launched in slices of whole audios): K2's bounds.  E1 (matmul with the
+(launched in slices of whole audios): K2's bounds.  Speculative decoding
+with a draft of head dim 64: in f32 the plain greedy decode's tokens and
+the CPU's; bf16 and int8 decodes well-formed.  E1 (matmul with the
 residual epilogue): f32 max error 1e-4 of max |plain| (f32 sums in another
 order over K up to 5120); bf16 per element within
 ``matmul_residual.bf16_rounding_bound``: the plain version rounds three
@@ -881,6 +883,110 @@ def test_wide_batch_decodes_in_write_blocks(cuda):
     for a, b in zip(block, per_step):
         assert a.tokens == b.tokens
         assert abs(a.avg_logprob - b.avg_logprob) <= 1e-5 * max(1.0, abs(b.avg_logprob))
+
+
+# -- speculative decoding: the draft's steps on K2, the verify pass in torch ---
+
+
+def _spec_models(device, dtype=torch.float32):
+    """A target (two decoder layers of head dim 64) and a draft of one layer
+    of head dim 64 that shares its encoder dims: K2 takes both shapes.  The
+    weights come from seeded CPU generators, so the CPU holds the same."""
+    import whisper_tpu_torch
+    from whisper_tpu_torch.models import ModelDimensions
+    from whisper_tpu_torch.models.whisper import init_params
+
+    kw = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2, n_audio_layer=1,
+              n_vocab=51865, n_text_ctx=448, n_text_state=128, n_text_head=2, n_text_layer=2)
+    models = []
+    for seed, layers in ((0, 2), (1, 1)):
+        dims = ModelDimensions(**dict(kw, n_text_layer=layers))
+        params = init_params(dims, torch.Generator().manual_seed(seed), torch.float32)
+        models.append(whisper_tpu_torch.Whisper(dims, _to(params, device, dtype)))
+    return models
+
+
+def _to(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device, dtype)
+
+
+@pytest.mark.parametrize("case", ["default", "buffer_cap"])
+def test_speculative_on_the_card_equals_greedy_and_the_cpu(cuda, monkeypatch, case):
+    """f32, TF32 off: the speculative decode on the card equals the plain
+    greedy decode there and the same speculative decode on the CPU, token
+    for token; every one-token draft step is a K2 launch, (S - 1) a round
+    (the verify pass is torch).  buffer_cap: a 210-token prompt and 220
+    tokens to decode run the draft's steps and the verify pass past the
+    cache's capacity."""
+    from whisper_tpu_torch import engine
+    from whisper_tpu_torch.decoding import DecodingOptions, DecodingTask
+
+    kw = dict(language="en", temperature=0.0, sample_len=24)
+    if case == "buffer_cap":
+        prompt = [int(x) for x in np.random.RandomState(3).randint(100, 5000, 210)]
+        kw.update(sample_len=220, prompt=prompt)
+    options = DecodingOptions(**kw)
+    mel = torch.from_numpy(np.random.RandomState(0).randn(2, 80, 3000).astype(np.float32) * 0.4)
+    real, rounds = engine.decoder_step_k, []
+
+    def counting(params, *args):
+        rounds.append(params)
+        return real(params, *args)
+
+    monkeypatch.setattr(engine, "decoder_step_k", counting)
+    results = {}
+    for device in ("cpu", cuda):
+        target, draft = _spec_models(device)
+        k2.fused_decoder_layers.launches_by_layout.clear()
+        k2.fused_decoder_layers.launches = 0
+        rounds.clear()
+        spec = DecodingTask(target, options, draft_model=draft).run(mel.to(device))
+        n_rounds = sum(p is target.params for p in rounds)
+        results[torch.device(device).type] = [r.tokens for r in spec]
+        if torch.device(device).type == "cuda":
+            assert k2.fused_decoder_layers.launches == (options.draft_len - 1) * n_rounds > 0
+            assert set(k2.fused_decoder_layers.launches_by_layout) == {(2, 1)}
+            plain = DecodingTask(target, options).run(mel.to(device))
+            assert [r.tokens for r in plain] == results["cuda"]
+    assert results["cuda"] == results["cpu"]
+
+
+def test_speculative_bf16_and_int8_on_the_card_are_well_formed(cuda):
+    """bf16, and the target int8 with int8 cross K/V: the decodes come back
+    well-formed, the draft's steps on K2."""
+    from whisper_tpu_torch.decoding import DecodingOptions, DecodingTask
+    from whisper_tpu_torch.models.whisper import Whisper
+    from whisper_tpu_torch.quantize import quantize_params
+
+    target, draft = _spec_models(cuda, torch.bfloat16)
+    qtarget = Whisper(target.dims, quantize_params(target.params))
+    mel = torch.from_numpy(np.random.RandomState(0).randn(80, 3000).astype(np.float32) * 0.4)
+    for model, kv in ((target, None), (qtarget, "int8")):
+        k2.fused_decoder_layers.launches = 0
+        options = DecodingOptions(language="en", temperature=0.0, sample_len=24, kv_cache_dtype=kv)
+        result = DecodingTask(model, options, draft_model=draft).run(mel[None].to(cuda))[0]
+        assert 0 < len(result.tokens) and all(0 <= t < model.dims.n_vocab for t in result.tokens)
+        assert np.isfinite(result.avg_logprob) and isinstance(result.text, str)
+        assert k2.fused_decoder_layers.launches > 0
+
+
+def test_stage_timer_reads_cuda_events(cuda):
+    """On a CUDA device the StageTimer's stages are CUDA events: a stage
+    holds the device time of its queued work, read at report()."""
+    from whisper_tpu_torch.profiling import StageTimer, device_memory_stats
+
+    timer = StageTimer(cuda)
+    a = torch.randn(4096, 4096, device=cuda)
+    with timer.stage("matmul"):
+        for _ in range(20):
+            a = a @ a / 64.0
+    with timer.stage("empty"):
+        pass
+    report = timer.report()
+    assert timer.counts["matmul"] == 1 and report["matmul_seconds"] > report["empty_seconds"] >= 0
+    assert device_memory_stats(cuda)["allocated_bytes.all.current"] > 0
 
 
 # -- K2 redesigned: what its tiles may read, and its launch chain -------------

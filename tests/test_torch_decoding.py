@@ -195,13 +195,19 @@ def test_sampling_is_reproducible_from_its_seed(models, mel):
 
 
 def test_draft_model_and_word_timestamps_raise(models, mel):
-    """A draft model raises, from decode and from transcribe (which passes
-    it on as whisper_tpu's does); word timestamps now run."""
+    """Neither raises any more: word timestamps run, and a draft model
+    (here the model drafting for itself) decodes, from decode and from
+    transcribe (which passes it on as whisper_tpu's does), to what the
+    plain decode gives (its cases: tests/test_torch_speculative.py)."""
     _, tmodel = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.decode(torch.from_numpy(mel[0]), DecodingOptions(language="en"), draft_model=tmodel)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.transcribe(np.zeros(16000, np.float32), language="en", draft_model=tmodel)
+    opts = DecodingOptions(language="en", sample_len=24)
+    plain = tmodel.decode(torch.from_numpy(mel[0]), opts)
+    spec = tmodel.decode(torch.from_numpy(mel[0]), opts, draft_model=tmodel)
+    assert spec.tokens == plain.tokens and abs(spec.avg_logprob - plain.avg_logprob) < 1e-4
+    kw = dict(language="en", temperature=0.0, sample_len=8)
+    audio = np.zeros(16000, np.float32)
+    assert (tmodel.transcribe(audio, draft_model=tmodel, **kw)["text"]
+            == tmodel.transcribe(audio, **kw)["text"])
 
 
 def test_import_pulls_in_no_jax():
@@ -214,7 +220,8 @@ def test_import_pulls_in_no_jax():
         "whisper_tpu_torch.align, whisper_tpu_torch.serve, whisper_tpu_torch.streaming, "
         "whisper_tpu_torch.experiments.encoder_ops, whisper_tpu_torch.experiments.logits, "
         "whisper_tpu_torch.experiments.attn_packed, whisper_tpu_torch.ops.kernels.matmul_residual, "
-        "whisper_tpu_torch.ops.kernels.logits, whisper_tpu_torch.ops.kernels.attn_packed; "
+        "whisper_tpu_torch.ops.kernels.logits, whisper_tpu_torch.ops.kernels.attn_packed, "
+        "whisper_tpu_torch.profiling, whisper_tpu_torch.normalizers; "
         "from whisper_tpu_torch.transcribe import cli; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisper_tpu', 'scripts') "
         f"or m in {_SCRIPT_MODULES!r}]; "
@@ -270,19 +277,21 @@ def test_port_reads_no_path_under_whisper_tpu():
 
 def test_port_runs_from_a_tree_without_whisper_tpu(tmp_path):
     """The port's package alone, copied beside tests/jfk.flac, builds its
-    native library, decodes audio, makes a mel and tokenizes."""
+    native library, decodes audio, makes a mel, tokenizes and normalizes
+    text (its own copy of the UK -> US spelling map)."""
     shutil.copytree(os.path.join(REPO, "whisper_tpu_torch"), tmp_path / "whisper_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     code = (
         "import sys, whisper_tpu_torch as w; from whisper_tpu_torch.tokenizer import get_tokenizer; "
+        "from whisper_tpu_torch.normalizers import EnglishTextNormalizer; "
         "a = w.load_audio(sys.argv[1]); m = w.log_mel_spectrogram(a[:16000], 128); "
         "print(len(a), tuple(m.shape), get_tokenizer(True).encode(' hello world'), "
-        "'whisper_tpu' in sys.modules)"
+        "EnglishTextNormalizer()('Colour'), 'whisper_tpu' in sys.modules)"
     )
     proc = subprocess.run([sys.executable, "-c", code, JFK], cwd=tmp_path, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["176000", "(128,", "100)", "[7751,", "1002]", "False"]
+    assert proc.stdout.split() == ["176000", "(128,", "100)", "[7751,", "1002]", "color", "False"]
 
 
 def test_pyproject_lists_every_port_package():

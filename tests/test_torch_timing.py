@@ -301,17 +301,22 @@ def test_cli_writes_the_files_of_whisper_tpu(npz_path, tmp_path, monkeypatch, ca
 
 
 def test_cli_refuses_what_the_port_lacks(npz_path, tmp_path, monkeypatch):
-    """As ``python -m whisper_tpu_torch``; the flag whisper_tpu has and the
-    port does not yet raises, naming its ROADMAP item (``--chunked`` runs:
-    tests/test_torch_chunked.py)."""
+    """As ``python -m whisper_tpu_torch``; the one flag of whisper_tpu's
+    that the port refused until speculative decoding was ported,
+    ``--draft_model``, now loads the draft (here the same checkpoint) and
+    writes what the decode without it writes (``--chunked`` runs:
+    tests/test_torch_chunked.py; the draft's cases:
+    tests/test_torch_speculative.py)."""
+    common = [JFK, "--model", npz_path, "--device", "cpu", "--language", "en", "-f", "json",
+              "--beam_size", "None", "--temperature_increment_on_fallback", "None",
+              "--clip_timestamps", "0,1", "--verbose", "False"]
     proc = subprocess.run(
-        [sys.executable, "-m", "whisper_tpu_torch", JFK, "--model", npz_path, "--device", "cpu",
-         "-o", str(tmp_path), "--draft_model", "tiny"],
+        [sys.executable, "-m", "whisper_tpu_torch", *common, "-o", str(tmp_path / "spec"),
+         "--draft_model", npz_path],
         cwd=REPO, capture_output=True, text=True, timeout=300,
     )
-    assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
-    assert "Speculative decoding" in proc.stderr
-    with pytest.raises(NotImplementedError, match="Speculative decoding"):
-        _cli("whisper_tpu_torch.transcribe",
-             [JFK, "--model", npz_path, "--device", "cpu", "-o", str(tmp_path),
-              "--draft_model", "tiny"], monkeypatch)
+    assert proc.returncode == 0 and "Error" not in proc.stderr + proc.stdout, proc.stderr
+    _cli("whisper_tpu_torch.transcribe", [*common, "-o", str(tmp_path / "plain")], monkeypatch)
+    spec, plain = (json.loads((tmp_path / d / "jfk.json").read_text()) for d in ("spec", "plain"))
+    assert [s["tokens"] for s in spec["segments"]] == [s["tokens"] for s in plain["segments"]]
+    assert _close(spec, plain)

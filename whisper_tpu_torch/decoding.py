@@ -23,6 +23,7 @@ from .engine import (
     FilterArgs,
     ctx_bucket,
     decode_engine,
+    decode_engine_speculative,
     detect_language_engine,
     prefill_bucket,
 )
@@ -120,6 +121,10 @@ class DecodingOptions:
     # head, channel), quantized after a full-precision prefill
     kv_cache_dtype: Optional[str] = None
 
+    # tokens the draft model proposes per speculative round (used only when
+    # a draft model is given; see DecodingTask)
+    draft_len: int = 4
+
 
 @dataclass(frozen=True)
 class DecodingResult:
@@ -135,7 +140,15 @@ class DecodingResult:
 
 
 class DecodingTask:
-    """Host orchestration of one segment-decoding configuration."""
+    """Host orchestration of one segment-decoding configuration.
+
+    ``draft_model``: a smaller Whisper for speculative greedy decoding
+    (:func:`~whisper_tpu_torch.engine.decode_engine_speculative`); the
+    tokens stay the target's own greedy choices, the draft only sets the
+    speed.  It is kept at temperature 0 without beam or best-of, and must
+    share the target's vocabulary; other configurations ignore it
+    (whisper_tpu/decoding.py:205-241).
+    """
 
     # benchmark hook (see _bench_forced); None in production
     _forced_tokens = None
@@ -143,11 +156,24 @@ class DecodingTask:
     def __init__(self, model: "Whisper", options: DecodingOptions,
                  draft_model: Optional["Whisper"] = None):
         self.model = model
-        if draft_model is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft_model): ROADMAP.md, Queue 1, "
-                "'Speculative decoding'"
-            )
+        self.draft_model = None
+        if draft_model is not None and options.temperature == 0 and not (
+            options.beam_size or options.best_of
+        ):
+            if draft_model.dims.n_vocab != model.dims.n_vocab:
+                raise ValueError(
+                    "draft model must share the target's vocabulary "
+                    f"(draft {draft_model.dims.n_vocab} vs "
+                    f"target {model.dims.n_vocab}); e.g. large-v3-turbo "
+                    "drafts for large-v3, tiny for large-v2"
+                )
+            self.draft_model = draft_model
+        # the draft reads the target's encoder output when the feature shapes
+        # match (large-v3-turbo kept large-v3's encoder); a mismatched
+        # encoder would only lower the acceptance rate
+        self._share_encoder = self.draft_model is not None and (
+            self.draft_model.dims.n_audio_ctx, self.draft_model.dims.n_audio_state
+        ) == (model.dims.n_audio_ctx, model.dims.n_audio_state)
 
         language = options.language or "en"
         tokenizer = get_tokenizer(
@@ -324,26 +350,48 @@ class DecodingTask:
     def _engine(self, spec: EngineSpec, mel, initial_rows: List[List[int]], sample_begin,
                 sot_index, features_given: bool) -> EngineResult:
         """decode_engine on per-audio initial token rows, right-padded to
-        the spec's prefill block."""
+        the spec's prefill block; with a draft model,
+        decode_engine_speculative."""
         initial_block = torch.zeros((len(initial_rows), spec.prefill_len), dtype=torch.int64)
         for i, row in enumerate(initial_rows):
             initial_block[i, : len(row)] = torch.tensor(row)
+        initial_block = initial_block.to(self.model.device)
+        filter_args = FilterArgs(
+            suppress_mask=self._suppress_mask,
+            blank_mask=self._blank_mask,
+            sample_begin=sample_begin,
+            max_initial_ts_index=self._max_initial_ts_index,
+        )
+        if self.draft_model is not None:
+            return decode_engine_speculative(
+                self.model.params,
+                self.draft_model.params,
+                self.model.dims,
+                self.draft_model.dims,
+                spec,
+                mel,
+                initial_block,
+                sample_begin,
+                sot_index,
+                self.sample_len,
+                filter_args,
+                draft_len=self.options.draft_len,
+                features_given=features_given,
+                share_encoder=self._share_encoder,
+                # whisper_tpu's benchmark-only all-accept mode, not an option
+                force_accept=getattr(self, "_force_accept", False),
+            )
         return decode_engine(
             self.model.params,
             self.model.dims,
             replace(spec, write_block=self.write_block(len(initial_rows))),
             mel,
-            initial_block.to(self.model.device),
+            initial_block,
             sample_begin,
             sot_index,
             self.sample_len,
             self.options.temperature,
-            FilterArgs(
-                suppress_mask=self._suppress_mask,
-                blank_mask=self._blank_mask,
-                sample_begin=sample_begin,
-                max_initial_ts_index=self._max_initial_ts_index,
-            ),
+            filter_args,
             generator=self._generator(),
             features_given=features_given,
             forced_tokens=self._bench_forced(),
@@ -389,9 +437,10 @@ class DecodingTask:
                 for i in range(n_audio)
             ]
 
-        if audio_features is not None:
+        if audio_features is not None and (self.draft_model is None or self._share_encoder):
             # reuse the features computed during language detection instead
-            # of re-encoding the mel (reference decoding.py:716-722)
+            # of re-encoding the mel (reference decoding.py:716-722); a draft
+            # with an encoder of its own needs the raw mel
             mel = audio_features
             features_given = True
 

@@ -15,9 +15,13 @@ buffer every step, as there, so beam reordering carries no extra state.  A
 batch holds n_audio audios of n_group rows each (a beam or best-of group,
 or one greedy row), group-major, sharing their audio's cross K/V; each
 audio's window carries its own prompt length, so every row runs at its own
-position, held on the device.  The speculative engine is a later slice.
+position, held on the device.  :func:`decode_engine_speculative` is the
+greedy engine with a draft model: the draft proposes a few tokens a round,
+the target verifies them in one pass, and the output is the target's own
+greedy decode (whisper_tpu/engine.py:712-975).
 """
 
+import contextlib
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -33,6 +37,7 @@ from .models.whisper import (
     decoder_step,
     decoder_step_fused,
     decoder_step_fused_pending,
+    decoder_step_k,
     decoder_step_pending,
     encoder_apply,
     flush_pending,
@@ -601,6 +606,216 @@ def _block_loop(
         if bool(state.completed):  # the loop's one host sync per block
             break
     return state
+
+
+# ---------------------------------------------------------------------------
+# Speculative greedy decoding (a draft model proposes, the target verifies)
+# ---------------------------------------------------------------------------
+
+
+class _SpecState(NamedTuple):
+    tokens: torch.Tensor  # (B, n_ctx+1): committed and provisional draft tokens
+    t: torch.Tensor  # (B,): committed length per row
+    cache: KVCache  # the target's
+    draft_cache: KVCache
+    sum_logprobs: torch.Tensor  # (B,) f32
+    done: torch.Tensor  # (B,) bool: EOT committed, budget reached or capped
+
+
+def _put(tokens: torch.Tensor, pos: torch.Tensor, values: torch.Tensor,
+         where: Optional[torch.Tensor] = None) -> None:
+    """tokens[b, pos[b]] = values[b] in place, for the rows of ``where``;
+    a position past the buffer drops its write (JAX's ``mode="drop"``)."""
+    last = tokens.shape[1] - 1
+    keep = pos <= last if where is None else where & (pos <= last)
+    col = pos.clamp(max=last)[:, None]
+    tokens.scatter_(1, col, torch.where(keep, values, tokens.gather(1, col)[:, 0])[:, None])
+
+
+def _gather_cols(tokens: torch.Tensor, start: torch.Tensor, k: int) -> torch.Tensor:
+    """tokens[b, start[b] + i] for i < k, the columns clamped into the buffer."""
+    cols = start[:, None] + torch.arange(k, device=tokens.device)
+    return tokens.gather(1, cols.clamp(0, tokens.shape[1] - 1))
+
+
+def _prefilled_cache(dims, B, xk, xv, pk, pv, dtype, n_ctx) -> KVCache:
+    """A cache of B = n_audio rows with the prompt's K/V, (L, B, H, P, D),
+    in its first P columns."""
+    cache = init_kv_cache(dims, B, xk, xv, dtype, ctx=n_ctx)
+    P = pk.shape[-2]
+    cache.self_k[..., :P] = pk.transpose(-1, -2)
+    cache.self_v[..., :P] = pv.transpose(-1, -2)
+    return cache
+
+
+@torch.inference_mode()
+def decode_engine_speculative(
+    params,
+    draft_params,
+    dims: ModelDimensions,
+    draft_dims: ModelDimensions,
+    spec: EngineSpec,
+    mel_or_features: torch.Tensor,  # (n_audio, n_mels, 3000) or (n_audio, Ta, C)
+    initial_tokens: torch.Tensor,  # (n_audio, prefill_len) int64, right-padded
+    initial_len: Union[int, Sequence[int]],  # shared, or one per audio
+    sot_index: Union[int, Sequence[int]],
+    sample_len: int,
+    filter_args: FilterArgs,
+    draft_len: int = 4,
+    features_given: bool = False,
+    share_encoder: bool = True,
+    force_accept: bool = False,
+    stage_timer=None,
+) -> EngineResult:
+    """Greedy decoding with a draft model proposing ``draft_len`` tokens a
+    round (whisper_tpu/engine.py:712-975).
+
+    Each round, per row at its committed length t: the draft's W = S + 2
+    token resync pass (:func:`decoder_step_k` at max(t - W, 0)) brings its
+    cache up to the committed prefix and gives its logits at t; S - 1
+    one-token draft steps (:func:`decoder_steps`: kernel K2 where it takes
+    the draft's shape) propose the rest, each written provisionally past t
+    so that the filters see it; the target scores [last committed, d_1 ..
+    d_S] in one (S+1)-token pass; a sequential scan then commits the
+    target's own filtered argmax at each position while the draft matched,
+    under the budget, cap and EOT rules.  So the output is the target's
+    plain greedy decode for any draft; the draft only sets how many tokens
+    a round commits.  ``force_accept`` (benchmark only) pretends every
+    draft matched: the all-accept ceiling on random weights, whose outputs
+    mean nothing.  The draft shares the target's encoder output when
+    ``share_encoder``, else runs its own encoder on the mel.
+
+    The host queues a round's work and reads ``done`` back once per round,
+    after the verify pass and the scan.  Greedy only: one row per audio.
+    ``stage_timer`` (any object whose ``.stage(name)`` is a context manager,
+    e.g. :class:`~whisper_tpu_torch.profiling.StageTimer`) takes the
+    encoder, prefill, draft (resync and draft steps), verify and accept
+    stages.
+    """
+    def stage(name):
+        return stage_timer.stage(name) if stage_timer is not None else contextlib.nullcontext()
+
+    if spec.n_group != 1 or spec.beam_size or not spec.argmax:
+        raise ValueError("speculative decoding is greedy only: one row per audio at temperature 0")
+    if features_given and not share_encoder:
+        # the draft's own encoder needs the raw mel
+        raise ValueError(
+            "speculative decoding with precomputed encoder features requires "
+            "share_encoder=True (a non-shared draft encoder needs the raw mel)"
+        )
+    B = mel_or_features.shape[0]
+    n_ctx = spec.ctx_len or dims.n_text_ctx
+    S = draft_len
+    W = S + 2  # the resync window covers the largest advance of a round
+    compute_dtype = params["decoder"]["tok_emb"].dtype
+    draft_dtype = draft_params["decoder"]["tok_emb"].dtype
+    device = mel_or_features.device
+    begins = _per_audio(filter_args.sample_begin, B)
+    lens_dev, sots_dev, begins_dev = torch.tensor(
+        [_per_audio(initial_len, B), _per_audio(sot_index, B), begins], dtype=torch.int64
+    ).to(device)
+    rows = torch.arange(B, device=device)
+    filter_args = filter_args._replace(
+        sample_begin=begins[0] if min(begins) == max(begins) else begins_dev)
+
+    with stage("encoder"):
+        if features_given:
+            audio_features = mel_or_features.to(compute_dtype)
+        else:
+            audio_features = encoder_apply(params, dims, mel_or_features)
+        if share_encoder:
+            draft_features = audio_features.to(draft_dtype)
+        else:
+            draft_features = encoder_apply(draft_params, draft_dims, mel_or_features)
+    with stage("prefill"):  # cross K/V and prefill of both models
+        xk, xv = compute_cross_kv(params, dims, audio_features)
+        hidden, pk, pv = decoder_prefill(params, dims, initial_tokens, xk, xv)
+        dxk, dxv = compute_cross_kv(draft_params, draft_dims, draft_features)
+        _, dpk, dpv = decoder_prefill(draft_params, draft_dims, initial_tokens, dxk, dxv)
+    if spec.no_speech >= 0:
+        sot_probs = torch.softmax(project_logits(params, hidden[rows, sots_dev]), dim=-1)
+        no_speech_probs = sot_probs[:, spec.no_speech]
+    else:
+        no_speech_probs = torch.full((B,), float("nan"), device=device)
+    if spec.kv_int8:  # the target's loop reads int8 cross K/V (whisper_tpu/engine.py:807-810)
+        xk, xv = quantize_kv(xk), quantize_kv(xv)
+
+    tokens = torch.zeros((B, n_ctx + 1), dtype=torch.int64, device=device)
+    tokens[:, :spec.prefill_len] = initial_tokens
+    state = _SpecState(
+        tokens=tokens,
+        t=lens_dev.clone(),
+        cache=_prefilled_cache(dims, B, xk, xv, pk, pv, compute_dtype, n_ctx),
+        draft_cache=_prefilled_cache(draft_dims, B, dxk, dxv, dpk, dpv, draft_dtype, n_ctx),
+        sum_logprobs=torch.zeros(B, dtype=torch.float32, device=device),
+        done=torch.zeros(B, dtype=torch.bool, device=device),
+    )
+    draft_step, _ = decoder_steps(draft_params, draft_dims)
+
+    def round_(s: _SpecState) -> _SpecState:
+        tokens, t = s.tokens, s.t
+        with stage("draft"):
+            # the draft's resync: the tokens committed last round were never
+            # through the draft; its logits at t give the first proposal.
+            # Early rounds (t < W) rewrite prompt columns 0..W-1, as whisper_tpu
+            start0 = (t - W).clamp(min=0)
+            sync_h, draft_cache = decoder_step_k(
+                draft_params, draft_dims, _gather_cols(tokens, start0, W), start0, s.draft_cache)
+            d_logits = project_logits(draft_params, sync_h[rows, t - 1 - start0])
+            prev = apply_logit_filters(spec, d_logits, tokens, t, filter_args).argmax(dim=-1)
+            _put(tokens, t, prev)
+            drafts, pos = [prev], t
+            for _ in range(S - 1):  # the last proposal needs no step of its own
+                h, draft_cache = draft_step(draft_params, draft_dims, prev, pos, draft_cache)
+                logits = project_logits(draft_params, h)
+                prev = apply_logit_filters(spec, logits, tokens, pos + 1, filter_args).argmax(dim=-1)
+                _put(tokens, pos + 1, prev)
+                drafts.append(prev)
+                pos = pos + 1
+
+        with stage("verify"):  # the target's pass over [last committed, d_1 .. d_S] at t - 1 ..
+            ver_h, cache = decoder_step_k(params, dims, _gather_cols(tokens, t - 1, S + 1), t - 1,
+                                          s.cache)
+            ver_logits = project_logits(params, ver_h)  # (B, S + 1, V) f32
+
+        with stage("accept"):
+            # position i commits the target's greedy token; the scan goes on
+            # only while the draft predicted that token
+            acc, done, sum_lp, t_cur = ~s.done, s.done, s.sum_logprobs, t
+            for i in range(S + 1):
+                filtered = apply_logit_filters(spec, ver_logits[:, i], tokens, t_cur, filter_args)
+                tok = filtered.argmax(dim=-1)
+                lp = torch.log_softmax(filtered, dim=-1).gather(1, tok[:, None])[:, 0]
+                capped = t_cur >= n_ctx + 1
+                budget_ok = (t_cur - lens_dev) < sample_len
+                commit = acc & ~done & budget_ok & ~capped
+                _put(tokens, t_cur, tok, commit)
+                sum_lp = sum_lp + torch.where(commit, lp, 0.0)
+                t_cur = t_cur + commit.long()
+                done = done | (commit & (tok == spec.eot)) | ~budget_ok | capped
+                if i < S:  # the bonus position i == S never continues
+                    matched = torch.ones_like(commit) if force_accept else tok == drafts[i]
+                    acc = commit & matched & (tok != spec.eot)
+        return _SpecState(tokens, t_cur, cache, draft_cache, sum_lp, done)
+
+    for _ in range(sample_len):
+        state = round_(state)
+        if bool(state.done.all()):  # the loop's one host sync per round
+            break
+
+    # provisional draft tokens past each row's length become EOT
+    cols = torch.arange(n_ctx + 1, device=device)[None, :]
+    n_fin = max(spec.max_candidates, 1)
+    return EngineResult(
+        tokens=torch.where(cols >= state.t[:, None], spec.eot, state.tokens),
+        seq_len=state.t,
+        sum_logprobs=state.sum_logprobs,
+        no_speech_probs=no_speech_probs,
+        audio_features=audio_features,
+        fin_tokens=torch.zeros((B, n_fin, n_ctx + 1), dtype=torch.int64, device=device),
+        fin_scores=torch.full((B, n_fin), float("-inf"), device=device),
+        fin_count=torch.zeros(B, dtype=torch.int64, device=device),
+    )
 
 
 @torch.inference_mode()

@@ -170,14 +170,44 @@ def compute_cross_kv(
     return torch.stack(ks), torch.stack(vs)
 
 
+def _int8_attention(q: torch.Tensor, k: Int8Weight, v: Int8Weight) -> torch.Tensor:
+    """q (A, H, Q, D) against int8 K/V (A, H, D, Ta), as whisper_tpu's
+    ``_cross_step_attention`` int8 branch: D^-0.5 and the K scales folded
+    into q (rounded once), f32 scores, weights rounded, f32 PV, times the V
+    scales, rounded."""
+    D = q.shape[-1]
+    sk = k.s[..., 0][:, :, None, :]  # (A, H, 1, D)
+    sv = v.s[..., 0][:, :, None, :]
+    q_eff = (q.float() * D**-0.5 * sk).to(q.dtype)
+    w = torch.softmax(torch.matmul(q_eff.float(), k.q.float()), dim=-1).to(q.dtype)
+    pv = torch.matmul(w.float(), v.q.float().transpose(-1, -2))
+    return (pv * sv).to(q.dtype)
+
+
+def _cross_step_attention_k(xq: torch.Tensor, cross_k, cross_v) -> torch.Tensor:
+    """xq (B, H, K, D) against A audios' cross K/V (A, H, D, Ta), in the
+    compute dtype or int8 (whisper_tpu/models/whisper.py:829-866): the G =
+    B / A rows of each audio fold into its query axis, so each audio's K/V
+    serves its rows.  K is 1 in a decode step (kernel K2's plain version)."""
+    B, H, K, D = xq.shape
+    A = (cross_k.q if isinstance(cross_k, Int8Weight) else cross_k).shape[0]
+    G = B // A
+    attend = _int8_attention if isinstance(cross_k, Int8Weight) else qkv_attention_kt
+    if G == 1:
+        return attend(xq, cross_k, cross_v)
+    q = xq.reshape(A, G, H, K, D).transpose(1, 2).reshape(A, H, G * K, D)
+    out = attend(q, cross_k, cross_v)
+    return out.reshape(A, H, G, K, D).transpose(1, 2).reshape(B, H, K, D)
+
+
 def _decoder_block(
     x: torch.Tensor,
     p: Params,
     n_head: int,
     self_k: torch.Tensor,
     self_v: torch.Tensor,
-    cross_k_t: torch.Tensor,  # (B, H, D, Ta) — time-last, see KVCache
-    cross_v_t: torch.Tensor,
+    cross_k_t,  # (A, H, D, Ta) — time-last, see KVCache; or Int8Weight
+    cross_v_t,
     self_mask: Optional[torch.Tensor],
     *,
     return_cross_qk: bool = False,
@@ -198,7 +228,7 @@ def _decoder_block(
             xq, cross_k_t.transpose(-1, -2), cross_v_t.transpose(-1, -2), return_qk=True
         )
     else:
-        xattn, cross_qk = qkv_attention_kt(xq, cross_k_t, cross_v_t), None
+        xattn, cross_qk = _cross_step_attention_k(xq, cross_k_t, cross_v_t), None
     x = x + _linear(merge_heads(xattn), p["xo_w"], p["xo_b"])
 
     h = layer_norm(x, p["mlp_ln_g"], p["mlp_ln_b"])
@@ -420,6 +450,52 @@ def flush_pending(cache: KVCache, pend_k: torch.Tensor, pend_v: torch.Tensor,
     for buf, pend in ((cache.self_k, pend_k), (cache.self_v, pend_v)):
         buf.scatter_(-1, cols, torch.where(fresh, pend.gather(-1, src), buf.gather(-1, cols)))
     return cache
+
+
+def decoder_step_k(
+    params: Params,
+    dims: ModelDimensions,
+    tokens: torch.Tensor,  # (B, K) — the tokens at positions t0 .. t0 + K - 1
+    t0: torch.Tensor,  # (B,) — each row's first position of the block
+    cache: KVCache,
+) -> Tuple[torch.Tensor, KVCache]:
+    """A K-token causal step at per-row start positions, the speculative
+    engine's draft resync and target verify passes
+    (whisper_tpu/models/whisper.py:713-827).
+
+    Row b's query i (position t0[b] + i) attends its cache positions
+    < t0[b] and the causal prefix of its block: one f32 softmax over
+    [cache | block], the weights rounded to the compute dtype before PV.
+    The block's K/V go into cache columns t0[b] .. t0[b] + K - 1 in place,
+    by :func:`flush_pending`'s per-row copy: a column at or past the
+    capacity drops.  Columns at or past t0[b] may hold K/V of rejected
+    drafts; the mask keeps them unattended and accepted rewrites overwrite
+    them.  Returns hidden (B, K, C) after the final LayerNorm.  Stock torch
+    ops, no kernel: whisper_tpu runs this step in XLA."""
+    dec = params["decoder"]
+    n_head = dims.n_text_head
+    B, K = tokens.shape
+    n_ctx = cache.self_k.shape[-1]
+    device = tokens.device
+    positions = t0[:, None] + torch.arange(K, device=device)  # (B, K)
+    x = dec["tok_emb"][tokens] + dec["pos_emb"][positions.clamp(0, dims.n_text_ctx - 1)]
+    committed = torch.where(torch.arange(n_ctx, device=device) < t0[:, None], 0.0, NEG_INF)
+    mask = torch.cat([committed[:, None, :].expand(B, K, n_ctx),
+                      _causal_mask(K, device).expand(B, K, K)], dim=-1)[:, None]  # (B, 1, K, T + K)
+    ks, vs = [], []
+    for i in range(dims.n_text_layer):
+        p = _layer(dec["blocks"], i)
+        h = layer_norm(x, p["attn_ln_g"], p["attn_ln_b"])
+        k = split_heads(_linear(h, p["k_w"]), n_head)  # (B, H, K, D)
+        v = split_heads(_linear(h, p["v_w"], p["v_b"]), n_head)
+        keys = torch.cat([cache.self_k[i].transpose(-1, -2), k], dim=2)
+        values = torch.cat([cache.self_v[i].transpose(-1, -2), v], dim=2)
+        x, _ = _decoder_block(x, p, n_head, keys, values, take_layer(cache.cross_k, i),
+                              take_layer(cache.cross_v, i), mask)
+        ks.append(k)
+        vs.append(v)
+    flush_pending(cache, torch.stack(ks).transpose(-1, -2), torch.stack(vs).transpose(-1, -2), t0)
+    return layer_norm(x, dec["ln_g"], dec["ln_b"]), cache
 
 
 def project_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:

@@ -49,9 +49,16 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ...models.whisper import NEG_INF, Position, _layer, _linear, layer_norm
+from ...models.whisper import (
+    NEG_INF,
+    Position,
+    _cross_step_attention_k,
+    _layer,
+    _linear,
+    layer_norm,
+)
 from ...quantize import Int8Weight, take_layer
-from ..attention import merge_heads, qkv_attention_kt, split_heads
+from ..attention import merge_heads, split_heads
 from . import _lib
 from .mlp import MAX_BF16_WIDTH, mlp_fused, mlp_fused_plain
 
@@ -76,34 +83,10 @@ def _values(leaf):
     return leaf.q if isinstance(leaf, Int8Weight) else leaf
 
 
-def _int8_attention(q: torch.Tensor, k: Int8Weight, v: Int8Weight) -> torch.Tensor:
-    """q (A, H, G, D) against int8 K/V (A, H, D, Ta), as whisper_tpu's
-    ``_cross_step_attention`` int8 branch: D^-0.5 and the K scales folded
-    into q (rounded once), f32 scores, weights rounded, f32 PV, times the V
-    scales, rounded."""
-    D = q.shape[-1]
-    sk = k.s[..., 0][:, :, None, :]  # (A, H, 1, D)
-    sv = v.s[..., 0][:, :, None, :]
-    q_eff = (q.float() * D**-0.5 * sk).to(q.dtype)
-    w = torch.softmax(torch.matmul(q_eff.float(), k.q.float()), dim=-1).to(q.dtype)
-    pv = torch.matmul(w.float(), v.q.float().transpose(-1, -2))
-    return (pv * sv).to(q.dtype)
-
-
-def _cross_attention(xq: torch.Tensor, cross_k, cross_v) -> torch.Tensor:
-    """xq (B, H, 1, D) against A audios' K/V (A, H, D, Ta), in the compute
-    dtype or int8: the G = B / A rows of each audio fold into its query
-    axis, as whisper_tpu's ``_cross_step_attention`` does, so each audio's
-    K/V serves its rows."""
-    B, H, _, D = xq.shape
-    A = _values(cross_k).shape[0]
-    G = B // A
-    attend = _int8_attention if isinstance(cross_k, Int8Weight) else qkv_attention_kt
-    if G == 1:
-        return attend(xq, cross_k, cross_v)
-    q = xq[:, :, 0].reshape(A, G, H, D).transpose(1, 2)  # (A, H, G, D)
-    out = attend(q, cross_k, cross_v)
-    return out.transpose(1, 2).reshape(B, H, 1, D)
+# xq (B, H, 1, D) against A audios' cross K/V, dense or int8, each audio's
+# G = B / A rows folded into its query axis as whisper_tpu's
+# ``_cross_step_attention`` does
+_cross_attention = _cross_step_attention_k
 
 
 def _self_attention(q, k_new, v_new, self_k, self_v, t: Position, pend_k=None, pend_v=None,

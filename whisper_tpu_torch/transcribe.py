@@ -610,10 +610,11 @@ def cli():
                                    help="process only these start,end,... second ranges (last end defaults to EOF)")),
         ("--hallucination_silence_threshold", dict(type=optional_float,
                                                    help="with word_timestamps, skip silences longer than this around suspected hallucinations")),
-        # whisper_tpu's extensions; the port does not have them yet
+        # whisper_tpu's extensions: speculative decoding, parallel chunked long-form
         ("--draft_model", dict(type=str, default=None,
-                               help="speculative decoding (not in this port yet: "
-                               "ROADMAP.md, Queue 1, 'Speculative decoding')")),
+                               help="smaller model that drafts tokens for speculative greedy "
+                               "decoding (token-exact with plain greedy); e.g. 'turbo' when "
+                               "--model large-v3")),
         ("--chunked", dict(type=str2bool, default=False,
                            help="decode fixed overlapping 30s chunks of each file as one "
                            "batch instead of walking windows sequentially (faster on long "
@@ -635,8 +636,6 @@ def cli():
     device: str = args.pop("device")
     if (threads := args.pop("threads")) and threads > 0:
         torch.set_num_threads(threads)
-    if args.pop("draft_model") is not None:
-        raise NotImplementedError("--draft_model: ROADMAP.md, Queue 1, 'Speculative decoding'")
     os.makedirs(output_dir, exist_ok=True)
 
     if model_name.endswith(".en") and args["language"] not in {"en", "English"}:
@@ -654,6 +653,8 @@ def cli():
         temperature = [temperature]
 
     model = load_model(model_name, device=device, download_root=model_dir)
+    if (draft_name := args.pop("draft_model")) is not None:
+        args["draft_model"] = load_model(draft_name, device=device, download_root=model_dir)
 
     writer = get_writer(output_format, output_dir)
     word_options = [
