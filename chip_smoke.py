@@ -173,7 +173,15 @@ Phases, each of which must pass (any failure exits non-zero):
      its stages on profiling.StageTimer, its idle share, the allocator's
      statistics; one window of the int8 target with int8 cross K/V; and
      K2 at the draft's step shape (B = 1, L = 4, T = 448, a per-row
-     position) against its plain version, with the other kernel checks.
+     position) against its plain version, with the other kernel checks;
+ 36. fine-tuning and draft distillation at full width, large-v3 in f32:
+     three train_steps on two windows of jfk (finite losses, the last
+     below the first, gradients on the encoder's q_w, k_w, v_w, no K1
+     launch); the teacher's greedy pseudo-labels (K1, K2), distill() to a
+     4-layer draft on the mel batch (K1 in its encoder passes),
+     offline_acceptance before and after, and the distilled draft in
+     decode(draft_model=) equal to plain greedy, its steps on K2; ms per
+     step and the peak memory.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -181,6 +189,7 @@ and prints no result.
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -2437,12 +2446,220 @@ def speculative_path(device, audio) -> dict:
     return dict(k1=out["turbo draft"]["k1"], k2=out["turbo draft"]["k2"])
 
 
+@contextlib.contextmanager
+def distill_step_timer(losses: list, ms: list):
+    """Every distill_step in the block records its loss and its time on
+    CUDA events (distill() calls the module's distill_step)."""
+    import torch
+
+    from whisper_tpu_torch import distill
+
+    real = distill.distill_step
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = real(*args, **kwargs)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        return state, metrics
+
+    distill.distill_step = timed
+    try:
+        yield
+    finally:
+        distill.distill_step = real
+
+
+def profile_step(label: str, fn, wall_ms: float) -> None:
+    """One call of fn under torch.profiler: the device's busy time, its idle
+    share over wall_ms (the unprofiled step's median), the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = busy_ms(device_events(prof))
+    log(f"profile {label}: step {wall_ms:.3f} ms (median, unprofiled), device busy {busy:.3f} ms, "
+        f"idle share {1 - busy / wall_ms:.4f}")
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=10,
+                                      max_name_column_width=60)
+    for line in table.splitlines():
+        log(f"  {line}")
+
+
+def training_path(device, audio, profile: bool = False) -> dict:
+    """Phase 36: fine-tuning and draft distillation at full width, large-v3
+    (32 + 32 layers), random weights from seeded generators on the card,
+    f32 (TF32 off).
+
+    Fine-tune: a batch of two windows (jfk's, and jfk's from 1 s on), the
+    tokens the SOT sequence, jfk's text and EOT, the loss on the text and
+    EOT; three train_steps at make_optimizer()'s defaults.  Holds: finite
+    losses, the last below the first, nonzero gradients on the encoder's
+    q_w, k_w and v_w after the first step (the encoder's attention was
+    differentiated), and no K1 launch (the training pass's attention is
+    torch's).  Distill: the teacher's greedy pseudo-labels of the two
+    windows (32 tokens, no timestamps; K1 and K2 launches), then
+    distill(teacher, [batch] * 3, n_text_layer=4) on the mel batch (its
+    frozen encoder launches K1), offline_acceptance before and after, and
+    the distilled draft in decode(draft_model=): the teacher's plain greedy
+    tokens, the draft's one-token steps on K2.  With ``profile``, a fourth
+    train step and a fourth distill step run under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from whisper_tpu_torch import Whisper, decode, log_mel_spectrogram, pad_or_trim, training
+    from whisper_tpu_torch.decoding import DecodingOptions
+    from whisper_tpu_torch.distill import (
+        DistillState,
+        distill,
+        distill_step,
+        init_draft_from_teacher,
+        offline_acceptance,
+    )
+    from whisper_tpu_torch.models import KNOWN_MODELS
+    from whisper_tpu_torch.models.whisper import init_params
+    from whisper_tpu_torch.ops.kernels.attention import attention
+    from whisper_tpu_torch.ops.kernels.fused_step import fused_decoder_layers
+    from whisper_tpu_torch.profiling import device_memory_stats
+    from whisper_tpu_torch.tokenizer import get_tokenizer
+
+    dims = KNOWN_MODELS["large-v3"]
+    mel = torch.stack([log_mel_spectrogram(pad_or_trim(a), dims.n_mels, device=device)
+                       for a in (audio, audio[16000:])])
+    tok = get_tokenizer(True, num_languages=dims.n_vocab - 51765 - 1, language="en", task="transcribe")
+    prefix = list(tok.sot_sequence_including_notimestamps)
+    text = tok.encode(" And so my fellow Americans, ask not what your country can do for you, "
+                      "ask what you can do for your country.")
+    seq = prefix + text + [tok.eot]
+    mask = torch.zeros((2, len(seq)), device=device)
+    mask[:, len(prefix):] = 1.0
+    batch = {"mel": mel, "tokens": torch.tensor([seq] * 2, device=device), "loss_mask": mask}
+
+    # fine-tune
+    torch.cuda.reset_peak_memory_stats(device)
+    model = Whisper(dims, init_params(dims, torch.Generator(device=device).manual_seed(37),
+                                      torch.float32, device))
+    opt = training.make_optimizer()
+    state = training.init_train_state(model.params, opt)
+    reset_launches()
+    losses, norms, ms = [], [], []
+    for i in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = training.train_step(state, dims, opt, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        if i == 0:
+            enc = state.params["encoder"]["blocks"]
+            grads = {n: enc[n].grad.norm().item() for n in ("q_w", "k_w", "v_w")}
+    k1_train = attention.launches
+    peak = device_memory_stats(device).get("allocated_bytes.all.peak")
+    log(f"fine-tune large-v3 ({model.num_parameters()} parameters), f32, batch of 2 windows, "
+        f"{len(seq)} tokens ({int(mask[0].sum().item())} scored), make_optimizer() defaults: "
+        + "; ".join(f"step {i + 1} loss {l:.6f} grad_norm {n:.6f} {t:.3f} ms"
+                    for i, (l, n, t) in enumerate(zip(losses, norms, ms)))
+        + f"; ms per step (median of steps 2-3) {float(np.median(ms[1:])):.3f}; encoder gradient "
+        f"norms after step 1 (clipped) {grads}; K1 launches {k1_train}; peak allocated {peak} bytes")
+    if not (all(math.isfinite(l) for l in losses) and losses[-1] < losses[0]):
+        raise RuntimeError(f"fine-tune: the loss did not fall: {losses}")
+    if not all(g > 0 for g in grads.values()):
+        raise RuntimeError(f"fine-tune: an encoder attention weight took no gradient: {grads}")
+    if k1_train:
+        raise RuntimeError(f"fine-tune: K1 launched {k1_train} times in a training pass")
+    if profile:
+        profile_step("large-v3 train step (f32, 2 windows)",
+                     lambda: training.train_step(state, dims, opt, batch), float(np.median(ms[1:])))
+    del model, opt, state, metrics, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # distill: a large-v3 teacher, a 4-layer student (turbo's shape)
+    torch.cuda.reset_peak_memory_stats(device)
+    teacher = Whisper(dims, init_params(dims, torch.Generator(device=device).manual_seed(38),
+                                        torch.float32, device))
+    opts = DecodingOptions(language="en", temperature=0.0, sample_len=32, without_timestamps=True)
+    reset_launches()
+    labels = decode(teacher, mel, opts)
+    k1_labels, k2_labels = attention.launches, fused_decoder_layers.launches
+    seqs = [prefix + list(r.tokens) + [tok.eot] for r in labels]
+    S = max(len(q) for q in seqs)
+    tokens = torch.full((2, S), tok.eot, dtype=torch.int64)
+    pmask = torch.zeros((2, S))
+    for i, q in enumerate(seqs):
+        tokens[i, :len(q)] = torch.tensor(q)
+        pmask[i, len(prefix):len(q)] = 1.0
+    pseudo = {"mel": mel, "tokens": tokens.to(device), "loss_mask": pmask.to(device)}
+    features = teacher.embed_audio(mel)
+    student, student_dims = init_draft_from_teacher(teacher.params, dims, 4)
+    before = offline_acceptance(Whisper(student_dims, student), pseudo["tokens"], features,
+                                pseudo["loss_mask"])
+    del student
+    reset_launches()
+    dlosses, dms = [], []
+    with distill_step_timer(dlosses, dms):
+        draft = distill(teacher, [pseudo] * 3, n_text_layer=4)
+    k1_distill = attention.launches
+    after = offline_acceptance(draft, pseudo["tokens"], features, pseudo["loss_mask"])
+    log(f"distill large-v3 -> {draft.dims.n_text_layer} decoder layers: pseudo-labels "
+        f"{[len(r.tokens) for r in labels]} tokens (K1 launches {k1_labels}, K2 launches "
+        f"{k2_labels}); " + "; ".join(f"step {i + 1} loss {l:.6f} {t:.3f} ms"
+                                      for i, (l, t) in enumerate(zip(dlosses, dms)))
+        + f"; ms per step (median of steps 2-3) {float(np.median(dms[1:])):.3f}; K1 launches in "
+        f"distill() {k1_distill}; offline_acceptance before {before:.6f}, after {after:.6f}; peak "
+        f"allocated {device_memory_stats(device).get('allocated_bytes.all.peak')} bytes")
+    if k1_distill != 3 * dims.n_audio_layer or k1_labels <= 0 or k2_labels <= 0:
+        raise RuntimeError(f"distill: K1 launches {k1_distill} (labels {k1_labels}), K2 {k2_labels}")
+    if not all(math.isfinite(l) for l in dlosses):
+        raise RuntimeError(f"distill: losses {dlosses}")
+    if profile:
+        student, student_dims = init_draft_from_teacher(teacher.params, dims, 4)
+        dopt = training.make_optimizer(1e-4)
+        dstate = DistillState(student["decoder"], dopt.init(student["decoder"]), 0)
+        fbatch = {"features": features.clone(), "tokens": pseudo["tokens"],
+                  "loss_mask": pseudo["loss_mask"]}
+
+        def one():
+            nonlocal dstate
+            dstate = distill_step(dstate, teacher.params, student_dims, dims, dopt, fbatch)[0]
+
+        one()
+        profile_step("distill step (large-v3 teacher, 4-layer student, f32)", one,
+                     float(np.median(dms[1:])))
+        del student, dstate, dopt
+
+    # the distilled draft in the speculative decode, f32: token-exact
+    options = DecodingOptions(language="en", temperature=0.0)
+    plain, _, _, _ = spec_decode(teacher, None, mel[:1], options)
+    reset_launches()
+    spec, wall, rounds, _ = spec_decode(teacher, draft, mel[:1], options)
+    k2_draft = fused_decoder_layers.launches
+    S = options.draft_len
+    log(f"distilled draft in decode(draft_model=), f32, S = {S}: {len(spec.tokens)} tokens in {rounds} "
+        f"rounds ({len(spec.tokens) / rounds:.4f} tokens per round), K2 launches {k2_draft} "
+        f"((S - 1) x rounds = {(S - 1) * rounds}), equal to plain greedy ({len(plain.tokens)} "
+        f"tokens): {spec.tokens == plain.tokens}, avg_logprob {spec.avg_logprob:.6f} / "
+        f"{plain.avg_logprob:.6f}, wall {wall:.4f} s")
+    if spec.tokens != plain.tokens:
+        raise RuntimeError("distilled draft: differs from plain greedy")
+    if k2_draft != (S - 1) * rounds or k2_draft <= 0:
+        raise RuntimeError(f"distilled draft: {k2_draft} K2 launches for {rounds} rounds")
+    return dict(k1_labels=k1_labels, k1_distill=k1_distill, k2_draft=k2_draft)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile the server's 20 requests and, after the phases, the pinned "
                         "window, the beam-5 window and the 16-window run_with_prompts (device idle "
-                        "share, host time per step)")
+                        "share, host time per step), and phase 36's train and distill steps")
     args = parser.parse_args()
 
     import torch
@@ -2535,6 +2752,7 @@ def main() -> int:
     wide_group(model, audio)
     narrow_decoder(device)
     spec_launches = speculative_path(device, audio)
+    train_launches = training_path(device, audio, profile=args.profile)
     if args.profile:
         profile_window(model, audio, forced, beam, prompts, int8)
 
@@ -2543,12 +2761,15 @@ def main() -> int:
     pending = dict(fused, replaces="whisper_tpu/ops/kernels/fused_step_pallas.py:312")
     kernels = [
         # launches_speculative: the target's encoder in phase 35's bf16
-        # turbo-draft window (large-v3, 32 layers)
+        # turbo-draft window (large-v3, 32 layers); launches_pseudo_labels
+        # and launches_distill: phase 36's teacher decode of two windows and
+        # distill()'s three encoder passes (f32); its train steps launch none
         dict(name="encoder_attention", route="cuda",
              source="whisper_tpu_torch/csrc/attention.cu",
              replaces="whisper_tpu/ops/kernels/attention_pallas.py:62",
              launches=launches["encoder_attention"], launches_speculative=spec_launches["k1"],
-             **k1[1, "bfloat16"]),
+             launches_pseudo_labels=train_launches["k1_labels"],
+             launches_distill=train_launches["k1_distill"], **k1[1, "bfloat16"]),
         # K1 at batch 16: timed at (16, 20, 1500, 64); launches: transcribe_batch's
         # encoder passes (groups of up to 16 files)
         dict(name="encoder_attention_b16", route="cuda", source="whisper_tpu_torch/csrc/attention.cu",
@@ -2617,9 +2838,10 @@ def main() -> int:
         # one step; launches: transcribe_batch's 160-row steps (each two)
         dict(name="fused_decoder_layers_160", **fused, launches=k2_slice_launches, **k2_160["bfloat16"]),
         # the speculative draft's one-token steps (turbo's decoder, one row,
-        # per-row position, T = 448): phase 35's bf16 turbo-draft window
+        # per-row position, T = 448): phase 35's bf16 turbo-draft window;
+        # launches_distilled_draft: phase 36's distilled 4-layer draft (f32)
         dict(name="fused_decoder_layers_draft", **fused, launches=spec_launches["k2"],
-             **k2d["bfloat16"]),
+             launches_distilled_draft=train_launches["k2_draft"], **k2d["bfloat16"]),
         # K1 at head dim 128: timed at the encoder pass's (1, 10, 1500, 128)
         dict(name="encoder_attention_d128", route="cuda", source="whisper_tpu_torch/csrc/attention.cu",
              replaces="whisper_tpu/ops/kernels/attention_pallas.py:62", launches=d128_launches,

@@ -1,9 +1,10 @@
 """whisper_tpu_torch's public signatures against whisper_tpu's.
 
 ``transcribe``, ``decode``, ``load_model`` and the many-file entry points
-``transcribe_batch``, ``transcribe_chunked`` and ``align``, and the serving
+``transcribe_batch``, ``transcribe_chunked`` and ``align``, the serving
 layer's ``BatchingTranscriber``, ``StreamingTranscriber``, ``make_server``
-and ``serve`` must take the same parameters (names, kinds and defaults, in
+and ``serve``, and the public functions of ``training`` and ``distill``
+must take the same parameters (names, kinds and defaults, in
 order), ``DecodingOptions`` must have the same fields with the same
 defaults, and ``cli`` and ``serve.main`` must declare the same flags with
 the same defaults.  A difference fails unless it is on the allow-list below,
@@ -146,6 +147,28 @@ def test_all_matches_whisper_tpu():
     assert port == set(whisper_tpu.__all__)
     for name in port:
         assert hasattr(whisper_tpu_torch, name), name
+
+
+# fine-tuning and distillation: every public function of the two modules
+_TRAINING = ["decoder_apply_train", "loss_fn", "make_optimizer", "init_train_state", "train_step"]
+_DISTILL = ["make_draft_dims", "init_draft_from_teacher", "distill_loss", "distill_step", "distill",
+            "offline_acceptance"]
+
+
+@pytest.mark.parametrize("module, name", [("training", n) for n in _TRAINING]
+                         + [("distill", n) for n in _DISTILL])
+def test_training_and_distill_signatures_match(module, name):
+    ref = _params(getattr(importlib.import_module(f"whisper_tpu.{module}"), name))
+    port = _params(getattr(importlib.import_module(f"whisper_tpu_torch.{module}"), name))
+    assert _diff(f"{module}.{name}", ref, port) == []
+    assert list(ref) == list(port), "parameter order"
+
+
+@pytest.mark.parametrize("module, name", [("training", "TrainState"), ("distill", "DistillState")])
+def test_train_states_have_the_same_fields(module, name):
+    ref = getattr(importlib.import_module(f"whisper_tpu.{module}"), name)
+    port = getattr(importlib.import_module(f"whisper_tpu_torch.{module}"), name)
+    assert ref._fields == port._fields
 
 
 def test_version_matches_whisper_tpu():

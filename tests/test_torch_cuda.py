@@ -43,7 +43,12 @@ inputs where every rep's feedback moves the queries, so that a kernel
 skipping reps disagrees.  K1's and E1's bf16 kernels load by TMA: they refuse a
 tensor that does not start on a 16-byte boundary, and K1's last key tile
 of a head reads zeros past T, never the next head's rows (NaN values
-planted there would make the head's output NaN).
+planted there would make the head's output NaN).  Training: a kernel
+wrapper raises on an input that requires grad under grad mode; one f32
+train step on the card equals the CPU's by tests/test_torch_training.py's
+rule (TF32 off), a bf16 step's loss is within 2e-2 relative of the CPU's
+bf16 loss with a finite, nonzero gradient on every leaf; ``distill`` on
+mel launches K1 and its draft decodes the plain greedy tokens in f32.
 """
 
 import numpy as np
@@ -1183,3 +1188,147 @@ def test_e2_refuses_a_misaligned_tensor(cuda):
     for args in ((_misaligned(x), emb), (x, _misaligned(emb))):
         with pytest.raises(ValueError, match="16-byte"):
             e2.logits_streamed(*args, "vc")
+
+
+# -- training and distillation: no kernel in a pass that takes gradients -------
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k3", "k5", "int8_logits"])
+def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda, kernel):
+    """A kernel has no backward: on an input that requires grad under grad
+    mode its wrapper raises, naming the kernel, instead of returning an
+    output autograd does not track; under no_grad it launches."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    if kernel == "k1":
+        x = randn(1, 2, 1500, 64)
+        fn, args, name = k1.attention, (x, x.clone(), x.clone()), "K1"
+    elif kernel == "k3":
+        x = randn(1, 2, 64, 100)
+        fn, args, name = (lambda t: k3.median_filter(t, 7)), (x,), "K3"
+    elif kernel == "k5":
+        C = 128
+        x = randn(1, C)
+        fn = k5.mlp_fused
+        args = (x, torch.ones(C, device=cuda), torch.zeros(C, device=cuda), randn(4 * C, C) * 0.02,
+                torch.zeros(4 * C, device=cuda), randn(C, 4 * C) * 0.02, torch.zeros(C, device=cuda))
+        name = "K5"
+    else:
+        x = randn(1, 128)
+        fn, args, name = k2.int8_logits, (x, quantize_weight(randn(1000, 128))), "int8_logits"
+    x.requires_grad_(True)
+    with pytest.raises(RuntimeError, match=f"{name}.*no backward"):
+        fn(*args)
+    with torch.no_grad():
+        out = fn(*args)
+    assert not out.requires_grad and bool(torch.isfinite(out).all())
+
+
+_TRAIN_KW = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=128, n_audio_head=2, n_audio_layer=1,
+                 n_vocab=51865, n_text_ctx=448, n_text_state=128, n_text_head=2, n_text_layer=2)
+
+
+def _train_model(device, dtype, seed: int = 0, layers: int = 2):
+    """Weights of head dim 64 (K1 and K2 take the shapes) from a seeded CPU
+    generator, so that the CPU and the card hold the same."""
+    from whisper_tpu_torch.models import ModelDimensions
+    from whisper_tpu_torch.models.whisper import Whisper, init_params
+
+    dims = ModelDimensions(**dict(_TRAIN_KW, n_text_layer=layers))
+    params = init_params(dims, torch.Generator().manual_seed(seed), torch.float32)
+    return Whisper(dims, _to(params, device, dtype))
+
+
+def _train_batch(device):
+    rng = np.random.RandomState(0)
+    tokens = np.tile(np.asarray([50258, 50259, 50359, 50363, 440, 7177, 300, 50257], np.int64), (2, 1))
+    mask = np.zeros(tokens.shape, np.float32)
+    mask[:, 4:] = 1.0
+    mask[1, -2:] = 0.0
+    return {"mel": torch.from_numpy((rng.randn(2, 80, 3000) * 0.5).astype(np.float32)).to(device),
+            "tokens": torch.from_numpy(tokens).to(device), "loss_mask": torch.from_numpy(mask).to(device)}
+
+
+def _one_train_step(device, dtype):
+    from whisper_tpu_torch import training
+
+    model = _train_model(device, dtype)
+    opt = training.make_optimizer(learning_rate=1e-3)
+    state = training.init_train_state(model.params, opt)
+    k1.attention.launches = 0
+    state, metrics = training.train_step(state, model.dims, opt, _train_batch(device))
+    assert k1.attention.launches == 0  # the training pass's attention is torch's
+    return metrics, state.params, training.param_leaves(state.params)
+
+
+def test_train_step_on_the_card_equals_the_cpu(cuda):
+    """f32, TF32 off: one train_step on the card equals the CPU's by the CPU
+    parity rule (tests/test_torch_training.py): loss within 1e-5 relative,
+    grad_norm within 1e-4, every clipped gradient within 1e-4 of its leaf's
+    max-abs plus 1e-7, every parameter within 1e-3 x lr except where the
+    gradient is near zero (below 1e-6 of its leaf's max-abs or 100 x Adam's
+    eps), within 2 x lr there.  The encoder's attention projections take
+    gradients on the card: K1 is not in the pass, torch's attention is."""
+    lr = 1e-3
+    (m_cpu, _, cpu), (m_gpu, params, gpu) = (_one_train_step(d, torch.float32) for d in ("cpu", cuda))
+    assert abs(m_gpu["loss"].item() - m_cpu["loss"].item()) <= 1e-5 * abs(m_cpu["loss"].item())
+    assert abs(m_gpu["grad_norm"].item() - m_cpu["grad_norm"].item()) <= 1e-4 * m_cpu["grad_norm"].item()
+    assert m_gpu["step"] == m_cpu["step"] == 1
+    for pc, pg in zip(cpu, gpu):
+        gc, gg = pc.grad, pg.grad.cpu()
+        assert (gg - gc).abs().max() <= 1e-4 * gc.abs().max() + 1e-7
+        near_zero = (gc.abs() < 1e-6 * gc.abs().max()) | (gc.abs() < 100 * 1e-8)
+        err = (pg.detach().cpu() - pc.detach()).abs()
+        assert bool((err <= torch.where(near_zero, 2 * lr, 1e-3 * lr)).all())
+    for name in ("q_w", "q_b", "k_w", "v_w", "v_b"):
+        assert params["encoder"]["blocks"][name].grad.abs().max() > 0, name
+
+
+def test_bf16_train_step_on_the_card(cuda):
+    """bf16: the card's loss within 2e-2 relative of the CPU's bf16 loss,
+    and every leaf takes a finite, nonzero gradient (the logits are f32
+    products of bf16 values on a product autograd passes)."""
+    (m_cpu, _, _), (m_gpu, _, leaves) = (_one_train_step(d, torch.bfloat16) for d in ("cpu", cuda))
+    loss_cpu, loss_gpu = m_cpu["loss"].item(), m_gpu["loss"].item()
+    assert np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= 2e-2 * abs(loss_cpu)
+    for p in leaves:
+        assert p.dtype == torch.bfloat16 and p.grad is not None and p.grad.dtype == torch.bfloat16
+        assert bool(torch.isfinite(p.grad).all()) and p.grad.abs().max() > 0
+
+
+def test_distill_on_mel_launches_k1_and_its_draft_decodes_exact(cuda):
+    """distill() on mel batches runs the frozen encoder through K1 (one
+    launch per encoder layer per batch); its one-layer draft, in f32, decodes
+    the teacher's greedy tokens through decode(draft_model=), the draft's
+    one-token steps on K2."""
+    import whisper_tpu_torch
+    from whisper_tpu_torch.decoding import DecodingOptions
+    from whisper_tpu_torch.distill import distill
+    from whisper_tpu_torch.tokenizer import get_tokenizer
+
+    teacher = _train_model(cuda, torch.float32)
+    mel = torch.from_numpy(np.random.RandomState(5).randn(2, 80, 3000).astype(np.float32) * 0.4).to(cuda)
+    opts = DecodingOptions(language="en", temperature=0.0, sample_len=16, without_timestamps=True)
+    plain = whisper_tpu_torch.decode(teacher, mel, opts)
+    tok = get_tokenizer(multilingual=True, language="en", task="transcribe")
+    prefix = list(tok.sot_sequence_including_notimestamps)
+    seqs = [prefix + list(r.tokens) + [tok.eot] for r in plain]
+    S = max(len(s) for s in seqs)
+    tokens = torch.full((2, S), tok.eot, dtype=torch.int64)
+    mask = torch.zeros((2, S))
+    for i, s in enumerate(seqs):
+        tokens[i, : len(s)] = torch.tensor(s)
+        mask[i, len(prefix): len(s)] = 1.0
+    batch = {"mel": mel, "tokens": tokens.to(cuda), "loss_mask": mask.to(cuda)}
+    k1.attention.launches = 0
+    draft = distill(teacher, [batch] * 3, n_text_layer=1, learning_rate=1e-3)
+    assert k1.attention.launches == 3 * teacher.dims.n_audio_layer
+    assert draft.device.type == "cuda" and draft.dims.n_text_layer == 1
+    k2.fused_decoder_layers.launches = 0
+    spec = whisper_tpu_torch.decode(teacher, mel, opts, draft_model=draft)
+    assert k2.fused_decoder_layers.launches > 0
+    for p, s in zip(plain, spec):
+        assert p.tokens == s.tokens and abs(p.avg_logprob - s.avg_logprob) < 1e-4

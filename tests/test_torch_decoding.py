@@ -221,7 +221,8 @@ def test_import_pulls_in_no_jax():
         "whisper_tpu_torch.experiments.encoder_ops, whisper_tpu_torch.experiments.logits, "
         "whisper_tpu_torch.experiments.attn_packed, whisper_tpu_torch.ops.kernels.matmul_residual, "
         "whisper_tpu_torch.ops.kernels.logits, whisper_tpu_torch.ops.kernels.attn_packed, "
-        "whisper_tpu_torch.profiling, whisper_tpu_torch.normalizers; "
+        "whisper_tpu_torch.profiling, whisper_tpu_torch.normalizers, whisper_tpu_torch.training, "
+        "whisper_tpu_torch.distill; "
         "from whisper_tpu_torch.transcribe import cli; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisper_tpu', 'scripts') "
         f"or m in {_SCRIPT_MODULES!r}]; "
@@ -276,13 +277,15 @@ def test_port_reads_no_path_under_whisper_tpu():
 
 
 def test_port_runs_from_a_tree_without_whisper_tpu(tmp_path):
-    """The port's package alone, copied beside tests/jfk.flac, builds its
-    native library, decodes audio, makes a mel, tokenizes and normalizes
-    text (its own copy of the UK -> US spelling map)."""
+    """The port's package alone, copied beside tests/jfk.flac, imports its
+    training and distillation modules, builds its native library, decodes
+    audio, makes a mel, tokenizes and normalizes text (its own copy of the
+    UK -> US spelling map)."""
     shutil.copytree(os.path.join(REPO, "whisper_tpu_torch"), tmp_path / "whisper_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     code = (
-        "import sys, whisper_tpu_torch as w; from whisper_tpu_torch.tokenizer import get_tokenizer; "
+        "import sys, whisper_tpu_torch as w, whisper_tpu_torch.training, whisper_tpu_torch.distill; "
+        "from whisper_tpu_torch.tokenizer import get_tokenizer; "
         "from whisper_tpu_torch.normalizers import EnglishTextNormalizer; "
         "a = w.load_audio(sys.argv[1]); m = w.log_mel_spectrogram(a[:16000], 128); "
         "print(len(a), tuple(m.shape), get_tokenizer(True).encode(' hello world'), "

@@ -95,6 +95,17 @@ def _layer(blocks: Params, i: int) -> Params:
     return {k: take_layer(v, i) for k, v in blocks.items()}
 
 
+def _layers(blocks: Params, n_layer: int) -> list:
+    """Every layer's parameters out of the stacked blocks, one ``unbind``
+    per stacked tensor.  In a pass that takes gradients, autograd stacks
+    the layers' gradients into each leaf once; indexing one layer at a time
+    would write each layer's gradient into a zero tensor of the whole stack
+    and add those up, L times the traffic."""
+    per_leaf = {k: v.unbind(0) if isinstance(v, torch.Tensor) else [take_layer(v, i) for i in range(n_layer)]
+                for k, v in blocks.items()}
+    return [{k: layers[i] for k, layers in per_leaf.items()} for i in range(n_layer)]
+
+
 class KVCache(NamedTuple):
     """Decoder cache, time last.
 
@@ -116,13 +127,13 @@ class KVCache(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def _encoder_block(x: torch.Tensor, p: Params, n_head: int) -> torch.Tensor:
+def _encoder_block(x: torch.Tensor, p: Params, n_head: int, attention=encoder_attention) -> torch.Tensor:
     """Pre-LN self-attention block (reference model.py:142-171, no cross-attn)."""
     h = layer_norm(x, p["attn_ln_g"], p["attn_ln_b"])
     q = split_heads(_linear(h, p["q_w"], p["q_b"]), n_head).contiguous()
     k = split_heads(_linear(h, p["k_w"]), n_head).contiguous()
     v = split_heads(_linear(h, p["v_w"], p["v_b"]), n_head).contiguous()
-    attn = encoder_attention(q, k, v)
+    attn = attention(q, k, v)
     x = x + _linear(merge_heads(attn), p["o_w"], p["o_b"])
 
     h = layer_norm(x, p["mlp_ln_g"], p["mlp_ln_b"])
@@ -130,11 +141,17 @@ def _encoder_block(x: torch.Tensor, p: Params, n_head: int) -> torch.Tensor:
     return x + _linear(h, p["fc2_w"], p["fc2_b"])
 
 
-def encoder_apply(params: Params, dims: ModelDimensions, mel: torch.Tensor) -> torch.Tensor:
+def encoder_apply(
+    params: Params, dims: ModelDimensions, mel: torch.Tensor, *, attention=encoder_attention
+) -> torch.Tensor:
     """mel (B, n_mels, 3000) -> audio features (B, n_audio_ctx, n_audio_state).
 
     Two stride-1/stride-2 convs + GELU, sinusoidal positions, N pre-LN
-    blocks, final LayerNorm (reference model.py:188-204).
+    blocks, final LayerNorm (reference model.py:188-204).  ``attention``
+    (q, k, v) -> out is the blocks' self-attention: by default
+    :func:`encoder_attention` (kernel K1 on a CUDA tensor, which has no
+    backward); a training pass gives the differentiable torch ops
+    (``training.loss_fn``).
     """
     enc = params["encoder"]
     dtype = enc["conv1_w"].dtype
@@ -145,8 +162,8 @@ def encoder_apply(params: Params, dims: ModelDimensions, mel: torch.Tensor) -> t
 
     assert x.shape[1] == dims.n_audio_ctx, "incorrect audio shape"
     x = x + enc["pos"]
-    for i in range(dims.n_audio_layer):
-        x = _encoder_block(x, _layer(enc["blocks"], i), dims.n_audio_head)
+    for p in _layers(enc["blocks"], dims.n_audio_layer):
+        x = _encoder_block(x, p, dims.n_audio_head, attention)
     return layer_norm(x, enc["ln_post_g"], enc["ln_post_b"])
 
 

@@ -174,6 +174,38 @@ def count_launch(wrapper, n: int = 1, layout=None) -> None:
             wrapper.launches_by_layout[layout] += n
 
 
+def _tensors(node):
+    """The tensors in a wrapper's argument: a tensor, or a dict, list or
+    tuple (an Int8Weight among them) of them, at any depth."""
+    if isinstance(node, torch.Tensor):
+        yield node
+    elif isinstance(node, dict):
+        for v in node.values():
+            yield from _tensors(v)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            yield from _tensors(v)
+
+
+def refuse_grad(name: str, *inputs) -> None:
+    """Raise before a kernel launch whose output autograd would not track.
+
+    No kernel here has a backward (whisper_tpu's Pallas kernels have none
+    either), and a wrapper writes its kernel's output into a fresh tensor:
+    under grad mode an input that requires grad would get no gradient
+    through the kernel, silently.  Inference runs under
+    ``torch.inference_mode()``, where grad mode is off; a training pass
+    runs the differentiable torch ops instead (``training.loss_fn`` passes
+    the encoder's attention explicitly)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for x in inputs for t in _tensors(x)):
+        raise RuntimeError(
+            f"CUDA kernel {name} has no backward: an input requires grad under grad mode, "
+            "and the kernel's output would carry no gradient.  Run inference under "
+            "torch.inference_mode() or torch.no_grad(); a training pass runs the "
+            "differentiable torch ops (whisper_tpu_torch.training.loss_fn)"
+        )
+
+
 def stream_ptr(device) -> int:
     """The current CUDA stream of ``device``, as the kernels' launch stream."""
     return torch.cuda.current_stream(device).cuda_stream

@@ -41,6 +41,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
         return attention_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"encoder attention: unsupported device {q.device}")
+    _lib.refuse_grad("encoder_attention (K1)", q, k, v)
     if not (q.shape == k.shape == v.shape and q.dim() == 4):
         raise ValueError(f"encoder attention: shapes {q.shape}, {k.shape}, {v.shape}")
     b, h, t, d = q.shape

@@ -68,6 +68,7 @@ def attn_pairs_packed_plain(q2, kp, vp, reps: int) -> torch.Tensor:
 def _launch(wrapper, packed: int, q2, ks, reps: int) -> torch.Tensor:
     if q2.device.type != "cuda":
         raise ValueError(f"attn_pairs kernel: unsupported device {q2.device}")
+    _lib.refuse_grad("attn_pairs (E3)", q2, ks)
     if q2.dim() != 3 or q2.shape[-1] != 2 * HEAD_DIM or reps < 0:
         raise ValueError(f"attn_pairs kernel: q (g, Q, {2 * HEAD_DIM}) and reps >= 0, got "
                          f"{tuple(q2.shape)}, {reps}")

@@ -60,6 +60,7 @@ def dtw_trace(x: torch.Tensor, n: int, m: int) -> torch.Tensor:
         return dtw_trace_plain(x, n, m)
     if x.device.type != "cuda":
         raise ValueError(f"dtw trace: unsupported device {x.device}")
+    _lib.refuse_grad("dtw_trace (K4)", x)
     if x.dtype != torch.float32 or not x.is_contiguous() or not 1 <= n <= MAX_ROWS:
         raise ValueError(
             f"dtw trace kernel: contiguous float32 and n <= {MAX_ROWS}, got {x.dtype}, n={n}"
@@ -83,6 +84,7 @@ def dtw_chain(seed: torch.Tensor, iters: int) -> Tuple[torch.Tensor, torch.Tenso
     tensors of one element), so that nothing is optimised away."""
     if seed.device.type != "cuda" or seed.dtype != torch.float32 or seed.numel() != 4 or iters < 1:
         raise ValueError("dtw chain: 4 f32 on a CUDA device and iters >= 1")
+    _lib.refuse_grad("dtw_chain", seed)
     out = torch.empty(1, dtype=torch.float32, device=seed.device)
     codes = torch.empty(1, dtype=torch.int32, device=seed.device)
     err = _lib.lib().dtw_chain(seed.contiguous().data_ptr(), out.data_ptr(), codes.data_ptr(), iters,

@@ -316,6 +316,8 @@ def fused_decoder_layers(
         )
     if x.device.type != "cuda":
         raise ValueError(f"fused decode-step kernel: unsupported device {x.device}")
+    _lib.refuse_grad("fused_decoder_layers (K2)", blocks, x, t, self_k, self_v, cross_k, cross_v,
+                     pend_k, pend_v)
     L, B, H, _, T = self_k.shape
     if isinstance(t, int):
         shared, positions, positions_ptr = min(max(t, 0), T), None, None
@@ -378,6 +380,7 @@ def cross_attention(q: torch.Tensor, cross_k, cross_v) -> torch.Tensor:
         return cross_attention_plain(q, cross_k, cross_v)
     if q.device.type != "cuda":
         raise ValueError(f"cross-attention kernel: unsupported device {q.device}")
+    _lib.refuse_grad("decode_cross_attention (K2)", q, cross_k, cross_v)
     kv8 = _int8_form([cross_k, cross_v], "cross K/V")
     xk, xv = _values(cross_k), _values(cross_v)
     B, C = q.shape
@@ -422,6 +425,7 @@ def int8_logits(hidden: torch.Tensor, w: Int8Weight) -> torch.Tensor:
         return int8_logits_plain(hidden, w)
     if hidden.device.type != "cuda":
         raise ValueError(f"int8 logits kernel: unsupported device {hidden.device}")
+    _lib.refuse_grad("int8_logits", hidden, w)
     _check_int8(w, hidden.device)
     V, C = w.q.shape
     if hidden.dtype not in _DTYPES or hidden.shape[-1] != C or C % 16 or w.q.dim() != 2:

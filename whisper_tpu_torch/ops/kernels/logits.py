@@ -42,6 +42,7 @@ def logits_streamed(x: torch.Tensor, emb: torch.Tensor, layout: str = "vc") -> t
         return logits_streamed_plain(x, emb, layout)
     if x.device.type != "cuda":
         raise ValueError(f"logits kernel: unsupported device {x.device}")
+    _lib.refuse_grad("logits_streamed (E2)", x, emb)
     if x.dim() != 2 or emb.dim() != 2:
         raise ValueError(f"logits kernel: x (B, C) and a 2-d embedding, got {tuple(x.shape)}, "
                          f"{tuple(emb.shape)}")

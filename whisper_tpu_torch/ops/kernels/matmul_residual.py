@@ -74,6 +74,7 @@ def matmul_residual(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         return matmul_residual_plain(x, w, bias, res)
     if x.device.type != "cuda":
         raise ValueError(f"matmul_residual kernel: unsupported device {x.device}")
+    _lib.refuse_grad("matmul_residual (E1)", x, w, bias, res)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"matmul_residual kernel: x (M, K) and w (K, N), got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")

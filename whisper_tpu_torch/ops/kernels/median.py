@@ -53,6 +53,7 @@ def median_filter(x: torch.Tensor, width: int) -> torch.Tensor:
         return median_filter_plain(x, width)
     if x.device.type != "cuda":
         raise ValueError(f"median filter: unsupported device {x.device}")
+    _lib.refuse_grad("median_filter (K3)", x)
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"median filter kernel: contiguous float32 only, got {x.dtype}")
     out = torch.empty_like(x)

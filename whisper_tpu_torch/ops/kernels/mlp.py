@@ -107,6 +107,7 @@ def mlp_fused(
         return y if out is None else out.copy_(y)
     if x.device.type != "cuda":
         raise ValueError(f"fused MLP kernel: unsupported device {x.device}")
+    _lib.refuse_grad("mlp_fused (K5)", x, ln_g, ln_b, w1, b1, w2, b2, out)
     int8 = _check(x, ln_g, ln_b, w1, b1, w2, b2, out)
     q1, q2 = (w1.q, w2.q) if int8 else (w1, w2)
     (B, C), F = x.shape, q1.shape[0]
