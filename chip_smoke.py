@@ -181,7 +181,28 @@ Phases, each of which must pass (any failure exits non-zero):
      4-layer draft on the mel batch (K1 in its encoder passes),
      offline_acceptance before and after, and the distilled draft in
      decode(draft_model=) equal to plain greedy, its steps on K2; ms per
-     step and the peak memory.
+     step and the peak memory;
+ 37. the mesh (whisper_tpu_torch.parallel) at large-v3-turbo's width, the
+     random f32 weights of one seed on every rank, TF32 off.  One card
+     cannot host NCCL across ranks, so the ranks are gloo processes on
+     cuda:0 (parallel.launch.run_ranks), and their walls are one-card
+     walls, not multi-GPU times.  K1 at the model shard's (1, 10, 1500,
+     64) against its plain version and SDPA (with the other kernel
+     checks).  A (2, 2) mesh, four ranks: greedy transcribe(jfk) with word
+     timestamps, token- and word-equal to the single-device f32 run; beam
+     5 on jfk's window, token-equal; K1 launched on every rank at (1, 10,
+     1500, 64) and K2 never (a model shard takes the PyTorch step), K3 and
+     K4 on the gathered alignment weights; make_server(mesh=) on rank 0
+     answering four requests with the single-device server's texts; two
+     DP+TP train_steps of a depth-cut turbo (4 + 2 layers, full width):
+     finite falling losses, each rank's peak memory; save_sharded; then in
+     bf16 the pinned window's wall beside the single-device one, with the
+     all-reduces a window takes and their bytes.  A (2, 1) mesh, two
+     ranks: transcribe_batch of four files cut from jfk, equal to the
+     single-device results, K2 launched on both ranks.  A (1, 1) mesh on
+     NCCL in this process: load_sharded of the (2, 2) checkpoint and a
+     greedy window decode equal to the single-device one.  The ranks'
+     launch counts go into the kernel summary as launches_mesh.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -2325,7 +2346,7 @@ def speculative_path(device, audio) -> dict:
     f32 (TF32 off): the turbo-draft decode and the self-draft equal the
     target's plain greedy decode token for token on jfk's first window,
     and every draft step is a K2 launch ((S - 1) per round).  bf16, in
-    turns, median of 3 after a 16-token warm-up: the plain window, the turbo draft,
+    turns, the mean of 2 after a 16-token warm-up: the plain window, the turbo draft,
     the self-draft and whisper_tpu's all-accept ceiling (_force_accept):
     ms per token, rounds, tokens per round, K1 and K2 launches; the turbo
     draft's tokens equal the plain ones, or at the first position where
@@ -2385,7 +2406,7 @@ def speculative_path(device, audio) -> dict:
     walls = {name: [] for name in runs}
     out = {}
     short = DecodingOptions(language="en", temperature=0.0, sample_len=16)
-    for turn in range(4):  # the first is a short warm-up
+    for turn in range(3):  # the first is a short warm-up
         for name, (d, force) in runs.items():
             reset_launches()
             result, wall, rounds, timer = spec_decode(target, d, mel, options if turn else short, force)
@@ -2393,10 +2414,10 @@ def speculative_path(device, audio) -> dict:
             out[name] = dict(result=result, rounds=rounds, timer=timer, k1=attention.launches,
                              k2=fused_decoder_layers.launches)
     for name, o in out.items():
-        wall = sorted(walls[name][1:])[1]
+        wall = sum(walls[name][1:]) / 2
         n = len(o["result"].tokens)
         per_round = f"{o['rounds']} rounds, {n / o['rounds']:.4f} tokens per round, " if o["rounds"] else ""
-        log(f"speculative bf16 {name}: {n} tokens, wall {wall:.4f} s (median of 3 after a short warm-up), "
+        log(f"speculative bf16 {name}: {n} tokens, wall {wall:.4f} s (mean of 2 after a short warm-up), "
             f"{1000 * wall / n:.4f} ms per token, {per_round}K1 launches {o['k1']}, K2 launches {o['k2']}")
     base, turbo = out["plain"]["result"], out["turbo draft"]["result"]
     if turbo.tokens != base.tokens:
@@ -2512,7 +2533,7 @@ def training_path(device, audio, profile: bool = False) -> dict:
     import numpy as np
     import torch
 
-    from whisper_tpu_torch import Whisper, decode, log_mel_spectrogram, pad_or_trim, training
+    from whisper_tpu_torch import Whisper, decode, training
     from whisper_tpu_torch.decoding import DecodingOptions
     from whisper_tpu_torch.distill import (
         DistillState,
@@ -2526,19 +2547,10 @@ def training_path(device, audio, profile: bool = False) -> dict:
     from whisper_tpu_torch.ops.kernels.attention import attention
     from whisper_tpu_torch.ops.kernels.fused_step import fused_decoder_layers
     from whisper_tpu_torch.profiling import device_memory_stats
-    from whisper_tpu_torch.tokenizer import get_tokenizer
 
     dims = KNOWN_MODELS["large-v3"]
-    mel = torch.stack([log_mel_spectrogram(pad_or_trim(a), dims.n_mels, device=device)
-                       for a in (audio, audio[16000:])])
-    tok = get_tokenizer(True, num_languages=dims.n_vocab - 51765 - 1, language="en", task="transcribe")
-    prefix = list(tok.sot_sequence_including_notimestamps)
-    text = tok.encode(" And so my fellow Americans, ask not what your country can do for you, "
-                      "ask what you can do for your country.")
-    seq = prefix + text + [tok.eot]
-    mask = torch.zeros((2, len(seq)), device=device)
-    mask[:, len(prefix):] = 1.0
-    batch = {"mel": mel, "tokens": torch.tensor([seq] * 2, device=device), "loss_mask": mask}
+    batch, tok, prefix = _train_batch(device, dims, audio)
+    mel = batch["mel"]
 
     # fine-tune
     torch.cuda.reset_peak_memory_stats(device)
@@ -2563,7 +2575,8 @@ def training_path(device, audio, profile: bool = False) -> dict:
     k1_train = attention.launches
     peak = device_memory_stats(device).get("allocated_bytes.all.peak")
     log(f"fine-tune large-v3 ({model.num_parameters()} parameters), f32, batch of 2 windows, "
-        f"{len(seq)} tokens ({int(mask[0].sum().item())} scored), make_optimizer() defaults: "
+        f"{batch['tokens'].shape[1]} tokens ({int(batch['loss_mask'][0].sum().item())} scored), "
+        f"make_optimizer() defaults: "
         + "; ".join(f"step {i + 1} loss {l:.6f} grad_norm {n:.6f} {t:.3f} ms"
                     for i, (l, n, t) in enumerate(zip(losses, norms, ms)))
         + f"; ms per step (median of steps 2-3) {float(np.median(ms[1:])):.3f}; encoder gradient "
@@ -2652,6 +2665,411 @@ def training_path(device, audio, profile: bool = False) -> dict:
     if k2_draft != (S - 1) * rounds or k2_draft <= 0:
         raise RuntimeError(f"distilled draft: {k2_draft} K2 launches for {rounds} rounds")
     return dict(k1_labels=k1_labels, k1_distill=k1_distill, k2_draft=k2_draft)
+
+
+# ---------------------------------------------------------------------------
+# phase 37: the mesh
+# ---------------------------------------------------------------------------
+
+MESH_SEED = 37  # the random turbo weights of phase 37, the same on every rank
+MESH_TRAIN_DEPTH = (4, 2)  # encoder and decoder layers of its train steps, at full width
+# 32 tokens a window: under the (2, 2) mesh each step's twelve gloo
+# reductions cross the host (about 5 ms each on a slow host), and random
+# weights run every window to its cap
+MESH_GREEDY = dict(language="en", temperature=0.0, word_timestamps=True,
+                   condition_on_previous_text=False, sample_len=32)
+MESH_BATCH = dict(language="en", temperature=0.0, condition_on_previous_text=False, sample_len=32)
+MESH_BEAM = dict(language="en", beam_size=5, temperature=0.0, sample_len=32)
+K1_SHARD = (1, 10, 1500, 64)  # turbo's 20 encoder heads over a model axis of 2
+
+
+def _mesh_counts() -> dict:
+    from whisper_tpu_torch.ops.kernels import attention, dtw, fused_step, median
+
+    return {"encoder_attention": attention.attention.launches,
+            "fused_decoder_layers": fused_step.fused_decoder_layers.launches,
+            "median_filter": median.median_filter.launches,
+            "dtw_trace": dtw.dtw_trace.launches}
+
+
+@contextlib.contextmanager
+def _k1_shapes(seen: dict):
+    """Count K1's calls by the shape of q (``ops.attention``'s dispatch)."""
+    import whisper_tpu_torch.ops.attention as ops_attention
+
+    real = ops_attention._attention_kernel
+
+    def record(q, k, v):
+        key = (tuple(q.shape), str(q.dtype).split(".")[-1])
+        seen[key] = seen.get(key, 0) + 1
+        return real(q, k, v)
+
+    ops_attention._attention_kernel = record
+    try:
+        yield
+    finally:
+        ops_attention._attention_kernel = real
+
+
+@contextlib.contextmanager
+def _reductions(tally: dict):
+    """Count the all-reduces and their bytes (torch.distributed.all_reduce,
+    which the model's reductions call)."""
+    import torch.distributed as dist
+
+    real = dist.all_reduce
+
+    def counted(t, *args, **kwargs):
+        tally["calls"] += 1
+        tally["bytes"] += t.numel() * t.element_size()
+        return real(t, *args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        yield
+    finally:
+        dist.all_reduce = real
+
+
+def _turbo(device, depth=None):
+    import dataclasses
+
+    import torch
+
+    from whisper_tpu_torch import Whisper
+    from whisper_tpu_torch.models import KNOWN_MODELS
+    from whisper_tpu_torch.models.whisper import init_params
+
+    dims = KNOWN_MODELS["turbo"]
+    seed = MESH_SEED
+    if depth is not None:
+        dims = dataclasses.replace(dims, n_audio_layer=depth[0], n_text_layer=depth[1])
+        seed += 1
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return Whisper(dims, init_params(dims, gen, torch.float32, device))
+
+
+def _words(result) -> list:
+    return [(w["word"], round(w["start"], 3), round(w["end"], 3))
+            for s in result["segments"] for w in s.get("words", [])]
+
+
+def _tokens(result) -> list:
+    return [s["tokens"] for s in result["segments"]]
+
+
+def _train_batch(device, dims, audio):
+    """Phases 36 and 37's batch: jfk's window and jfk's from 1 s on, the SOT
+    sequence, jfk's text and EOT, the loss on the text and EOT; (batch,
+    tokenizer, SOT sequence)."""
+    import torch
+
+    from whisper_tpu_torch import log_mel_spectrogram, pad_or_trim
+    from whisper_tpu_torch.tokenizer import get_tokenizer
+
+    mel = torch.stack([log_mel_spectrogram(pad_or_trim(a), dims.n_mels, device=device)
+                       for a in (audio, audio[16000:])])
+    tok = get_tokenizer(True, num_languages=dims.n_vocab - 51765 - 1, language="en", task="transcribe")
+    prefix = list(tok.sot_sequence_including_notimestamps)
+    seq = prefix + tok.encode(" And so my fellow Americans, ask not what your country can do for "
+                              "you, ask what you can do for your country.") + [tok.eot]
+    mask = torch.zeros((2, len(seq)), device=device)
+    mask[:, len(prefix):] = 1.0
+    return {"mel": mel, "tokens": torch.tensor([seq] * 2, device=device), "loss_mask": mask}, tok, prefix
+
+
+def _serve_four(model, requests, mesh=None) -> list:
+    """make_server(model, mesh=) answering the requests from four client
+    threads on rank 0 (another rank serves rank 0's batches until it
+    stops); the texts, in request order (None on the other ranks)."""
+    import threading
+
+    from whisper_tpu_torch.serve import make_server
+
+    server = make_server(model, port=0, batch_size=16, max_wait_s=0.25, mesh=mesh, **MESH_BATCH)
+    if mesh is not None and mesh.rank != 0:
+        server.serve_forever()
+        return None
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    answers = [None] * len(requests)
+
+    def ask(i):
+        answers[i] = _post(server.server_port, "", _wav_bytes(requests[i]))
+
+    clients = [threading.Thread(target=ask, args=(i,)) for i in range(len(requests))]
+    try:
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.close()
+        thread.join(timeout=60)
+    texts = []
+    for answer in answers:
+        if answer is None or answer[0] != 200:
+            raise RuntimeError(f"the server did not answer 200: {answer and answer[:2]}")
+        texts.append(json.loads(answer[1])["text"])
+    return texts
+
+
+def _two_windows(audio, dims, device):
+    """jfk's window and jfk's from 1 s on: one row for each data group."""
+    import torch
+
+    from whisper_tpu_torch import log_mel_spectrogram, pad_or_trim
+
+    return torch.stack([log_mel_spectrogram(pad_or_trim(a), dims.n_mels, device=device)
+                        for a in (audio, audio[16000:])])
+
+
+def mesh_rank(rank: int, job: dict) -> dict:
+    """One rank of phase 37 (a spawned process): ``job["shape"]`` is the
+    mesh; its steps as in the module docstring.  Returns host objects."""
+    import torch
+
+    from whisper_tpu_torch import training
+    from whisper_tpu_torch.batch import transcribe_batch
+    from whisper_tpu_torch.decoding import DecodingOptions
+    from whisper_tpu_torch.models.load import save_sharded
+    from whisper_tpu_torch.models.whisper import Whisper
+    from whisper_tpu_torch.ops.kernels import _lib, fused_step
+    from whisper_tpu_torch.parallel import make_mesh, shard_params
+
+    def step(what):  # rank 0 names each step as it starts
+        if rank == 0:
+            log(f"  phase 37 {job['shape']} rank 0: {what}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(job["device"])
+    D, M = job["shape"]
+    mesh = make_mesh((D, M), devices=[device] * (D * M), backend="gloo", timeout=300)
+    step("mesh up")
+    _lib.lib()  # the parent built it; the build lock makes a stale one build once
+    audio = job["audio"]
+    out = {"coords": dict(mesh.coords)}
+    full = _turbo(device)
+    dims = full.dims
+    if job["kind"] == "dp":
+        model = Whisper(dims, shard_params(full.params, mesh))
+        del full
+        reset_launches()
+        step("transcribe_batch")
+        with mesh:
+            results = transcribe_batch(model, job["files"], batch_size=16, **MESH_BATCH)
+        torch.cuda.synchronize()
+        out["counts"] = _mesh_counts()
+        out["k2_layouts"] = dict(fused_step.fused_decoder_layers.launches_by_layout)
+        out["batch"] = [(r["text"], _tokens(r)) for r in results]
+        return out
+
+    # the server first: make_server shards the whole model itself
+    step("the server")
+    t0 = time.perf_counter()
+    out["served"] = _serve_four(full, job["requests"], mesh)
+    out["served_s"] = time.perf_counter() - t0
+    params = shard_params(full.params, mesh)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Whisper(dims, params)
+    mel = _two_windows(audio, dims, device)
+    shapes: dict = {}
+    reset_launches()
+    step("greedy transcribe, beam 5")
+    with mesh, _k1_shapes(shapes):
+        t0 = time.perf_counter()
+        result = model.transcribe(audio, **MESH_GREEDY)
+        torch.cuda.synchronize()
+        out["greedy_s"] = time.perf_counter() - t0
+        out["greedy"], out["words"] = _tokens(result), _words(result)
+        t0 = time.perf_counter()
+        out["beam"] = [r.tokens for r in model.decode(mel, DecodingOptions(**MESH_BEAM))]
+        torch.cuda.synchronize()
+        out["beam_s"] = time.perf_counter() - t0
+    out["counts"] = _mesh_counts()
+    out["k1_shapes"] = shapes
+
+    # two DP+TP train steps of a depth-cut turbo at full width
+    step("train steps")
+    small = _turbo(device, depth=MESH_TRAIN_DEPTH)
+    small_dims, batch = small.dims, _train_batch(device, small.dims, audio)[0]
+    torch.cuda.reset_peak_memory_stats(device)
+    with mesh:
+        opt = training.make_optimizer()
+        state = training.init_train_state(shard_params(small.params, mesh), opt)
+        del small
+        losses = []
+        for _ in range(2):
+            state, metrics = training.train_step(state, small_dims, opt, batch)
+            losses.append(metrics["loss"].item())
+    out["losses"] = losses
+    out["train_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    del state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step("save_sharded")
+    with mesh:
+        t0 = time.perf_counter()
+        save_sharded(job["ckpt"], params, dims)
+        out["save_s"] = time.perf_counter() - t0
+
+    # bf16: the pinned window's wall, and the all-reduces of one window
+    step("bf16 windows")
+    bmodel = Whisper(dims, _cast(params, torch.bfloat16))
+    del model, params
+    tally = {"calls": 0, "bytes": 0}
+    with mesh, _k1_shapes(shapes), _reductions(tally):
+        out["bf16_walls"] = pinned_walls(bmodel, audio, job["forced"], runs=2)
+    out["reductions"] = {k: v // 2 for k, v in tally.items()}  # a window's
+    out["k1_shapes"] = shapes
+    out["counts_all"] = _mesh_counts()
+    return out
+
+
+def mesh_path(device, gen, audio, forced) -> dict:
+    """Phase 37 (module docstring): the references on one device, the (2, 2)
+    and (2, 1) meshes in spawned gloo ranks, the (1, 1) NCCL reload here.
+    Returns K1's row at the shard shape and the ranks' launch counts."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.batch import transcribe_batch
+    from whisper_tpu_torch.decoding import DecodingOptions
+    from whisper_tpu_torch.models import KNOWN_MODELS
+    from whisper_tpu_torch.models.load import load_sharded
+    from whisper_tpu_torch.models.whisper import Whisper
+    from whisper_tpu_torch.parallel import make_mesh
+    from whisper_tpu_torch.parallel.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    k1 = {dtype: k1_case(gen, device, K1_SHARD, getattr(torch, dtype))
+          for dtype in ("bfloat16", "float32")}
+    audio = np.asarray(audio, dtype=np.float32)
+    n = len(audio)
+    requests = [audio[: 4 * 16000], audio[2 * 16000: 7 * 16000], audio[5 * 16000:], audio]
+    files = [audio[: 3 * 16000], audio[3 * 16000: 9 * 16000], audio[6 * 16000:], audio[: n // 2]]
+
+    # the single-device references, f32 (TF32 off), and the bf16 window
+    model = _turbo(device)
+    mel = _two_windows(audio, model.dims, device)
+    t0 = time.perf_counter()
+    ref = model.transcribe(audio, **MESH_GREEDY)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    ref_greedy, ref_words = _tokens(ref), _words(ref)
+    t0 = time.perf_counter()
+    ref_beam = [r.tokens for r in model.decode(mel, DecodingOptions(**MESH_BEAM))]
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    ref_window = model.decode(mel[0], DecodingOptions(language="en", temperature=0.0)).tokens
+    ref_served = _serve_four(model, requests)
+    ref_batch = [(r["text"], _tokens(r)) for r in transcribe_batch(model, files, batch_size=16,
+                                                                    **MESH_BATCH)]
+    bmodel = Whisper(model.dims, _cast(model.params, torch.bfloat16))
+    ref_walls = pinned_walls(bmodel, audio, forced, runs=2)
+    del model, bmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 37 references on one device: greedy transcribe with words {greedy_s:.3f} s "
+        f"({sum(map(len, ref_greedy))} tokens, {len(ref_words)} words), beam 5 on two windows "
+        f"{beam_s:.3f} s ({list(map(len, ref_beam))} tokens), bf16 pinned window "
+        f"{ref_walls[1]:.4f} s (the second of two)")
+
+    ckpt = tempfile.mkdtemp(prefix="mesh_ckpt_")
+    try:
+        job = dict(kind="tp", shape=(2, 2), device=str(device), audio=audio, requests=requests,
+                   forced=forced, ckpt=ckpt)
+        t0 = time.perf_counter()
+        tp = run_ranks(mesh_rank, 4, (job,), timeout=600)
+        tp_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dp = run_ranks(mesh_rank, 2, (dict(kind="dp", shape=(2, 1), device=str(device), audio=audio,
+                                            files=files),), timeout=300)
+        dp_s = time.perf_counter() - t0
+
+        # the (1, 1) mesh on NCCL, in this process
+        mesh = make_mesh((1, 1), devices=[device], backend="nccl")
+        probe = torch.ones(1, device=device)
+        dist.all_reduce(probe)  # NCCL's communicator at a world of one
+        with mesh:
+            params, dims = load_sharded(ckpt)
+            reloaded = Whisper(dims, params).decode(mel[0], DecodingOptions(language="en",
+                                                                             temperature=0.0)).tokens
+        dist.destroy_process_group()
+        del params
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    faults = []
+    layers = KNOWN_MODELS["turbo"].n_audio_layer  # K1 launches per window and rank
+    for r in tp:
+        where = f"(2, 2) rank {r['coords']}"
+        if r["greedy"] != ref_greedy:
+            faults.append(f"{where}: greedy tokens differ")
+        if r["words"] != ref_words:
+            faults.append(f"{where}: words differ")
+        if r["beam"] != ref_beam:
+            faults.append(f"{where}: beam 5 tokens differ")
+        k1_f32 = r["k1_shapes"].get((K1_SHARD, "float32"), 0)
+        if k1_f32 <= 0 or k1_f32 % layers or set(s for s, _ in r["k1_shapes"]) != {K1_SHARD}:
+            faults.append(f"{where}: K1 launched at {r['k1_shapes']}")
+        c = r["counts"]
+        if c["fused_decoder_layers"] or not (c["median_filter"] and c["dtw_trace"]):
+            faults.append(f"{where}: launches {c} (K2 none, K3 and K4 some expected)")
+        if not (np.isfinite(r["losses"]).all() and r["losses"][1] < r["losses"][0]):
+            faults.append(f"{where}: train losses {r['losses']}")
+    if tp[0]["served"] != ref_served:
+        faults.append(f"the mesh server's texts differ from one device's")
+    for r in dp:
+        if r["batch"] != ref_batch:
+            faults.append(f"(2, 1) rank {r['coords']}: transcribe_batch differs")
+        if r["counts"]["fused_decoder_layers"] <= 0:
+            faults.append(f"(2, 1) rank {r['coords']}: K2 never launched ({r['counts']})")
+    if reloaded != ref_window:
+        faults.append("the NCCL (1, 1) reload decodes other tokens than one device")
+
+    r0 = tp[0]
+    red = r0["reductions"]
+    log(f"phase 37 (2, 2) gloo mesh, four ranks on one card: spawn to end {tp_s:.3f} s; greedy "
+        f"transcribe with words {r0['greedy_s']:.3f} s (one device {greedy_s:.3f} s), beam 5 on "
+        f"two windows {r0['beam_s']:.3f} s (one device {beam_s:.3f} s); tokens equal "
+        f"{all(r['greedy'] == ref_greedy for r in tp)}, words equal "
+        f"{all(r['words'] == ref_words for r in tp)}, beam equal "
+        f"{all(r['beam'] == ref_beam for r in tp)}")
+    for r in tp:
+        log(f"  rank {r['coords']}: launches {r['counts']} (f32 decode), K1 by shape "
+            f"{r['k1_shapes']}, train losses {r['losses']}, train peak memory "
+            f"{r['train_peak_gib']:.3f} GiB, save_sharded {r['save_s']:.3f} s")
+    log(f"  the server on rank 0: four answers in {r0['served_s']:.3f} s, texts equal to one "
+        f"device's {r0['served'] == ref_served}")
+    log(f"  bf16 pinned window, the second of two (gloo over one card, not a multi-GPU time): "
+        f"{r0['bf16_walls'][1]:.4f} s beside one device's {ref_walls[1]:.4f} s; per window "
+        f"{red['calls']} all-reduces, {red['bytes']} bytes")
+    log(f"phase 37 (2, 1) gloo mesh, two ranks: {dp_s:.3f} s; transcribe_batch of 4 files equal "
+        f"{all(r['batch'] == ref_batch for r in dp)}; K2 launches "
+        f"{[r['counts']['fused_decoder_layers'] for r in dp]} by layout "
+        f"{[r['k2_layouts'] for r in dp]}")
+    log(f"phase 37 (1, 1) NCCL mesh: load_sharded of the (2, 2) checkpoint, greedy window equal "
+        f"{reloaded == ref_window}; phase wall {time.perf_counter() - t_phase:.3f} s")
+    if faults:
+        raise RuntimeError("phase 37: " + "; ".join(faults))
+    return dict(k1=k1["bfloat16"], k1_f32=k1["float32"],
+                k1_mesh=[r["k1_shapes"].get((K1_SHARD, "bfloat16"), 0)
+                         + r["k1_shapes"].get((K1_SHARD, "float32"), 0) for r in tp],
+                k2_mesh=[r["counts"]["fused_decoder_layers"] for r in dp],
+                k3_mesh=[r["counts"]["median_filter"] for r in tp],
+                k4_mesh=[r["counts"]["dtw_trace"] for r in tp])
 
 
 def main() -> int:
@@ -2753,6 +3171,7 @@ def main() -> int:
     narrow_decoder(device)
     spec_launches = speculative_path(device, audio)
     train_launches = training_path(device, audio, profile=args.profile)
+    mesh = mesh_path(device, gen, audio, forced)
     if args.profile:
         profile_window(model, audio, forced, beam, prompts, int8)
 
@@ -2770,14 +3189,22 @@ def main() -> int:
              launches=launches["encoder_attention"], launches_speculative=spec_launches["k1"],
              launches_pseudo_labels=train_launches["k1_labels"],
              launches_distill=train_launches["k1_distill"], **k1[1, "bfloat16"]),
+        # K1 on a model shard of turbo's encoder (10 of 20 heads), timed in
+        # bf16; launches: phase 37's rank 0 on the (2, 2) mesh (f32 decode,
+        # bf16 windows), launches_mesh: every rank's
+        dict(name="encoder_attention_tp2", route="cuda", source="whisper_tpu_torch/csrc/attention.cu",
+             replaces="whisper_tpu/ops/kernels/attention_pallas.py:62",
+             launches=mesh["k1_mesh"][0], launches_mesh=mesh["k1_mesh"], **mesh["k1"]),
         # K1 at batch 16: timed at (16, 20, 1500, 64); launches: transcribe_batch's
         # encoder passes (groups of up to 16 files)
         dict(name="encoder_attention_b16", route="cuda", source="whisper_tpu_torch/csrc/attention.cu",
              replaces="whisper_tpu/ops/kernels/attention_pallas.py:62",
              launches=batch_launches["encoder_attention"], **k1[16, "bfloat16"]),
         # B=1: the greedy path's count; B=5 and K3, K4: the CLI default path's
+        # launches_mesh: phase 37's (2, 1) ranks, each decoding its files
         dict(name="fused_decoder_layers", **fused,
-             launches=launches["fused_decoder_layers"], **k2["bfloat16"]),
+             launches=launches["fused_decoder_layers"], launches_mesh=mesh["k2_mesh"],
+             **k2["bfloat16"]),
         dict(name="fused_decoder_layers_b5", **fused,
              launches=cli_launches["fused_decoder_layers_b5"], **k2g["bfloat16"]),
         # K5 at five rows, bf16 weights: K2's MLP stage on the CLI default
@@ -2799,10 +3226,10 @@ def main() -> int:
              launches=chunked_launches["fused_decoder_layers_groups"], **k2ag["bfloat16"]),
         dict(name="median_filter", route="cuda", source="whisper_tpu_torch/csrc/median.cu",
              replaces="whisper_tpu/ops/kernels/median_pallas.py:36",
-             launches=cli_launches["median_filter"], **k3),
+             launches=cli_launches["median_filter"], launches_mesh=mesh["k3_mesh"], **k3),
         dict(name="dtw_trace", route="cuda", source="whisper_tpu_torch/csrc/dtw.cu",
              replaces="whisper_tpu/ops/kernels/dtw_pallas.py:80",
-             launches=cli_launches["dtw_trace"], **k4),
+             launches=cli_launches["dtw_trace"], launches_mesh=mesh["k4_mesh"], **k4),
         # the int8 configuration (int8 weights and cross K/V): B=1 the int8
         # pinned window's per-step turns; the MLP stage (K5's code, timed
         # alone at B=1, int8) and the int8 logits, the greedy transcribe's

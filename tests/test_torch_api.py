@@ -2,8 +2,10 @@
 
 ``transcribe``, ``decode``, ``load_model`` and the many-file entry points
 ``transcribe_batch``, ``transcribe_chunked`` and ``align``, the serving
-layer's ``BatchingTranscriber``, ``StreamingTranscriber``, ``make_server``
-and ``serve``, and the public functions of ``training`` and ``distill``
+layer's ``BatchingTranscriber``, ``StreamingTranscriber``, ``make_server``,
+``serve`` and ``parse_mesh``, ``parallel``'s ``make_mesh``,
+``shard_params`` and ``param_sharding_rules``, and the public functions of
+``training`` and ``distill``
 must take the same parameters (names, kinds and defaults, in
 order), ``DecodingOptions`` must have the same fields with the same
 defaults, and ``cli`` and ``serve.main`` must declare the same flags with
@@ -39,11 +41,11 @@ ALLOWED = {
     ("load_model", "device"): "default 'cuda' (whisper_tpu: None, JAX's default backend)",
     ("cli", "--device"): "default 'cuda' (whisper_tpu: None, JAX's default backend)",
     ("serve.main", "--device"): "the torch device, 'cuda' by default (whisper_tpu: JAX's default backend)",
-    # the same parameter in both, which the port refuses for now
-    ("BatchingTranscriber", "mesh"): "multi-device serving raises: ROADMAP Queue 1 item 19",
-    ("make_server", "mesh"): "multi-device serving raises: ROADMAP Queue 1 item 19",
-    ("serve", "mesh"): "multi-device serving raises: ROADMAP Queue 1 item 19",
-    ("serve.main", "--mesh"): "multi-device serving raises: ROADMAP Queue 1 item 19",
+    # the mesh: one process per device over torch.distributed
+    ("parallel.make_mesh", "backend"): "torch.distributed needs its backend named (nccl on the "
+    "card, gloo on the CPU or for several ranks on one card); JAX has one runtime",
+    ("parallel.make_mesh", "timeout"): "every collective's timeout, so that a dead rank brings "
+    "the others down; GSPMD's one controller has no peer to wait for",
 }
 
 
@@ -128,6 +130,21 @@ def test_serve_main_flags_match(monkeypatch):
     ref, port = _cli_flags(jserve.main, monkeypatch), _cli_flags(tserve.main, monkeypatch)
     assert "--quantize" in port and port["--device"] == "cuda"
     assert _diff("serve.main", ref, port) == []
+
+
+@pytest.mark.parametrize("name", ["make_mesh", "shard_params", "param_sharding_rules"])
+def test_parallel_signatures_match(name):
+    """``make_mesh``'s ``devices`` keeps its name and default: each rank's
+    torch device, by rank, where whisper_tpu takes the JAX devices."""
+    ref = _params(getattr(importlib.import_module("whisper_tpu.parallel"), name))
+    port = _params(getattr(importlib.import_module("whisper_tpu_torch.parallel"), name))
+    assert _diff(f"parallel.{name}", ref, port) == []
+    shared = [n for n in ref if n in port]
+    assert shared == [n for n in port if n in ref], "parameter order"
+
+
+def test_parse_mesh_signature_matches():
+    assert _params(jserve.parse_mesh) == _params(tserve.parse_mesh)
 
 
 def test_many_file_entry_points_are_model_methods():

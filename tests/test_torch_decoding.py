@@ -222,7 +222,7 @@ def test_import_pulls_in_no_jax():
         "whisper_tpu_torch.experiments.attn_packed, whisper_tpu_torch.ops.kernels.matmul_residual, "
         "whisper_tpu_torch.ops.kernels.logits, whisper_tpu_torch.ops.kernels.attn_packed, "
         "whisper_tpu_torch.profiling, whisper_tpu_torch.normalizers, whisper_tpu_torch.training, "
-        "whisper_tpu_torch.distill; "
+        "whisper_tpu_torch.distill, whisper_tpu_torch.parallel, whisper_tpu_torch.parallel.launch; "
         "from whisper_tpu_torch.transcribe import cli; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisper_tpu', 'scripts') "
         f"or m in {_SCRIPT_MODULES!r}]; "

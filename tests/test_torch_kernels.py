@@ -410,9 +410,14 @@ def test_k2_takes_the_published_shapes_and_the_engine_routes_the_rest():
     for name, dims in KNOWN_MODELS.items():
         assert k2.takes(dims.n_text_head, dims.n_text_state, torch.bfloat16), name
     tiny = ModelDimensions(**{**KW, "n_text_state": 64, "n_text_head": 2})
-    for dims, dtype, want in ((DIMS, torch.float32, fused), (DIMS, torch.bfloat16, fused),
-                              (tiny, torch.float32, plain)):
-        params = {"decoder": {"tok_emb": torch.zeros(1, dims.n_text_state, dtype=dtype)}}
+    for dims, dtype, rows, want in ((DIMS, torch.float32, DIMS.n_text_state, fused),
+                                    (DIMS, torch.bfloat16, DIMS.n_text_state, fused),
+                                    (tiny, torch.float32, tiny.n_text_state, plain),
+                                    # a model shard (parallel.shard_params): its q_w holds
+                                    # half the heads' rows, and the PyTorch step runs
+                                    (DIMS, torch.bfloat16, DIMS.n_text_state // 2, plain)):
+        params = {"decoder": {"tok_emb": torch.zeros(1, dims.n_text_state, dtype=dtype),
+                              "blocks": {"q_w": torch.zeros(1, rows, dims.n_text_state, dtype=dtype)}}}
         assert engine.decoder_steps(params, dims) == want
     assert not k2.takes(16, 2048 + 64 * 16, torch.bfloat16) and k2.takes(48, 3072, torch.float32)
     assert not k2.takes(20, 1300, torch.float32) and not k2.takes(2, 128, torch.float16)

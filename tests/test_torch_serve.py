@@ -251,9 +251,24 @@ def test_launch_counts_survive_concurrent_threads():
 
 
 def test_mesh_is_a_later_slice(model):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 19"):
-        BatchingTranscriber(model, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1, item 19"):
+    """The mesh is in the port: a batcher under a mesh of
+    one rank (no process group needed) answers as the plain one, and
+    ``--mesh`` builds the mesh, refusing one larger than the world (the
+    many-rank paths are tests/test_torch_parallel.py's)."""
+    import torch
+
+    from whisper_tpu_torch.parallel import Mesh
+
+    one = Mesh((1, 1), ("data", "model"), 0, (0, 0), torch.device("cpu"), "gloo",
+               {"data": None, "model": None}, {"data": None, "model": None, "world": None})
+    audio = _tone(seed=3)
+    with BatchingTranscriber(model, batch_size=2, max_wait_s=0.05, **OPTS) as bt:
+        want = bt.transcribe(audio, timeout=300)
+    with BatchingTranscriber(model, batch_size=2, max_wait_s=0.05, mesh=one, **OPTS) as bt:
+        assert bt.model is not model and bt.mesh is one
+        got = bt.transcribe(audio, timeout=300)
+    assert got["text"] == want["text"]
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         serve_mod.main(["--mesh", "data=2", "--device", "cpu"])
 
 

@@ -19,6 +19,11 @@ round's windows are sliced out of it there (:func:`_slice_windows`).
 PyTorch compiles nothing per shape, so the JAX package's waveform-width
 buckets and padded batch rows, which bound its XLA compiles, are not
 carried over: a round decodes exactly its files' rows.
+
+Under a mesh (``with mesh:``) the files split over the data groups, each a
+contiguous block (``Mesh.rows``); a group runs its own groups of files and
+seek loops under its model group alone, and every rank returns every
+file's result, gathered in input order on a CPU gloo group.
 """
 
 import contextlib
@@ -39,6 +44,7 @@ from .audio import (
     log_mel_spectrogram,
 )
 from .decoding import DecodingOptions, DecodingTask, detect_language
+from .parallel.mesh import current_mesh
 from .timing import add_word_timestamps, find_alignment_batch
 from .tokenizer import get_tokenizer
 from .transcribe import _refine_seek_with_word_timings, needs_fallback, segment_window
@@ -192,7 +198,21 @@ def transcribe_batch(
     advance, for windows that are fixed by construction
     (``transcribe_chunked``).  It excludes
     ``hallucination_silence_threshold``, whose heuristics steer that seek.
+
+    Under a mesh with a data axis above 1, each data group transcribes its
+    block of the files and the results are gathered (module docstring).
     """
+    mesh = current_mesh()
+    if mesh is not None and mesh.shape["data"] > 1:
+        call = {k: v for k, v in locals().items()
+                if k not in ("model", "audios", "decode_options", "mesh")}
+        rows = mesh.rows(len(audios))
+        local = []
+        if len(rows):
+            with mesh.model_only():
+                local = transcribe_batch(model, list(audios)[rows.start:rows.stop], **call,
+                                         **decode_options)
+        return [r for part in mesh.gather_objects(local, "data") for r in part]
     if not word_seek_refinement and hallucination_silence_threshold is not None and word_timestamps:
         raise ValueError(
             "word_seek_refinement=False is incompatible with "

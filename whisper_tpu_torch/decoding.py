@@ -8,6 +8,15 @@ the initial tokens and suppression masks and turns the engine's buffers
 into ``DecodingResult`` objects: greedy, best-of sampling and beam search,
 for one audio or a batch, and for a batch whose windows carry prompts of
 their own (``run_with_prompts``, under ``transcribe_batch``).
+
+Under a mesh (``with mesh:``, :mod:`whisper_tpu_torch.parallel`) every
+rank is given the whole batch, as whisper_tpu's single controller is; each
+data group decodes its contiguous block of rows (``Mesh.rows``: a group
+may get none, and still joins the gather) under its model group alone, and
+every rank returns every row's result, gathered as objects on a CPU gloo
+group.  The ranks of a model group take the same host decisions: their
+logits are the same after each all-reduce, and a sampling seed drawn from
+numpy is rank 0's of the group.
 """
 
 from dataclasses import dataclass, field, replace
@@ -27,6 +36,7 @@ from .engine import (
     detect_language_engine,
     prefill_bucket,
 )
+from .parallel.mesh import current_mesh
 from .tokenizer import Tokenizer, get_tokenizer
 from .utils import compression_ratio
 
@@ -55,6 +65,30 @@ def _language_probs(tokenizer: Tokenizer, probs: torch.Tensor) -> List[Dict[str,
         {c: float(row[j]) for j, c in enumerate(tokenizer.all_language_codes)}
         for row in probs
     ]
+
+
+def _host(result: "DecodingResult") -> "DecodingResult":
+    if isinstance(result.audio_features, torch.Tensor):
+        return replace(result, audio_features=result.audio_features.cpu())
+    return result
+
+
+def _over_data(model: "Whisper", run, mel: torch.Tensor, *per_row) -> List["DecodingResult"]:
+    """``run(mel, *per_row)`` on the batch; under a mesh with a data axis
+    above 1, on this data group's rows only, under its model group
+    (``Mesh.model_only``), with every group's results gathered in row
+    order.  The features come back on the model's device."""
+    mesh = current_mesh()
+    if mesh is None or mesh.shape["data"] == 1:
+        return run(mel, *per_row)
+    rows = mesh.rows(mel.shape[0])
+    local = []
+    if len(rows):
+        with mesh.model_only():
+            local = run(mel[rows.start:rows.stop], *(a[rows.start:rows.stop] for a in per_row))
+    parts = mesh.gather_objects([_host(r) for r in local], "data")
+    return [replace(r, audio_features=r.audio_features.to(model.device))
+            if isinstance(r.audio_features, torch.Tensor) else r for part in parts for r in part]
 
 
 def detect_language(model: "Whisper", mel, tokenizer: Tokenizer = None):
@@ -327,6 +361,9 @@ class DecodingTask:
         seed = self.options.seed
         if seed is None:
             seed = int(np.random.randint(0, 2**31 - 1))
+            mesh = current_mesh()
+            if mesh is not None:  # a model group samples alike
+                seed = mesh.broadcast_object(seed, "model")
         return torch.Generator(device=self.model.device).manual_seed(seed)
 
     def _bench_forced(self) -> Optional[List[int]]:
@@ -400,9 +437,12 @@ class DecodingTask:
     def run(self, mel) -> List[DecodingResult]:
         """Decode a batch of mels (n_audio, n_mels, 3000), or of encoder
         features (n_audio, Ta, C): one result per audio, each with its own
-        detected language when ``options.language`` is None."""
+        detected language when ``options.language`` is None.  Under a mesh
+        each data group decodes its rows (see the module's docstring)."""
+        return _over_data(self.model, self._run, _as_mel(self.model, mel))
+
+    def _run(self, mel: torch.Tensor) -> List[DecodingResult]:
         tokenizer = self.tokenizer
-        mel = _as_mel(self.model, mel)
         n_audio = mel.shape[0]
         features_given = _features_given(self.model, mel)
 
@@ -456,17 +496,20 @@ class DecodingTask:
         its own position, so rows with prompts of different lengths share
         one decode (whisper_tpu/decoding.py:687-782).  This is what lets
         transcribe_batch keep per-file condition_on_previous_text
-        conditioning.
+        conditioning.  Under a mesh each data group decodes its rows.
         """
+        mel = _as_mel(self.model, mel)
+        assert len(prompts) == mel.shape[0]
+        return _over_data(self.model, self._run_with_prompts, mel, list(prompts))
+
+    def _run_with_prompts(self, mel: torch.Tensor, prompts: List[List[int]]) -> List[DecodingResult]:
         if self.options.language is None:
             raise ValueError("run_with_prompts requires a pinned language")
         if self.options.prompt or self.options.prefix:
             raise ValueError("options-level prompt/prefix conflict with per-row prompts")
 
         tokenizer = self.tokenizer
-        mel = _as_mel(self.model, mel)
         n_audio = mel.shape[0]
-        assert len(prompts) == n_audio
 
         max_prompt = self.n_ctx // 2 - 1
         rows: List[List[int]] = []

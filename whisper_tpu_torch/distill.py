@@ -31,6 +31,7 @@ import torch
 from .models.dims import ModelDimensions
 from .quantize import Int8Weight
 from .training import (
+    _local_rows,
     _masked_mean,
     _usable,
     decoder_apply_train,
@@ -110,8 +111,10 @@ def distill_loss(
     integer, loss_mask (B, S)}.  Teacher-forced; position i is scored on
     predicting token i + 1, masked as ``training.loss_fn``.  The teacher
     runs under ``torch.no_grad()``: only the student decoder takes
-    gradients.
+    gradients.  Under a mesh each data group scores its rows of the global
+    batch, as ``training.loss_fn``.
     """
+    batch = _local_rows(batch)
     feats, tokens = _usable(batch["features"]), _usable(batch["tokens"]).long()
     s_logits = decoder_apply_train({"decoder": student_decoder}, student_dims, tokens, feats)
     with torch.no_grad():

@@ -42,6 +42,7 @@ from .models.whisper import (
     encoder_apply,
     flush_pending,
     init_kv_cache,
+    is_shard,
     project_logits,
 )
 from .ops.kernels import fused_step
@@ -406,9 +407,22 @@ def decoder_steps(params, dims: ModelDimensions):
     where it takes the shape (``fused_step.takes``: every published model),
     else the PyTorch step, the way ``ops.attention`` sends K1 only the head
     dims it takes.  This is a dispatch by shape: a K2 launch that fails
-    raises."""
+    raises.
+
+    Under a mesh: whisper_tpu turns its fused step off under any mesh
+    (``whisper_tpu/decoding.py:640-643``), because GSPMD cannot partition a
+    ``pallas_call``.  Here a rank holds its own parameters, so the choice is
+    again the shape's.  A whole decoder on every rank (a model axis of 1:
+    each data group decodes its own rows with a whole replica; or int8
+    weights, which stay whole) takes K2 as without a mesh: the function is
+    the same.  A model shard (H / model heads, a model axis above 1) takes
+    the PyTorch step, as whisper_tpu's XLA step: K2 queues every layer in
+    one launch chain, with no place for the all-reduces of o, xo and fc2
+    between its launches."""
     dtype = params["decoder"]["tok_emb"].dtype
-    if fused_step.takes(dims.n_text_head, dims.n_text_state, dtype):
+    blocks = params["decoder"]["blocks"]
+    if (not is_shard(blocks, dims.n_text_state)
+            and fused_step.takes(dims.n_text_head, dims.n_text_state, dtype)):
         return decoder_step_fused, decoder_step_fused_pending
     return decoder_step, decoder_step_pending
 

@@ -169,3 +169,146 @@ def load_torch_checkpoint(
     dims = ModelDimensions(**checkpoint["dims"])
     params = convert_torch_state_dict(checkpoint["model_state_dict"], dims, dtype, device)
     return params, dims
+
+
+# ---------------------------------------------------------------------------
+# The sharded checkpoint
+# ---------------------------------------------------------------------------
+
+_DIMS_FILE = "dims.json"
+
+
+def _flatten(tree: Dict[str, Any], path: str = "") -> Dict[str, Any]:
+    """{"encoder/blocks/q_w": leaf, ...}; an int8 leaf as ".../q" and ".../s"."""
+    out: Dict[str, Any] = {}
+    for key, value in tree.items():
+        where = f"{path}/{key}" if path else key
+        if isinstance(value, dict):
+            out.update(_flatten(value, where))
+        elif isinstance(value, Int8Weight):
+            out[f"{where}/q"], out[f"{where}/s"] = value.q, value.s
+        else:
+            out[where] = value
+    return out
+
+
+def _tree(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """:func:`_flatten`'s inverse: a {"q", "s"} node is an int8 leaf."""
+    def rebuild(node):
+        if set(node) == {"q", "s"}:
+            return Int8Weight(node["q"], node["s"])
+        return {k: rebuild(v) if isinstance(v, dict) else v for k, v in node.items()}
+
+    return rebuild(_unflatten(flat))
+
+
+def _specs(params: Params) -> Dict[str, tuple]:
+    """Each flat key's sharding spec, as ``parallel.shard_params`` splits it."""
+    from ..parallel.sharding import _spec_tree
+
+    return _flatten(_spec_tree(params))
+
+
+def _device_mesh(mesh):
+    """The DeviceMesh over the mesh's ranks that the checkpoint's DTensors
+    name: on the CPU for a gloo mesh (its groups carry host tensors), on
+    the card for NCCL."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    kind = "cpu" if mesh.backend == "gloo" else mesh.device.type
+    grid = torch.arange(mesh.size).reshape(mesh.shape["data"], mesh.shape["model"])
+    return DeviceMesh(kind, grid, mesh_dim_names=("data", "model")), kind
+
+
+def _placements(spec) -> list:
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Replicate(), Shard(spec.index("model")) if "model" in spec else Replicate()]
+
+
+def save_sharded(path: str, params: Params, dims: ModelDimensions) -> None:
+    """Checkpoint a parameter tree with ``torch.distributed.checkpoint``:
+    the counterpart of whisper_tpu's ``save_orbax`` (orbax, sharded params
+    on a mesh; whisper_tpu/models/load.py:169-178).  Under a mesh (``with
+    mesh:``) every rank calls it with its shards (``parallel.shard_params``),
+    each wrapped as a ``DTensor`` with its placements (replicated over
+    "data", split over "model" by the sharding rules) only to be written;
+    DCP writes each distinct shard once.  Without a mesh the whole tree is
+    written from this process.  The directory also holds ``dims.json``."""
+    import json
+    import os
+
+    import torch.distributed.checkpoint as dcp
+
+    from ..parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    flat = _flatten(params)
+    os.makedirs(path, exist_ok=True)
+    if mesh is None or mesh.size == 1:
+        dcp.save({k: v.detach().cpu() for k, v in flat.items()}, checkpoint_id=path, no_dist=True)
+    else:
+        from torch.distributed.tensor import DTensor
+
+        device_mesh, kind = _device_mesh(mesh)
+        specs = _specs(params)
+        state = {k: DTensor.from_local(v.detach().to(kind), device_mesh, _placements(specs[k]),
+                                       run_check=False)
+                 for k, v in flat.items()}
+        dcp.save(state, checkpoint_id=path, process_group=mesh.cpu_groups["world"])
+    if mesh is None or mesh.rank == 0:
+        with open(os.path.join(path, _DIMS_FILE), "w") as f:
+            json.dump(dims.__dict__, f)
+    if mesh is not None and mesh.size > 1:
+        import torch.distributed as dist
+
+        dist.barrier(group=mesh.cpu_groups["world"])  # dims.json is there before any rank returns
+
+
+def load_sharded(path: str, dtype: torch.dtype = torch.float32, *,
+                 device: Union[str, torch.device, None] = None) -> Tuple[Params, ModelDimensions]:
+    """Load a :func:`save_sharded` checkpoint (whisper_tpu's ``load_orbax``):
+    under a mesh of several ranks, this rank's shards for that mesh, read
+    by DCP from whatever mesh wrote them; without one (or on a mesh of one)
+    the whole tree.  Floating leaves are cast to ``dtype``, int8 leaves keep
+    their int8 values and f32 scales; the tensors go to ``device`` (the
+    mesh's device, else the card)."""
+    import json
+    import os
+
+    import torch.distributed.checkpoint as dcp
+
+    from ..parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    with open(os.path.join(path, _DIMS_FILE)) as f:
+        dims = ModelDimensions(**{k: int(v) for k, v in json.load(f).items()})
+    device = torch.device(device if device is not None else
+                          mesh.device if mesh is not None else "cuda")
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    shapes = {k: (tuple(m.size), m.properties.dtype) for k, m in meta.items()}
+    if mesh is None or mesh.size == 1:
+        state = {k: torch.empty(size, dtype=dt) for k, (size, dt) in shapes.items()}
+        dcp.load(state, checkpoint_id=path, no_dist=True)
+    else:
+        from torch.distributed.tensor import DTensor
+
+        device_mesh, kind = _device_mesh(mesh)
+        M = mesh.shape["model"]
+        specs = _specs(_tree({k: torch.empty(size, dtype=dt, device="meta")
+                              for k, (size, dt) in shapes.items()}))
+        state = {}
+        for k, (size, dt) in shapes.items():
+            spec = specs[k]
+            local = list(size)
+            if "model" in spec:
+                if size[spec.index("model")] % M:
+                    raise ValueError(f"load_sharded: {k} {size}: the model axis of {M} does not divide it")
+                local[spec.index("model")] //= M
+            state[k] = DTensor.from_local(torch.empty(local, dtype=dt, device=kind), device_mesh,
+                                          _placements(spec), run_check=False)
+        dcp.load(state, checkpoint_id=path, process_group=mesh.cpu_groups["world"])
+        state = {k: v.to_local() for k, v in state.items()}
+    cast = {k: v.to(device=device, dtype=dtype if v.is_floating_point() and not k.endswith("/s")
+                    else v.dtype).contiguous() for k, v in state.items()}
+    return _tree(cast), dims

@@ -27,6 +27,7 @@ from ..ops.attention import (
     qkv_attention_kt,
     split_heads,
 )
+from ..parallel.mesh import copy_to_model, current_mesh, reduce_from_model
 from ..quantize import Int8Weight, take_layer
 from .dims import ModelDimensions
 
@@ -86,6 +87,43 @@ def _linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tenso
     return y
 
 
+def _linear_rows(x: torch.Tensor, w, b: Optional[torch.Tensor], partial: bool) -> torch.Tensor:
+    """A row-parallel projection (o, xo, fc2).  On a model shard
+    (``partial``) the product is a part of the whole one: it is summed over
+    the mesh's model group (:func:`~whisper_tpu_torch.parallel.
+    reduce_from_model`) before the bias, which is added once, and before
+    the caller's residual, which would otherwise count once per rank.
+    Otherwise :func:`_linear` as it is."""
+    if not partial:
+        return _linear(x, w, b)
+    y = reduce_from_model(_linear(x, w))
+    return y if b is None else y + b
+
+
+def _rows(w) -> int:
+    return (w.q if isinstance(w, Int8Weight) else w).shape[-2]
+
+
+def n_heads(w, width: int, n_head: int) -> int:
+    """The heads a column-parallel weight (q_w, xk_w, ...) holds: all
+    ``n_head`` of a whole one, n_head / model of a rank's shard
+    (``parallel.shard_params``).  Heads are split by their width, width //
+    n_head, so one code path serves the whole model and a shard; a shard
+    that does not hold whole heads raises."""
+    d = width // n_head
+    rows = _rows(w)
+    if rows % d or not 0 < rows <= width:
+        raise ValueError(f"a projection of {rows} output rows does not hold whole heads of {d} "
+                         f"(width {width}, {n_head} heads): the model axis must divide the heads")
+    return rows // d
+
+
+def is_shard(p: Params, width: int) -> bool:
+    """Whether a block's parameters are a model shard (its q_w holds fewer
+    rows than the residual's width)."""
+    return _rows(p["q_w"]) < width
+
+
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)  # exact erf form
 
@@ -128,17 +166,24 @@ class KVCache(NamedTuple):
 
 
 def _encoder_block(x: torch.Tensor, p: Params, n_head: int, attention=encoder_attention) -> torch.Tensor:
-    """Pre-LN self-attention block (reference model.py:142-171, no cross-attn)."""
+    """Pre-LN self-attention block (reference model.py:142-171, no
+    cross-attn).  ``n_head``: the heads these parameters hold (a model
+    shard's H / model)."""
+    tp = is_shard(p, x.shape[-1])
     h = layer_norm(x, p["attn_ln_g"], p["attn_ln_b"])
+    if tp:
+        h = copy_to_model(h)
     q = split_heads(_linear(h, p["q_w"], p["q_b"]), n_head).contiguous()
     k = split_heads(_linear(h, p["k_w"]), n_head).contiguous()
     v = split_heads(_linear(h, p["v_w"], p["v_b"]), n_head).contiguous()
     attn = attention(q, k, v)
-    x = x + _linear(merge_heads(attn), p["o_w"], p["o_b"])
+    x = x + _linear_rows(merge_heads(attn), p["o_w"], p["o_b"], tp)
 
     h = layer_norm(x, p["mlp_ln_g"], p["mlp_ln_b"])
+    if tp:
+        h = copy_to_model(h)
     h = _gelu(_linear(h, p["fc1_w"], p["fc1_b"]))
-    return x + _linear(h, p["fc2_w"], p["fc2_b"])
+    return x + _linear_rows(h, p["fc2_w"], p["fc2_b"], tp)
 
 
 def encoder_apply(
@@ -151,7 +196,8 @@ def encoder_apply(
     (q, k, v) -> out is the blocks' self-attention: by default
     :func:`encoder_attention` (kernel K1 on a CUDA tensor, which has no
     backward); a training pass gives the differentiable torch ops
-    (``training.loss_fn``).
+    (``training.loss_fn``).  On a model shard (``parallel.shard_params``,
+    under ``with mesh:``) each rank runs its H / model heads, K1 among them.
     """
     enc = params["encoder"]
     dtype = enc["conv1_w"].dtype
@@ -162,8 +208,9 @@ def encoder_apply(
 
     assert x.shape[1] == dims.n_audio_ctx, "incorrect audio shape"
     x = x + enc["pos"]
+    n_head = n_heads(enc["blocks"]["q_w"], dims.n_audio_state, dims.n_audio_head)
     for p in _layers(enc["blocks"], dims.n_audio_layer):
-        x = _encoder_block(x, p, dims.n_audio_head, attention)
+        x = _encoder_block(x, p, n_head, attention)
     return layer_norm(x, enc["ln_post_g"], enc["ln_post_b"])
 
 
@@ -178,7 +225,7 @@ def compute_cross_kv(
     """Per-layer cross-attention K/V from encoder output: (L, B, H, D, Ta),
     computed once per segment and reused by every decode step."""
     blocks = params["decoder"]["blocks"]
-    h = dims.n_text_head
+    h = n_heads(blocks["xk_w"], dims.n_text_state, dims.n_text_head)
     ks, vs = [], []
     for i in range(dims.n_text_layer):
         xk_w, xv_w = take_layer(blocks["xk_w"], i), take_layer(blocks["xv_w"], i)
@@ -232,13 +279,21 @@ def _decoder_block(
     """One decoder block given its self-attention K/V for the query
     positions (computed by the caller, which also keeps them).  Returns the
     block's output and, with ``return_cross_qk``, the f32 pre-softmax
-    cross-attention scores (B, H, T, Ta)."""
+    cross-attention scores (B, H, T, Ta).  On a model shard the caller's
+    K/V and ``n_head`` are its H / model heads; in a pass that takes
+    gradients the caller passes ``h`` through ``copy_to_model`` before its
+    k and v projections (the one of q is here)."""
+    tp = is_shard(p, x.shape[-1])
     h = layer_norm(x, p["attn_ln_g"], p["attn_ln_b"])
+    if tp:
+        h = copy_to_model(h)
     q = split_heads(_linear(h, p["q_w"], p["q_b"]), n_head)
     attn, _ = qkv_attention(q, self_k, self_v, self_mask)
-    x = x + _linear(merge_heads(attn), p["o_w"], p["o_b"])
+    x = x + _linear_rows(merge_heads(attn), p["o_w"], p["o_b"], tp)
 
     h = layer_norm(x, p["xattn_ln_g"], p["xattn_ln_b"])
+    if tp:
+        h = copy_to_model(h)
     xq = split_heads(_linear(h, p["xq_w"], p["xq_b"]), n_head)
     if return_cross_qk:
         xattn, cross_qk = qkv_attention(
@@ -246,11 +301,17 @@ def _decoder_block(
         )
     else:
         xattn, cross_qk = _cross_step_attention_k(xq, cross_k_t, cross_v_t), None
-    x = x + _linear(merge_heads(xattn), p["xo_w"], p["xo_b"])
+    x = x + _linear_rows(merge_heads(xattn), p["xo_w"], p["xo_b"], tp)
 
     h = layer_norm(x, p["mlp_ln_g"], p["mlp_ln_b"])
+    if tp:
+        h = copy_to_model(h)
     h = _gelu(_linear(h, p["fc1_w"], p["fc1_b"]))
-    return x + _linear(h, p["fc2_w"], p["fc2_b"]), cross_qk
+    return x + _linear_rows(h, p["fc2_w"], p["fc2_b"], tp), cross_qk
+
+
+def _text_heads(dec: Params, dims: ModelDimensions) -> int:
+    return n_heads(dec["blocks"]["q_w"], dims.n_text_state, dims.n_text_head)
 
 
 def _embed_tokens(dec: Params, tokens: torch.Tensor, length: int) -> torch.Tensor:
@@ -274,7 +335,7 @@ def decoder_prefill(
     prefix's self-attention K/V stacked per layer, (L, B, H, P, D).
     """
     dec = params["decoder"]
-    n_head = dims.n_text_head
+    n_head = _text_heads(dec, dims)
     _, P = tokens.shape
     x = _embed_tokens(dec, tokens, P)
     causal = _causal_mask(P, x.device)
@@ -328,7 +389,7 @@ def _step(
     dec = params["decoder"]
     x = _embed_step(params, dims, tokens, t)
     hidden, k_new, v_new = layers(
-        dec["blocks"], dims.n_text_head, x, t,
+        dec["blocks"], _text_heads(dec, dims), x, t,
         cache.self_k, cache.self_v, cache.cross_k, cache.cross_v,
     )
     _write_kv_column(cache, k_new, v_new, t)
@@ -381,7 +442,7 @@ def _step_pending(
     dec = params["decoder"]
     x = _embed_step(params, dims, tokens, t)
     hidden, k_new, v_new = layers(
-        dec["blocks"], dims.n_text_head, x, block_start,
+        dec["blocks"], _text_heads(dec, dims), x, block_start,
         cache.self_k, cache.self_v, cache.cross_k, cache.cross_v, pend_k, pend_v, w,
     )
     L, B, H, D, _ = pend_k.shape
@@ -490,7 +551,7 @@ def decoder_step_k(
     them.  Returns hidden (B, K, C) after the final LayerNorm.  Stock torch
     ops, no kernel: whisper_tpu runs this step in XLA."""
     dec = params["decoder"]
-    n_head = dims.n_text_head
+    n_head = _text_heads(dec, dims)
     B, K = tokens.shape
     n_ctx = cache.self_k.shape[-1]
     device = tokens.device
@@ -555,10 +616,13 @@ def decoder_forward(
     returns (logits, qk): qk holds the float32 pre-softmax cross-attention
     scores of those heads, (K, B, T, Ta), in ``alignment_heads`` order, as
     whisper_tpu's ``decoder_forward`` (which replaces the reference's
-    hook-based capture, timing.py:185-201).
+    hook-based capture, timing.py:185-201).  ``alignment_heads`` index
+    the whole model's heads: on a model shard each rank fills the heads it
+    holds into a zero-filled stack, summed over the model group, so every
+    rank returns the whole qk.
     """
     dec = params["decoder"]
-    n_head = dims.n_text_head
+    n_head = _text_heads(dec, dims)
     _, T = tokens.shape
     heads = None if alignment_heads is None else np.asarray(alignment_heads).reshape(-1, 2)
     cross_k, cross_v = compute_cross_kv(params, dims, audio_features)
@@ -580,7 +644,13 @@ def decoder_forward(
     logits = project_logits(params, x)
     if heads is None:
         return logits
-    return logits, torch.stack([layer_qk[int(l)][:, int(h)] for l, h in heads])
+    if n_head == dims.n_text_head:
+        return logits, torch.stack([layer_qk[int(l)][:, int(h)] for l, h in heads])
+    mesh = current_mesh()  # (reduce_from_model raises without one)
+    first = (mesh.coords["model"] if mesh is not None else 0) * n_head  # this rank's first head
+    qk = torch.stack([layer_qk[int(l)][:, int(h) - first] if first <= h < first + n_head
+                      else torch.zeros_like(layer_qk[int(l)][:, 0]) for l, h in heads])
+    return logits, reduce_from_model(qk)
 
 
 def init_kv_cache(
@@ -591,9 +661,10 @@ def init_kv_cache(
     dtype: torch.dtype,
     ctx: Optional[int] = None,
 ) -> KVCache:
-    h, d = dims.n_text_head, dims.n_text_state // dims.n_text_head
+    xk = cross_k.q if isinstance(cross_k, Int8Weight) else cross_k
+    h, d = xk.shape[2], dims.n_text_state // dims.n_text_head  # a model shard's H / model heads
     shape = (dims.n_text_layer, batch, h, d, ctx or dims.n_text_ctx)
-    device = (cross_k.q if isinstance(cross_k, Int8Weight) else cross_k).device
+    device = xk.device
     return KVCache(
         self_k=torch.zeros(shape, dtype=dtype, device=device),
         self_v=torch.zeros(shape, dtype=dtype, device=device),

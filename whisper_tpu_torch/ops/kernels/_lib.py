@@ -6,10 +6,14 @@ The kernels are CUDA C++ for Hopper (``sm_90a``) under
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), placed in the git-ignored ``whisper_tpu_torch/_build/`` and
 loaded with ``ctypes``.  Nothing here runs at import time: the CPU tests
-import every module on machines without ``nvcc``.
+import every module on machines without ``nvcc``.  The ranks of a mesh
+start at once, each with this module: a file lock in ``_build/`` makes the
+first build while the others wait, and then load its library.
 """
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -98,12 +102,42 @@ def _stale() -> bool:
     )
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on ``_build/.lock`` across processes (flock: the
+    kernel drops it when its holder exits, however it exits)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(verbose: bool = False) -> str:
-    """Compile the kernel library if it is missing or older than its sources.
+    """Compile the kernel library (always; :func:`lib` builds only when it
+    is missing or older than its sources), under the build lock.
 
     Returns nvcc's combined output (with ``-Xptxas -v`` when ``verbose``:
     registers, shared memory and spills per kernel).  Raises on failure.
     """
+    with _build_lock():
+        return _compile(verbose)
+
+
+def ensure_built() -> bool:
+    """Build the library if it is missing or stale, under the build lock:
+    of processes that ask at once, one builds and the others find it
+    fresh.  Returns whether this call built it."""
+    with _build_lock():
+        if not _stale():
+            return False
+        _compile()
+        return True
+
+
+def _compile(verbose: bool = False) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     objects = [os.path.join(BUILD_DIR, f"{s}.{tag}.o") for s in SOURCES]
@@ -140,8 +174,7 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            if _stale():
-                build()
+            ensure_built()
             handle = ctypes.CDLL(LIB_PATH)
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)

@@ -55,6 +55,8 @@ from ...models.whisper import (
     _cross_step_attention_k,
     _layer,
     _linear,
+    _linear_rows,
+    is_shard,
     layer_norm,
 )
 from ...quantize import Int8Weight, take_layer
@@ -142,9 +144,13 @@ def fused_decoder_layers_plain(
     pending columns < pend_w | new token] (``_self_attention``).
     Cross-attention folds each audio's rows into its query axis
     (``_cross_attention``).  int8 weights go through ``_linear``'s int8
-    branch."""
+    branch.  On a model shard (``n_head`` its H / model heads, the caches
+    its heads') o, xo and fc2 sum their partial products over the mesh's
+    model group before the bias and the residual: the PyTorch step that the
+    engine runs under tensor parallelism (``engine.decoder_steps``)."""
     L = self_k.shape[0]
     A = _values(cross_k).shape[1]
+    tp = is_shard(blocks, x.shape[-1])
     if A < 1 or x.shape[0] % A:
         raise ValueError(f"{A} audios do not divide {x.shape[0]} rows")
     x = x[:, None, :]  # (B, 1, C)
@@ -158,14 +164,14 @@ def fused_decoder_layers_plain(
 
         pend = (pend_k[i], pend_v[i], pend_w) if pend_k is not None else ()
         attn = _self_attention(q, k_new, v_new, self_k[i], self_v[i], t, *pend)
-        x = x + _linear(merge_heads(attn), p["o_w"], p["o_b"])
+        x = x + _linear_rows(merge_heads(attn), p["o_w"], p["o_b"], tp)
 
         hx = layer_norm(x, p["xattn_ln_g"], p["xattn_ln_b"])
         xq = split_heads(_linear(hx, p["xq_w"], p["xq_b"]), n_head)
         xattn = _cross_attention(xq, take_layer(cross_k, i), take_layer(cross_v, i))
-        x = x + _linear(merge_heads(xattn), p["xo_w"], p["xo_b"])
+        x = x + _linear_rows(merge_heads(xattn), p["xo_w"], p["xo_b"], tp)
         x = mlp_fused_plain(x, p["mlp_ln_g"], p["mlp_ln_b"], p["fc1_w"], p["fc1_b"], p["fc2_w"],
-                            p["fc2_b"])
+                            p["fc2_b"], tp)
         k_news.append(merge_heads(k_new)[:, 0])
         v_news.append(merge_heads(v_new)[:, 0])
     return x[:, 0], torch.stack(k_news), torch.stack(v_news)

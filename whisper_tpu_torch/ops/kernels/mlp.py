@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from ...models.whisper import _gelu, _linear, layer_norm
+from ...models.whisper import _gelu, _linear, _linear_rows, layer_norm
 from ...quantize import Int8Weight
 from . import _lib
 
@@ -36,10 +36,13 @@ MAX_ROWS = 128  # csrc/fused_step.cu MAX_ROWS
 MAX_BF16_WIDTH = 2048  # csrc/fused_step.cu: 256 * LN_VECS, a LayerNorm row in a warp's registers
 
 
-def mlp_fused_plain(x, ln_g, ln_b, w1, b1, w2, b2):
-    """x (..., C) + fc2(gelu(fc1(layer_norm(x)))) in PyTorch."""
+def mlp_fused_plain(x, ln_g, ln_b, w1, b1, w2, b2, partial: bool = False):
+    """x (..., C) + fc2(gelu(fc1(layer_norm(x)))) in PyTorch.  ``partial``:
+    the weights are a model shard (F / model hidden units), whose fc2
+    product is summed over the mesh's model group before its bias and the
+    residual."""
     h = _gelu(_linear(layer_norm(x, ln_g, ln_b), w1, b1))
-    return x + _linear(h, w2, b2)
+    return x + _linear_rows(h, w2, b2, partial)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:

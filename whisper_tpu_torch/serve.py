@@ -28,7 +28,24 @@ Two layers:
 The batcher's worker and each streaming request's handler thread run the
 model at the same time, each on the device's current stream;
 ``torch.inference_mode`` is per thread and set by the engine's entry points.
-Multi-device serving (``mesh``) is not in the port yet.
+
+Multi-device serving (``mesh=``, ``--mesh``; whisper_tpu/serve.py:56-86,
+327): whisper_tpu's one controller shards the parameters and runs each
+batch under the mesh, and GSPMD spreads the decode.  Here every rank of a
+``torchrun`` (or ``parallel.launch.run_ranks``) job builds the same
+:class:`BatchingTranscriber` over its own shards (``shard_params``).  Rank
+0 holds the queue and the HTTP front end and broadcasts each batch's audios
+and options on a CPU gloo group before it decodes them under the mesh; the
+other ranks' batcher threads receive the batch and run the same
+``transcribe_batch`` under the mesh, so every collective has all its ranks
+(``transcribe_batch`` splits the files over the data groups).  An idle rank
+0 broadcasts a heartbeat, so that no rank waits in a broadcast past the
+process group's timeout; ``close()`` broadcasts a stop.  ``submit`` on
+another rank raises.  Two request forms are not served under a mesh, since
+they run the model in the request's own thread on rank 0, where the other
+ranks cannot join its collectives: ``stream=true`` without ``chunked``
+(``StreamingTranscriber``) and a chunked request without a ``language``
+(its language detection); both answer 400.
 """
 
 import argparse
@@ -37,6 +54,7 @@ import os
 import tempfile
 import threading
 import time
+import traceback
 from collections import OrderedDict, deque
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FutureTimeoutError
@@ -46,7 +64,8 @@ import numpy as np
 
 __all__ = ["BatchingTranscriber", "make_server", "serve"]
 
-_MESH = "multi-device serving (mesh): ROADMAP.md, Queue 1, item 19"
+# an idle rank 0 broadcasts this often, well inside the process group's timeout
+_HEARTBEAT_S = 30.0
 
 # the fields of a segment that a response carries
 _SEGMENT_KEYS = ("id", "start", "end", "text", "words", "avg_logprob", "no_speech_prob")
@@ -78,8 +97,16 @@ class BatchingTranscriber:
     ):
         from .batch import transcribe_batch  # local import: avoid cycles
 
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(_MESH)
+            # each rank holds its shards (whisper_tpu/serve.py:80-86); the
+            # caller's model is not changed
+            from .models.whisper import Whisper
+            from .parallel import shard_params
+
+            sharded = Whisper(model.dims, shard_params(model.params, mesh))
+            sharded.alignment_heads = model.alignment_heads
+            model = sharded
         self._transcribe_batch = transcribe_batch
         self.model = model
         self.batch_size = int(batch_size)
@@ -97,15 +124,20 @@ class BatchingTranscriber:
         # of the clients that decode just answered
         self._engine_free_t = 0.0
         self.stats: Dict[str, int] = {"requests": 0, "batches": 0, "errors": 0}
-        self._worker = threading.Thread(target=self._run, name="whisper-tpu-torch-batcher",
-                                        daemon=True)
+        follower = mesh is not None and mesh.rank != 0
+        self._worker = threading.Thread(target=self._follow if follower else self._run,
+                                        name="whisper-tpu-torch-batcher", daemon=True)
         self._worker.start()
 
     # -- client API ---------------------------------------------------------
 
     def submit(self, audio, priority: bool = False, **overrides) -> Future:
         """Queue one audio (float32 PCM @16 kHz, or a file path) for
-        transcription; returns a Future resolving to the transcribe() dict."""
+        transcription; returns a Future resolving to the transcribe() dict.
+        Under a mesh only rank 0 takes requests."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            raise RuntimeError(f"BatchingTranscriber: rank {self.mesh.rank} of a mesh takes no "
+                               "requests; rank 0 holds the queue and broadcasts each batch")
         fut: Future = Future()
         # overrides equal to the server defaults don't fragment batching
         overrides = {
@@ -149,6 +181,9 @@ class BatchingTranscriber:
             wave = wave.reshape(-1)
         language = overrides.get("language", self.defaults.get("language"))
         if language is None:
+            if self.mesh is not None:
+                raise ValueError("a chunked request under a mesh needs a language: its detection "
+                                 "would run on rank 0 alone")
             language = detect_file_language(self.model, wave)
         offsets = chunk_offsets(wave.shape[0], chunk_overlap)
         chunk_samples = 30 * SAMPLE_RATE
@@ -199,7 +234,12 @@ class BatchingTranscriber:
         return out
 
     def close(self, drain: bool = True):
-        """Stop the worker; with drain=True, first finish queued requests."""
+        """Stop the worker; with drain=True, first finish queued requests.
+        Under a mesh rank 0's worker broadcasts a stop as it ends, and the
+        other ranks wait here until it has."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            self._worker.join()
+            return
         if drain:
             while self._worker.is_alive():
                 with self._cv:
@@ -233,34 +273,30 @@ class BatchingTranscriber:
         return best_key
 
     def _run(self):
+        try:
+            self._serve_queue()
+        finally:
+            if self.mesh is not None:
+                self.mesh.broadcast_object(("stop",))
+
+    def _serve_queue(self):
+        idle_s = _HEARTBEAT_S if self.mesh is not None else None
         while True:
             with self._cv:
                 key = self._pick_group()
                 while key is None and not self._closed:
-                    self._cv.wait()
+                    if not self._cv.wait(timeout=idle_s):
+                        break  # idle under a mesh: the heartbeat below
                     key = self._pick_group()
                 if key is None and self._closed:
                     return
-                lanes = self._groups[key]
-
-                def count():
-                    return len(lanes["p"]) + len(lanes["n"])
-
-                def oldest():
-                    return min(dq[0][2] for dq in lanes.values() if dq)
-
-                # wait for the batch to fill, up to max_wait after the group's
-                # oldest request arrived or the engine became free, whichever
-                # is later; an idle engine with a lone request pays max_wait_s
-                deadline = max(oldest(), self._engine_free_t) + self.max_wait_s
-                while count() < self.batch_size and not self._closed and time.monotonic() < deadline:
-                    self._cv.wait(timeout=max(deadline - time.monotonic(), 0.001))
-                items = []
-                for dq in (lanes["p"], lanes["n"]):  # priority lane first
-                    while dq and len(items) < self.batch_size:
-                        items.append(dq.popleft())
-                if not (lanes["p"] or lanes["n"]):
-                    del self._groups[key]  # drained groups don't accumulate
+                if key is None:
+                    items = None
+                else:
+                    items = self._take(key)
+            if items is None:
+                self.mesh.broadcast_object(("idle",))
+                continue
             if not items:
                 continue
             options = dict(self.defaults)
@@ -268,12 +304,60 @@ class BatchingTranscriber:
             self._dispatch(items, options)
             self._engine_free_t = time.monotonic()
 
+    def _follow(self):
+        """A mesh rank other than 0: run each batch rank 0 broadcasts, under
+        the mesh, until its stop.  A failure here is rank 0's too (the same
+        inputs), which answers it."""
+        while True:
+            message = self.mesh.broadcast_object()
+            if message[0] == "stop":
+                return
+            if message[0] == "batch":
+                _, audios, options = message
+                try:
+                    with self.mesh:
+                        self._transcribe_batch(self.model, audios, batch_size=self.batch_size,
+                                               **options)
+                except Exception:  # the batcher keeps serving; rank 0 answers the request
+                    traceback.print_exc()
+
+    def _take(self, key) -> list:
+        """Up to batch_size requests of an options group, after its fill
+        window (called under the lock)."""
+        lanes = self._groups[key]
+
+        def count():
+            return len(lanes["p"]) + len(lanes["n"])
+
+        def oldest():
+            return min(dq[0][2] for dq in lanes.values() if dq)
+
+        # wait for the batch to fill, up to max_wait after the group's
+        # oldest request arrived or the engine became free, whichever
+        # is later; an idle engine with a lone request pays max_wait_s
+        deadline = max(oldest(), self._engine_free_t) + self.max_wait_s
+        while count() < self.batch_size and not self._closed and time.monotonic() < deadline:
+            self._cv.wait(timeout=max(deadline - time.monotonic(), 0.001))
+        items = []
+        for dq in (lanes["p"], lanes["n"]):  # priority lane first
+            while dq and len(items) < self.batch_size:
+                items.append(dq.popleft())
+        if not (lanes["p"] or lanes["n"]):
+            del self._groups[key]  # drained groups don't accumulate
+        return items
+
     def _dispatch(self, items, options):
         audios = [a for a, _, _ in items]
         futures = [f for _, f, _ in items]
         try:
-            results = self._transcribe_batch(self.model, audios, batch_size=self.batch_size,
-                                             **options)
+            if self.mesh is None:
+                results = self._transcribe_batch(self.model, audios, batch_size=self.batch_size,
+                                                 **options)
+            else:
+                self.mesh.broadcast_object(("batch", audios, options))
+                with self.mesh:
+                    results = self._transcribe_batch(self.model, audios,
+                                                     batch_size=self.batch_size, **options)
             with self._cv:
                 self.stats["batches"] += 1
             for fut, res in zip(futures, results):
@@ -409,6 +493,10 @@ def _make_handler(batcher: BatchingTranscriber):
                     audio = load_audio(tmp)
                 finally:
                     os.unlink(tmp)
+                if stream and not chunked and batcher.mesh is not None:
+                    self._send_json(400, {"error": "stream=true without chunked=true is not served "
+                                          "under a mesh (it decodes in the request's thread)"})
+                    return
                 if stream:
                     if chunked:
                         self._stream_chunked_response(audio, options, chunk_overlap, priority)
@@ -504,8 +592,13 @@ def serve(
     mesh=None,
     **transcribe_options,
 ):
-    """Start the HTTP server (blocking).  Returns never; raises on bind error."""
+    """Start the HTTP server (blocking).  Returns never; raises on bind error.
+    Under a mesh every rank calls it: rank 0 serves HTTP, the others run
+    its batches until it stops."""
     server = make_server(model, host, port, batch_size, max_wait_s, mesh=mesh, **transcribe_options)
+    if mesh is not None and mesh.rank != 0:
+        server.serve_forever()
+        return
     print(f"whisper_tpu_torch serving on http://{host}:{server.server_port} "
           f"(batch_size={batch_size}, max_wait={max_wait_s}s, device={model.device})")
     try:
@@ -528,14 +621,61 @@ def make_server(
     The server carries its ``batcher``; a caller that embeds the server runs
     ``serve_forever`` in a thread, and on teardown calls ``shutdown`` and
     ``batcher.close()``.
+
+    Under a mesh every rank calls it with the same arguments.  Rank 0 binds
+    the port; another rank gets a :class:`_FollowerServer`, whose
+    ``serve_forever`` runs rank 0's batches until rank 0's batcher stops.
     """
     from http.server import ThreadingHTTPServer
 
     batcher = BatchingTranscriber(model, batch_size=batch_size, max_wait_s=max_wait_s, mesh=mesh,
                                   **transcribe_options)
+    if mesh is not None and mesh.rank != 0:
+        return _FollowerServer(batcher)
     server = ThreadingHTTPServer((host, port), _make_handler(batcher))
     server.batcher = batcher
     return server
+
+
+class _FollowerServer:
+    """A mesh rank's stand-in for the HTTP server: it binds nothing, and
+    serves by running the batches rank 0 broadcasts."""
+
+    server_port = None
+
+    def __init__(self, batcher: BatchingTranscriber):
+        self.batcher = batcher
+
+    def serve_forever(self):
+        self.batcher.close()
+
+    def shutdown(self):
+        pass
+
+    def server_close(self):
+        pass
+
+
+def parse_mesh(spec: str):
+    """Build a mesh from a CLI spec like "data=8" or "data=4,model=2"
+    (whisper_tpu/serve.py:611-624), over the process group that
+    ``torchrun`` describes (``parallel.make_mesh``)."""
+    from .parallel import make_mesh
+
+    return make_mesh(_mesh_shape(spec))
+
+
+def _mesh_shape(spec: str):
+    sizes = {"data": 1, "model": 1}
+    for part in spec.split(","):
+        name, _, num = part.partition("=")
+        name = name.strip()
+        if name not in sizes or not num.strip().isdigit():
+            raise ValueError(
+                f"bad mesh spec {spec!r}; expected e.g. 'data=8' or 'data=4,model=2'"
+            )
+        sizes[name] = int(num)
+    return sizes["data"], sizes["model"]
 
 
 def main(argv: Optional[List[str]] = None):
@@ -554,20 +694,25 @@ def main(argv: Optional[List[str]] = None):
     parser.add_argument("--task", default="transcribe")
     parser.add_argument("--quantize", default=None, choices=[None, "int8", "int8+logits"])
     parser.add_argument("--mesh", default=None, metavar="SPEC",
-                        help="multi-device serving (not in this port yet: ROADMAP.md, Queue 1, "
-                        "item 19)")
+                        help="multi-device mesh, e.g. 'data=8' (pure data parallel) or "
+                        "'data=4,model=2' (4-way DP x 2-way TP); run one process per device "
+                        "under torchrun (--nproc-per-node data*model): rank 0 binds the port")
     args = parser.parse_args(argv)
-    if args.mesh is not None:
-        raise NotImplementedError(f"--mesh: {_MESH}")
 
     from . import load_model
 
-    model = load_model(args.model, device=args.device, quantize=args.quantize)
+    mesh = None
+    if args.mesh:  # every rank on its own card (cuda:LOCAL_RANK), or the device named
+        from .parallel import make_mesh
+
+        mesh = make_mesh(_mesh_shape(args.mesh), devices=None if args.device == "cuda" else args.device)
+    device = mesh.device if mesh is not None else args.device
+    model = load_model(args.model, device=device, quantize=args.quantize)
     options = {"task": args.task}
     if args.language:
         options["language"] = args.language
     serve(model, host=args.host, port=args.port, batch_size=args.batch_size,
-          max_wait_s=args.max_wait, **options)
+          max_wait_s=args.max_wait, mesh=mesh, **options)
 
 
 if __name__ == "__main__":

@@ -28,6 +28,18 @@ grad).  A batch is ``{"mel": (B, n_mels, 3000), "tokens": (B, S) integer,
 "loss_mask": (B, S)}`` of tensors on the parameters' device; tensors made
 under ``torch.inference_mode()`` (``Whisper.embed_audio``'s features) are
 taken by a copy.
+
+Under a mesh (``with mesh:``, parameters from ``parallel.shard_params``)
+the step is whisper_tpu's DP+TP ``train_step``, which GSPMD shards there,
+with each part spelled out.  Every rank is given the global batch and runs
+its data group's rows (``Mesh.rows``); the model code sums the
+row-parallel products over "model" (forward) and the column-parallel
+inputs' gradients (backward), Megatron's g and f.  The loss is the mean
+over the global batch: each group's masked sum over the all-reduced mask
+count, summed over "data".  After the backward pass every gradient is
+summed over "data" (a sharded leaf's too: each data group holds the same
+shard), and the clipping norm is the global one: the squares of the
+sharded leaves summed over "model", the replicated leaves counted once.
 """
 
 import dataclasses
@@ -44,11 +56,15 @@ from .models.whisper import (
     _embed_tokens,
     _layers,
     _linear,
+    _text_heads,
     encoder_apply,
+    is_shard,
     layer_norm,
     project_logits,
 )
 from .ops.attention import qkv_attention, split_heads
+from .parallel.mesh import copy_to_model, current_mesh, reduce_over_data
+from .parallel.sharding import param_sharding_rules
 from .quantize import Int8Weight
 
 
@@ -64,8 +80,24 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     return qkv_attention(q, k, v)[0]
 
 
+def _local_rows(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """This data group's rows of a global batch under a mesh (the batch as
+    it is without one)."""
+    mesh = current_mesh()
+    if mesh is None or mesh.shape["data"] == 1:
+        return batch
+    n = next(iter(batch.values())).shape[0]
+    if n < mesh.shape["data"]:
+        raise ValueError(f"a batch of {n} rows over {mesh.shape['data']} data groups")
+    rows = mesh.rows(n)
+    return {k: v[rows.start:rows.stop] for k, v in batch.items()}
+
+
 def _block(x, p, n_head: int, audio_features, causal):
+    tp = is_shard(p, x.shape[-1])
     h = layer_norm(x, p["attn_ln_g"], p["attn_ln_b"])
+    if tp:  # on a model shard the k, v, xk and xv inputs' gradients sum over "model"
+        h, audio_features = copy_to_model(h), copy_to_model(audio_features)
     k = split_heads(_linear(h, p["k_w"]), n_head)
     v = split_heads(_linear(h, p["v_w"], p["v_b"]), n_head)
     # cross K/V time-last, as _decoder_block expects
@@ -90,7 +122,7 @@ def decoder_apply_train(params, dims: ModelDimensions, tokens, audio_features) -
     a non-reentrant checkpoint, the cross K/V computed inside it from
     ``audio_features``, no QK outputs."""
     dec = params["decoder"]
-    n_head = dims.n_text_head
+    n_head = _text_heads(dec, dims)
     tokens, audio_features = _usable(tokens).long(), _usable(audio_features)
     T = tokens.shape[1]
     x = _embed_tokens(dec, tokens, T)
@@ -102,7 +134,10 @@ def decoder_apply_train(params, dims: ModelDimensions, tokens, audio_features) -
 
 
 def loss_fn(params, dims: ModelDimensions, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Next-token cross entropy; batch = {mel, tokens, loss_mask}."""
+    """Next-token cross entropy; batch = {mel, tokens, loss_mask}.  Under a
+    mesh: this data group's part of the global batch's mean, summed over
+    "data" (the module's docstring)."""
+    batch = _local_rows(batch)
     feats = encoder_apply(params, dims, _usable(batch["mel"]), attention=_attention)
     tokens = _usable(batch["tokens"]).long()
     logits = decoder_apply_train(params, dims, tokens, feats)
@@ -114,9 +149,15 @@ def loss_fn(params, dims: ModelDimensions, batch: Dict[str, torch.Tensor]) -> to
 
 def _masked_mean(values: torch.Tensor, loss_mask: torch.Tensor) -> torch.Tensor:
     """sum(values * mask) / max(sum(mask), 1), the mask shifted with the
-    labels."""
+    labels.  Under a mesh ``values`` and ``loss_mask`` are a data group's
+    rows: the count is the global batch's, all-reduced, and the groups'
+    parts are summed (:func:`~.parallel.mesh.reduce_over_data`)."""
     mask = _usable(loss_mask)[:, 1:].float()
-    return (values * mask).sum() / mask.sum().clamp(min=1.0)
+    mesh = current_mesh()
+    if mesh is None or mesh.shape["data"] == 1:
+        return (values * mask).sum() / mask.sum().clamp(min=1.0)
+    count = mesh.all_reduce(mask.sum().detach().clone(), "data")
+    return reduce_over_data((values * mask).sum() / count.clamp(min=1.0))
 
 
 class TrainState(NamedTuple):
@@ -129,11 +170,15 @@ def param_leaves(tree) -> List[torch.Tensor]:
     """The tensors of a params dict in a fixed order (keys sorted at every
     level, as ``jax.tree_util.tree_leaves``).  An int8 leaf raises: like
     optax, the optimizer has no update rule for int8 values."""
+    return [t for _, t in _named_leaves(tree, "")]
+
+
+def _named_leaves(tree, name: str) -> List[Tuple[str, torch.Tensor]]:
     if isinstance(tree, Int8Weight):
         raise ValueError("int8 parameters cannot be trained (load the model unquantized)")
     if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in param_leaves(tree[k])]
-    return [tree]
+        return [leaf for k in sorted(tree) for leaf in _named_leaves(tree[k], k)]
+    return [(name, tree)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,11 +193,14 @@ class Optimizer:
     def init(self, params) -> torch.optim.AdamW:
         """A ``torch.optim.AdamW`` over the params' leaves, each set to
         require grad."""
-        leaves = param_leaves(params)
-        for p in leaves:
+        named = _named_leaves(params, "")
+        for _, p in named:
             p.requires_grad_(True)
-        return torch.optim.AdamW(leaves, lr=self.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=self.weight_decay)
+        opt = torch.optim.AdamW([p for _, p in named], lr=self.learning_rate, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=self.weight_decay)
+        # which leaves the sharding rules split over "model", for a mesh's norm
+        opt.split_by_rules = ["model" in param_sharding_rules(n, p.dim()) for n, p in named]
+        return opt
 
     def apply(self, opt_state: torch.optim.AdamW) -> torch.Tensor:
         """Clip the leaves' gradients by their global norm and take the
@@ -162,13 +210,25 @@ class Optimizer:
         g_norm >= max_norm, else g unchanged, with no epsilon
         (``torch.nn.utils.clip_grad_norm_`` divides by g_norm + 1e-6).  A
         leaf without a gradient takes zeros, as ``jax.grad`` gives it, so
-        that its weight still decays."""
+        that its weight still decays.  Under a mesh the gradients are first
+        summed over "data", and the norm is the global one (the module's
+        docstring): a model axis above 1 means parameters from
+        ``shard_params``."""
         leaves = [p for group in opt_state.param_groups for p in group["params"]]
         for p in leaves:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in leaves]
-        g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        mesh = current_mesh()
+        if mesh is None:
+            g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        else:
+            for g in grads:
+                mesh.all_reduce(g, "data")
+            split = opt_state.split_by_rules if mesh.shape["model"] > 1 else [False] * len(grads)
+            squares = [sum((g.float().square().sum() for g, s in zip(grads, split) if s == part),
+                           torch.zeros((), device=grads[0].device)) for part in (True, False)]
+            g_norm = torch.sqrt(mesh.all_reduce(squares[0], "model") + squares[1])
         if not bool(g_norm < self.max_grad_norm):
             for g in grads:
                 g.div_(g_norm.to(g.dtype)).mul_(self.max_grad_norm)
