@@ -193,7 +193,15 @@ Phases, each of which must pass (any failure exits non-zero):
      5 on jfk's window, token-equal; K1 launched on every rank at (1, 10,
      1500, 64) and K2 never (a model shard takes the PyTorch step), K3 and
      K4 on the gathered alignment weights; make_server(mesh=) on rank 0
-     answering four requests with the single-device server's texts; two
+     answering four requests with the single-device server's texts; the
+     server without a default language (the two forms that run the model
+     outside a batch, as worker jobs on every rank) on 38 s cut from jfk:
+     a stream pushed in 5 s slices and a chunked request, each with the
+     text, language and segment tokens of the single-device server, then
+     stream=true (the time to its first NDJSON line and its total) and
+     chunked=true over HTTP; on two windows of jfk, a self-draft
+     decode(draft_model=) of the model shards equal to plain greedy, and
+     best-of 2 at T = 0.7 sampling alike on every rank; two
      DP+TP train_steps of a depth-cut turbo (4 + 2 layers, full width):
      finite falling losses, each rank's peak memory; save_sharded; then in
      bf16 the pinned window's wall beside the single-device one, with the
@@ -203,6 +211,16 @@ Phases, each of which must pass (any failure exits non-zero):
      NCCL in this process: load_sharded of the (2, 2) checkpoint and a
      greedy window decode equal to the single-device one.  The ranks'
      launch counts go into the kernel summary as launches_mesh.
+ 38. load_model from a checkpoint (run after phase 7): random turbo
+     weights written as an official-layout .pt (fp16 model_state_dict and
+     dims) to a temporary directory, which stands in for the download (no
+     network); load_model("turbo") twice, the first converting the .pt and
+     writing its .npz cache beside it, the second reading the cache (no
+     conversion): both walls, the file sizes, the parameters bit-equal to
+     each other and to the init_params model of the same fp16 values in
+     bf16; then jfk's window decoded greedily by the reloaded model (K1
+     and K2 at B = 1) with that model's tokens.  Its launches go into the
+     kernel summary as launches_checkpoint.
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -2668,6 +2686,140 @@ def training_path(device, audio, profile: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 38: load_model from a checkpoint
+# ---------------------------------------------------------------------------
+
+CKPT_SEED = 38  # the random turbo weights of phase 38
+
+
+def _state_dict(params) -> dict:
+    """A reference-format state dict (an official checkpoint's names) of the
+    port's parameter tree: the inverse of models.load.convert_torch_state_dict,
+    with the encoder's sinusoid buffer an official checkpoint carries."""
+    enc, dec = params["encoder"], params["decoder"]
+    sd = {"encoder.positional_embedding": enc["pos"],
+          "encoder.ln_post.weight": enc["ln_post_g"], "encoder.ln_post.bias": enc["ln_post_b"],
+          "decoder.token_embedding.weight": dec["tok_emb"],
+          "decoder.positional_embedding": dec["pos_emb"],
+          "decoder.ln.weight": dec["ln_g"], "decoder.ln.bias": dec["ln_b"]}
+    for i in (1, 2):
+        sd[f"encoder.conv{i}.weight"], sd[f"encoder.conv{i}.bias"] = enc[f"conv{i}_w"], enc[f"conv{i}_b"]
+    names = {"attn_ln": "attn_ln", "attn.query": "q", "attn.key": "k", "attn.value": "v",
+             "attn.out": "o", "mlp_ln": "mlp_ln", "mlp.0": "fc1", "mlp.2": "fc2",
+             "cross_attn_ln": "xattn_ln", "cross_attn.query": "xq", "cross_attn.key": "xk",
+             "cross_attn.value": "xv", "cross_attn.out": "xo"}
+    for prefix, blocks in (("encoder.blocks", enc["blocks"]), ("decoder.blocks", dec["blocks"])):
+        for torch_name, ours in names.items():
+            ln = ours.endswith("_ln")
+            for part, suffix in (("weight", "_g" if ln else "_w"), ("bias", "_b")):
+                for i, x in enumerate(blocks.get(ours + suffix, ())):
+                    sd[f"{prefix}.{i}.{torch_name}.{part}"] = x
+    return sd
+
+
+def _flat(tree, path: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{path}/{k}") if isinstance(v, dict) else {f"{path}/{k}": v})
+    return out
+
+
+def checkpoint_path(device, audio) -> dict:
+    """Phase 38 (module docstring): returns K1's and K2's launches in the
+    reloaded model's decode."""
+    import shutil
+
+    import whisper_tpu_torch
+    import whisper_tpu_torch.models.load as load_mod
+    from whisper_tpu_torch import log_mel_spectrogram, pad_or_trim
+    from whisper_tpu_torch.decoding import DecodingOptions
+    from whisper_tpu_torch.models import KNOWN_MODELS
+    from whisper_tpu_torch.models.whisper import Whisper, init_params, sinusoids
+    from whisper_tpu_torch.ops.kernels.attention import attention
+    from whisper_tpu_torch.ops.kernels.fused_step import fused_decoder_layers
+
+    t_phase = time.perf_counter()
+    dims = KNOWN_MODELS["turbo"]
+    params = init_params(dims, torch.Generator(device=device).manual_seed(CKPT_SEED), torch.float32,
+                         device)
+    sd = {k: v.half().cpu() for k, v in _state_dict(params).items()}
+    # the same weights without a file: the checkpoint's fp16 values in bf16,
+    # the sinusoids computed (the loader computes them, as whisper_tpu's)
+    ref = _cast(_cast(params, torch.float16), torch.bfloat16)
+    ref["encoder"]["pos"] = torch.from_numpy(sinusoids(dims.n_audio_ctx, dims.n_audio_state)).to(
+        device, torch.bfloat16)
+    ref = Whisper(dims, ref)
+    del params
+    folder = tempfile.mkdtemp(prefix="whisper_ckpt_")
+    path = os.path.join(folder, "large-v3-turbo.pt")
+    real_download, real_convert = whisper_tpu_torch._download, load_mod.load_torch_checkpoint
+    converts = []
+
+    def convert(*args, **kwargs):
+        converts.append(args[0])
+        return real_convert(*args, **kwargs)
+
+    try:
+        t0 = time.perf_counter()
+        torch.save({"dims": dims.__dict__, "model_state_dict": sd}, path)
+        save_s = time.perf_counter() - t0
+        del sd
+        # no network: the download is the file just written
+        whisper_tpu_torch._download = lambda url, root, in_memory: path
+        load_mod.load_torch_checkpoint = convert
+        models, walls = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            models.append(whisper_tpu_torch.load_model("turbo", device=device))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        pt_bytes, npz_bytes = os.path.getsize(path), os.path.getsize(path + ".npz")
+    finally:
+        whisper_tpu_torch._download, load_mod.load_torch_checkpoint = real_download, real_convert
+        shutil.rmtree(folder, ignore_errors=True)
+    converted, cached = models
+    faults = []
+    if converts != [path]:
+        faults.append(f"load_torch_checkpoint ran {len(converts)} times, once expected")
+    flat = [_flat(m.params) for m in (converted, cached, ref)]
+    equal = {}
+    for name, other in (("cache", flat[1]), ("init_params", flat[2])):
+        unequal = [k for k in flat[0] if not (k in other and flat[0][k].dtype == other[k].dtype
+                                              and torch.equal(flat[0][k], other[k]))]
+        equal[name] = flat[0].keys() == other.keys() and not unequal
+        if not equal[name]:
+            faults.append(f"the converted parameters differ from the {name} model's at {unequal[:4]}")
+    if cached.dtype != torch.bfloat16 or len(cached.alignment_heads) != 6:
+        faults.append(f"the reloaded model: {cached.dtype}, alignment heads {cached.alignment_heads}")
+    mel = log_mel_spectrogram(pad_or_trim(audio), dims.n_mels, device=device)
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens = cached.decode(mel, DecodingOptions(language="en", temperature=0.0)).tokens
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = {"k1": attention.launches, "k2": fused_decoder_layers.launches_by_layout[(1, 1)]}
+    want = ref.decode(mel, DecodingOptions(language="en", temperature=0.0)).tokens
+    if tokens != want or not tokens:
+        faults.append(f"the reloaded model decodes {len(tokens)} tokens, not the {len(want)} of "
+                      "the init_params model")
+    if min(launches.values()) <= 0:
+        faults.append(f"K1 or K2 never launched in the reloaded model's decode: {launches}")
+    log(f"phase 38 load_model('turbo') from an official-layout checkpoint ({card_line()}): "
+        f".pt {pt_bytes} bytes written in {save_s:.3f} s; first load (convert, cache) "
+        f"{walls[0]:.3f} s, second (cache) {walls[1]:.3f} s, cache {npz_bytes} bytes; parameters "
+        f"bit-equal to the cache's {equal['cache']}, to the init_params model's "
+        f"{equal['init_params']}; jfk's window greedy {decode_s:.3f} s, {len(tokens)} tokens equal "
+        f"to the init_params model's {tokens == want}, launches {launches}; phase "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    del converted, cached, ref, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    if faults:
+        raise RuntimeError("phase 38: " + "; ".join(faults))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 37: the mesh
 # ---------------------------------------------------------------------------
 
@@ -2680,6 +2832,10 @@ MESH_GREEDY = dict(language="en", temperature=0.0, word_timestamps=True,
                    condition_on_previous_text=False, sample_len=32)
 MESH_BATCH = dict(language="en", temperature=0.0, condition_on_previous_text=False, sample_len=32)
 MESH_BEAM = dict(language="en", beam_size=5, temperature=0.0, sample_len=32)
+MESH_DECODE = dict(language="en", temperature=0.0, sample_len=32)
+MESH_SAMPLED = dict(language="en", temperature=0.7, best_of=2, sample_len=32)
+# the server's options for its stream and its chunked request: no language
+MESH_FORMS = dict(temperature=0.0, condition_on_previous_text=False, sample_len=32)
 K1_SHARD = (1, 10, 1500, 64)  # turbo's 20 encoder heads over a model axis of 2
 
 
@@ -2816,6 +2972,55 @@ def _serve_four(model, requests, mesh=None) -> list:
     return texts
 
 
+def _serve_forms(model, long, mesh=None) -> dict:
+    """make_server(model, mesh=) without a default language, on rank 0
+    (another rank serves rank 0's batches and jobs until it stops): a
+    stream of ``long`` pushed in 5 s slices and flushed, and a chunked
+    request (submit_chunked), each (text, language, segment tokens) with
+    its wall; then over HTTP a stream=true request (the time to its first
+    NDJSON line and to its end) and a chunked=true one, each checked
+    against the same form's text above.  None on the other ranks."""
+    from whisper_tpu_torch.serve import make_server
+
+    server = make_server(model, port=0, batch_size=16, max_wait_s=0.25, mesh=mesh, **MESH_FORMS)
+    if mesh is not None and mesh.rank != 0:
+        server.serve_forever()
+        return None
+    import threading
+
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    out, step = {}, 5 * 16000
+    try:
+        bt = server.batcher
+        t0 = time.perf_counter()
+        st = bt._open_stream(dict(bt.defaults))
+        segments = [seg for i in range(0, len(long), step) for seg in st.push(long[i:i + step])]
+        segments += st.flush()
+        out["stream_s"] = time.perf_counter() - t0
+        out["stream"] = (st.result["text"], st.result["language"], [s["tokens"] for s in segments])
+        t0 = time.perf_counter()
+        chunked = bt.submit_chunked(long).result(timeout=600)
+        out["chunked_s"] = time.perf_counter() - t0
+        out["chunked"] = (chunked["text"], chunked["language"], _tokens(chunked))
+        body = _wav_bytes(long)
+        status, data, out["http_first_s"], out["http_stream_s"] = _post(
+            server.server_port, "?stream=true", body, first_line=True)
+        last = json.loads(data.decode().splitlines()[-1])
+        if status != 200 or (last.get("text"), last.get("language")) != out["stream"][:2]:
+            raise RuntimeError(f"the stream=true answer: {status}, last line {last}")
+        status, data, _, out["http_chunked_s"] = _post(server.server_port, "?chunked=true", body)
+        answer = json.loads(data)
+        if status != 200 or (answer.get("text"), answer.get("language")) != out["chunked"][:2]:
+            raise RuntimeError(f"the chunked=true answer: {status}, {answer}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.close()
+        thread.join(timeout=60)
+    return out
+
+
 def _two_windows(audio, dims, device):
     """jfk's window and jfk's from 1 s on: one row for each data group."""
     import torch
@@ -2872,6 +3077,8 @@ def mesh_rank(rank: int, job: dict) -> dict:
     t0 = time.perf_counter()
     out["served"] = _serve_four(full, job["requests"], mesh)
     out["served_s"] = time.perf_counter() - t0
+    step("the server's stream and chunked request without a language")
+    out["forms"] = _serve_forms(full, job["long"], mesh)
     params = shard_params(full.params, mesh)
     del full
     gc.collect()
@@ -2893,6 +3100,20 @@ def mesh_rank(rank: int, job: dict) -> dict:
         out["beam_s"] = time.perf_counter() - t0
     out["counts"] = _mesh_counts()
     out["k1_shapes"] = shapes
+
+    # a self-draft and best-of sampling on the model shards
+    step("self-draft, best-of 2")
+    with mesh:
+        out["plain"] = [r.tokens for r in model.decode(mel, DecodingOptions(**MESH_DECODE))]
+        t0 = time.perf_counter()
+        out["speculative"] = [r.tokens for r in model.decode(mel, DecodingOptions(**MESH_DECODE),
+                                                             draft_model=model)]
+        torch.cuda.synchronize()
+        out["speculative_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["sampled"] = [r.tokens for r in model.decode(mel, DecodingOptions(**MESH_SAMPLED))]
+        torch.cuda.synchronize()
+        out["sampled_s"] = time.perf_counter() - t0
 
     # two DP+TP train steps of a depth-cut turbo at full width
     step("train steps")
@@ -2956,6 +3177,7 @@ def mesh_path(device, gen, audio, forced) -> dict:
     audio = np.asarray(audio, dtype=np.float32)
     n = len(audio)
     requests = [audio[: 4 * 16000], audio[2 * 16000: 7 * 16000], audio[5 * 16000:], audio]
+    long = np.concatenate([audio, audio, audio, audio[: 5 * 16000]])  # 38 s: two windows, two chunks
     files = [audio[: 3 * 16000], audio[3 * 16000: 9 * 16000], audio[6 * 16000:], audio[: n // 2]]
 
     # the single-device references, f32 (TF32 off), and the bf16 window
@@ -2972,6 +3194,7 @@ def mesh_path(device, gen, audio, forced) -> dict:
     beam_s = time.perf_counter() - t0
     ref_window = model.decode(mel[0], DecodingOptions(language="en", temperature=0.0)).tokens
     ref_served = _serve_four(model, requests)
+    ref_forms = _serve_forms(model, long)
     ref_batch = [(r["text"], _tokens(r)) for r in transcribe_batch(model, files, batch_size=16,
                                                                     **MESH_BATCH)]
     bmodel = Whisper(model.dims, _cast(model.params, torch.bfloat16))
@@ -2987,7 +3210,7 @@ def mesh_path(device, gen, audio, forced) -> dict:
     ckpt = tempfile.mkdtemp(prefix="mesh_ckpt_")
     try:
         job = dict(kind="tp", shape=(2, 2), device=str(device), audio=audio, requests=requests,
-                   forced=forced, ckpt=ckpt)
+                   long=long, forced=forced, ckpt=ckpt)
         t0 = time.perf_counter()
         tp = run_ranks(mesh_rank, 4, (job,), timeout=600)
         tp_s = time.perf_counter() - t0
@@ -3029,8 +3252,16 @@ def mesh_path(device, gen, audio, forced) -> dict:
             faults.append(f"{where}: launches {c} (K2 none, K3 and K4 some expected)")
         if not (np.isfinite(r["losses"]).all() and r["losses"][1] < r["losses"][0]):
             faults.append(f"{where}: train losses {r['losses']}")
+        if r["speculative"] != r["plain"] or not all(r["plain"]):
+            faults.append(f"{where}: the self-draft decodes other tokens than plain greedy")
+        if r["sampled"] != tp[0]["sampled"] or not all(r["sampled"]):
+            faults.append(f"{where}: best-of 2 samples differ from rank 0's")
     if tp[0]["served"] != ref_served:
         faults.append(f"the mesh server's texts differ from one device's")
+    for form in ("stream", "chunked"):
+        if tp[0]["forms"][form] != ref_forms[form]:
+            faults.append(f"the mesh server's {form} (text, language, tokens) differs from one "
+                          "device's")
     for r in dp:
         if r["batch"] != ref_batch:
             faults.append(f"(2, 1) rank {r['coords']}: transcribe_batch differs")
@@ -3053,6 +3284,20 @@ def mesh_path(device, gen, audio, forced) -> dict:
             f"{r['train_peak_gib']:.3f} GiB, save_sharded {r['save_s']:.3f} s")
     log(f"  the server on rank 0: four answers in {r0['served_s']:.3f} s, texts equal to one "
         f"device's {r0['served'] == ref_served}")
+    f0 = r0["forms"]
+    log(f"  the server's forms on rank 0 ({card_line()}), 38 s without a language: the stream "
+        f"(5 s pushes, flush) {f0['stream_s']:.3f} s, language {f0['stream'][1]!r}, "
+        f"{len(f0['stream'][2])} segments, equal to one device's "
+        f"{f0['stream'] == ref_forms['stream']} (one device {ref_forms['stream_s']:.3f} s); "
+        f"the chunked request {f0['chunked_s']:.3f} s, equal {f0['chunked'] == ref_forms['chunked']}"
+        f" (one device {ref_forms['chunked_s']:.3f} s); over HTTP, stream=true first NDJSON line "
+        f"{f0['http_first_s']:.3f} s of {f0['http_stream_s']:.3f} s (one device "
+        f"{ref_forms['http_first_s']:.3f} of {ref_forms['http_stream_s']:.3f} s), chunked=true "
+        f"{f0['http_chunked_s']:.3f} s (one device {ref_forms['http_chunked_s']:.3f} s)")
+    log(f"  model shards, two windows, 32 tokens: self-draft {r0['speculative_s']:.3f} s, equal "
+        f"to plain greedy on every rank {all(r['speculative'] == r['plain'] for r in tp)} "
+        f"({list(map(len, r0['plain']))} tokens); best-of 2 at T = 0.7 {r0['sampled_s']:.3f} s, "
+        f"every rank's samples equal {all(r['sampled'] == r0['sampled'] for r in tp)}")
     log(f"  bf16 pinned window, the second of two (gloo over one card, not a multi-GPU time): "
         f"{r0['bf16_walls'][1]:.4f} s beside one device's {ref_walls[1]:.4f} s; per window "
         f"{red['calls']} all-reduces, {red['bytes']} bytes")
@@ -3079,6 +3324,7 @@ def main() -> int:
                         "window, the beam-5 window and the 16-window run_with_prompts (device idle "
                         "share, host time per step), and phase 36's train and distill steps")
     args = parser.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -3139,6 +3385,7 @@ def main() -> int:
     k2d = check_k2(torch.Generator(device=device).manual_seed(448), device, t=[116], T=448,
                    label=" draft")
     launches, model, audio, forced = end_to_end(device)
+    ckpt_launches = checkpoint_path(device, audio)
     cli_launches = cli_default_path(model)
     beam = beam_window(model, audio)
     prompts, prompts_ms, turns = prompts_window(model, audio)
@@ -3179,6 +3426,7 @@ def main() -> int:
                  replaces="whisper_tpu/ops/kernels/fused_step_pallas.py:301")
     pending = dict(fused, replaces="whisper_tpu/ops/kernels/fused_step_pallas.py:312")
     kernels = [
+        # launches_checkpoint: phase 38's reloaded model decoding jfk's window;
         # launches_speculative: the target's encoder in phase 35's bf16
         # turbo-draft window (large-v3, 32 layers); launches_pseudo_labels
         # and launches_distill: phase 36's teacher decode of two windows and
@@ -3186,7 +3434,8 @@ def main() -> int:
         dict(name="encoder_attention", route="cuda",
              source="whisper_tpu_torch/csrc/attention.cu",
              replaces="whisper_tpu/ops/kernels/attention_pallas.py:62",
-             launches=launches["encoder_attention"], launches_speculative=spec_launches["k1"],
+             launches=launches["encoder_attention"], launches_checkpoint=ckpt_launches["k1"],
+             launches_speculative=spec_launches["k1"],
              launches_pseudo_labels=train_launches["k1_labels"],
              launches_distill=train_launches["k1_distill"], **k1[1, "bfloat16"]),
         # K1 on a model shard of turbo's encoder (10 of 20 heads), timed in
@@ -3201,9 +3450,11 @@ def main() -> int:
              replaces="whisper_tpu/ops/kernels/attention_pallas.py:62",
              launches=batch_launches["encoder_attention"], **k1[16, "bfloat16"]),
         # B=1: the greedy path's count; B=5 and K3, K4: the CLI default path's
+        # launches_checkpoint: phase 38's reloaded model's window;
         # launches_mesh: phase 37's (2, 1) ranks, each decoding its files
         dict(name="fused_decoder_layers", **fused,
-             launches=launches["fused_decoder_layers"], launches_mesh=mesh["k2_mesh"],
+             launches=launches["fused_decoder_layers"], launches_checkpoint=ckpt_launches["k2"],
+             launches_mesh=mesh["k2_mesh"],
              **k2["bfloat16"]),
         dict(name="fused_decoder_layers_b5", **fused,
              launches=cli_launches["fused_decoder_layers_b5"], **k2g["bfloat16"]),
@@ -3295,6 +3546,8 @@ def main() -> int:
     fast = [(k["name"], k["ms"], k["bound_ms"]) for k in kernels if k["ms"] < k["bound_ms"]]
     if fast:
         raise RuntimeError(f"kernels timed below their bound (name, ms, bound_ms): {fast}")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' build included, of "
+        "its 1200 s limit")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

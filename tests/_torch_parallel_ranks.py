@@ -3,10 +3,27 @@
 gloo mesh on the CPU.  They import the port only (no JAX), and return host
 objects: numpy arrays, lists, dicts."""
 
+import contextlib
+import fcntl
 import os
+import tempfile
 import time
 
 import torch
+
+
+@contextlib.contextmanager
+def spawn_lock():
+    """A lock of the host (a file in the temporary directory): the tests
+    that spawn ranks hold it while their ranks run, and a test that times
+    a wall ratio takes it, so that the two do not run at the same moment
+    under pytest-xdist."""
+    with open(os.path.join(tempfile.gettempdir(), "whisper_tpu_torch_spawn.lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def _setup(inp):
@@ -80,6 +97,8 @@ def mesh_paths(rank, inp):
             except RuntimeError as exc:
                 out["submit_refused"] = str(exc)
 
+    out.update(_mesh_forms(rank, mesh, dims, params, inp))
+
     # one DP+TP train step, then two more; distillation
     batch = {k: torch.from_numpy(v) for k, v in inp["train"].items()}
     with mesh:
@@ -112,6 +131,62 @@ def mesh_paths(rank, inp):
         out["distill"] = dlosses
 
         save_sharded(inp["ckpt"], shard_params(params, mesh), dims)
+    return out
+
+
+def _post(port, query, body):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("POST", f"/v1/audio/transcriptions{query}", body=body)
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, data.decode()
+
+
+def _mesh_forms(rank, mesh, dims, params, inp):
+    """make_server(mesh=) without a default language: a stream (push and
+    flush as worker jobs, with word timestamps) and a chunked request
+    through the batcher, then over HTTP a stream whose first push raises on
+    rank 1 alone, a stream and a chunked request; rank 0's results."""
+    import threading
+
+    from whisper_tpu_torch.models.whisper import Whisper
+    from whisper_tpu_torch.serve import make_server
+    from whisper_tpu_torch.streaming import StreamingTranscriber
+
+    if rank == 1:  # a fault on one follower: the planted stream's push raises here only
+        real_push = StreamingTranscriber.push
+
+        def push(self, pcm):
+            if self._initial_prompt == "planted fault":
+                raise RuntimeError("planted on rank 1")
+            return real_push(self, pcm)
+
+        StreamingTranscriber.push = push
+    opts = {k: v for k, v in inp["opts"].items() if k != "language"}
+    server = make_server(Whisper(dims, params), port=0, batch_size=4, max_wait_s=0.2, mesh=mesh,
+                         **opts)
+    if rank != 0:
+        server.serve_forever()
+        return {}
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    out = {}
+    try:
+        bt, long = server.batcher, inp["long"]
+        st = bt._open_stream(dict(opts, word_timestamps=True))
+        segments = [s for i in range(0, len(long), 5 * 16000) for s in st.push(long[i:i + 5 * 16000])]
+        segments += st.flush()
+        out["stream"] = (segments, st.result)
+        out["chunked"] = bt.submit_chunked(long).result(timeout=300)
+        out["http"] = [_post(server.server_port, q, body) for q, body in inp["http"]]
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.close()
+        thread.join(timeout=60)
     return out
 
 

@@ -4,8 +4,10 @@ against whisper_tpu's mesh paths, on the CPU.
 Four spawned gloo ranks form a (2, 2) mesh (``parallel.launch.run_ranks``;
 their side is ``tests/_torch_parallel_ranks.py``) and run, in one spawn,
 every path whisper_tpu runs under a mesh: the encoder, greedy and beam
-decode, the alignment, ``transcribe_batch``, the server's batcher, DP+TP
-training and distillation, and the sharded save.  A second spawn of two
+decode, the alignment, ``transcribe_batch``, the server's batcher, the
+server's stream and its chunked request without a language (each run as
+worker jobs on every rank), DP+TP training and distillation, and the
+sharded save.  A second spawn of two
 ranks reloads the checkpoint at (1, 2) and (2, 1).  The dims are
 tests/test_parallel.py's (64 wide, 4 heads, 2 + 2 layers), f32; the
 weights are whisper_tpu's ``init_params`` through ``params_from_numpy``.
@@ -13,14 +15,19 @@ weights are whisper_tpu's ``init_params`` through ``params_from_numpy``.
 Tolerances: the encoder within atol 2e-5 of whisper_tpu's on its 8-device
 virtual mesh (tests/test_parallel.py's); decode tokens, alignment words
 (times rounded to 3 places, as ``dryrun_multichip``), batch and server
-results equal; the DP+TP train step's loss and grad_norm within 1e-5
+results equal (the stream's and the chunked request's: text, language,
+segment tokens and words equal to one device's, and the NDJSON lines); the DP+TP train step's loss and grad_norm within 1e-5
 relative of the port's single-device step on the same global batch, and
 its parameters within tests/test_torch_training.py's rule for one AdamW
 step; the reloaded checkpoint equal.
 """
 
+import io
+import json
 import os
+import threading
 import time
+import wave
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +57,8 @@ from whisper_tpu_torch.models.whisper import Whisper, encoder_apply
 from whisper_tpu_torch.parallel import Mesh, make_mesh, param_sharding_rules, shard_params
 from whisper_tpu_torch.parallel.launch import run_ranks
 from whisper_tpu_torch.quantize import Int8Weight
-from whisper_tpu_torch.serve import BatchingTranscriber, parse_mesh
+from whisper_tpu_torch.serve import BatchingTranscriber, make_server, parse_mesh
+from whisper_tpu_torch.streaming import StreamingTranscriber
 from whisper_tpu_torch.training import init_train_state, make_optimizer, train_step
 
 KW = dict(n_mels=80, n_audio_ctx=1500, n_audio_state=64, n_audio_head=4, n_audio_layer=2,
@@ -65,9 +73,23 @@ TEXT = " and so my fellow Americans ask not"
 TOKENS = [50258, 50259, 50359, 50363, 440, 7177, 300, 50257]
 
 
+# the server's options for the stream and the chunked request: no language
+LANGLESS = {k: v for k, v in OPTS.items() if k != "language"}
+
+
 def _tone(seconds=2.0, seed=0):
     rng = np.random.RandomState(seed)
     return (rng.randn(int(16000 * seconds)) * 0.1).astype(np.float32)
+
+
+def _wav(pcm) -> bytes:
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(16000)
+        f.writeframes((np.clip(pcm, -1, 1) * 32767).astype(np.int16).tobytes())
+    return buf.getvalue()
 
 
 def _fake_mesh(shape, rank):
@@ -96,11 +118,18 @@ def run(jparams, tmp_path_factory):
     train["loss_mask"][:, :4] = 0.0
     train["loss_mask"][2:, -2:] = 0.0
     ckpt = str(tmp_path_factory.mktemp("ckpt") / "sharded")
+    long = np.concatenate([jfk, _tone(8.0, 5), jfk, jfk[: 16000 * 8]])  # 38 s: two windows, two chunks
+    # over HTTP: a stream whose push raises on rank 1 alone, then a stream and
+    # a chunked request without a language
+    http = [("?stream=true&initial_prompt=planted%20fault", _wav(_tone(3.0, 9))),
+            ("?stream=true", _wav(long)), ("?chunked=true", _wav(long))]
     inp = dict(dims=KW, params=jparams, mel=mel, greedy=GREEDY, beam=BEAM,
                text_tokens=tok.encode(TEXT), files=[jfk[:16000 * 4], jfk[16000 * 3:], _tone(3.0, 7)],
-               tones=[_tone(seed=i) for i in range(3)], opts=OPTS, train=train, ckpt=ckpt)
-    results = run_ranks(ranks.mesh_paths, 4, (inp,), timeout=240)
-    reloaded = run_ranks(ranks.reload, 2, ({"ckpt": ckpt},), timeout=120)
+               tones=[_tone(seed=i) for i in range(3)], opts=OPTS, train=train, ckpt=ckpt,
+               long=long, http=http)
+    with ranks.spawn_lock():
+        results = run_ranks(ranks.mesh_paths, 4, (inp,), timeout=300)
+        reloaded = run_ranks(ranks.reload, 2, ({"ckpt": ckpt},), timeout=120)
     return dict(inp=inp, ranks=results, reloaded=reloaded)
 
 
@@ -235,8 +264,8 @@ def test_a_rank_that_raises_brings_the_others_down():
     """Rank 1 raises while rank 0 waits for it in a collective: run_ranks
     ends both and raises with rank 1's traceback, well inside the
     collective's timeout."""
-    t0 = time.perf_counter()
-    with pytest.raises(RuntimeError, match=r"(?s)rank 1 raised.*planted"):
+    with ranks.spawn_lock(), pytest.raises(RuntimeError, match=r"(?s)rank 1 raised.*planted"):
+        t0 = time.perf_counter()
         run_ranks(ranks.one_raises, 2, timeout=60)
     assert time.perf_counter() - t0 < 45
 
@@ -244,7 +273,8 @@ def test_a_rank_that_raises_brings_the_others_down():
 def test_build_lock_builds_once(tmp_path):
     """Two processes that ask for the kernel library at the same moment:
     one compiles (the stub), the other waits on the lock and loads it."""
-    built = run_ranks(ranks.race_build, 2, (str(tmp_path), time.time() + 8.0), timeout=60)
+    with ranks.spawn_lock():
+        built = run_ranks(ranks.race_build, 2, (str(tmp_path), time.time() + 8.0), timeout=60)
     assert sorted(built) == [False, True]
     assert len(open(tmp_path / "compiles.log").read().split()) == 1
 
@@ -343,6 +373,75 @@ def test_batching_transcriber_matches_one_device(run, jparams):
     assert [[s["tokens"] for s in r["segments"]] for r in got] == [
         [s["tokens"] for s in r["segments"]] for r in want]
     assert all("takes no requests" in r["submit_refused"] for r in run["ranks"][1:])
+
+
+def _segments(result):
+    return [(s["text"], s["tokens"], [(x["word"], x["start"], x["end"]) for x in s.get("words", [])])
+            for s in result["segments"]]
+
+
+def test_mesh_stream_matches_one_device(run, jparams):
+    """A stream under the mesh (its detection, decodes and word timestamps
+    as worker jobs on every rank): the segments, text and language of a
+    StreamingTranscriber on one device, fed the same PCM."""
+    model = Whisper(TD, params_from_numpy(jparams, TD))
+    st, long = StreamingTranscriber(model, **dict(LANGLESS, word_timestamps=True)), run["inp"]["long"]
+    want = [s for i in range(0, len(long), 5 * 16000) for s in st.push(long[i:i + 5 * 16000])]
+    want += st.flush()
+    segments, result = run["ranks"][0]["stream"]
+    assert len(want) >= 2 and any(s["words"] for s in want)
+    assert _segments({"segments": segments}) == _segments({"segments": want})
+    assert (result["text"], result["language"]) == (st.result["text"], st.result["language"])
+
+
+def test_mesh_chunked_request_detects_its_language(run, jparams):
+    """A chunked request without a language under the mesh (the detection
+    a worker job on every rank): one device's batcher's result."""
+    model = Whisper(TD, params_from_numpy(jparams, TD))
+    with BatchingTranscriber(model, batch_size=4, max_wait_s=0.2, **LANGLESS) as bt:
+        want = bt.submit_chunked(run["inp"]["long"]).result(timeout=300)
+    got = run["ranks"][0]["chunked"]
+    assert (got["text"], got["language"]) == (want["text"], want["language"])
+    assert _segments(got) == _segments(want)
+
+
+def test_mesh_server_answers_both_forms_over_http(run, jparams):
+    """Over HTTP under the mesh: the stream whose push raised on rank 1
+    alone answers its NDJSON error line naming rank 1; the stream and the
+    chunked request after it answer 200 with one device's server's
+    bodies."""
+    model = Whisper(TD, params_from_numpy(jparams, TD))
+    srv = make_server(model, port=0, batch_size=4, max_wait_s=0.2, **LANGLESS)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        want = [ranks._post(srv.server_port, q, body) for q, body in run["inp"]["http"][1:]]
+    finally:
+        srv.shutdown()
+        srv.batcher.close(drain=False)
+    planted, *got = run["ranks"][0]["http"]
+    error = json.loads(planted[1].splitlines()[-1])
+    assert planted[0] == 200 and "rank 1: RuntimeError: planted on rank 1" in error["error"], planted
+    assert [status for status, _ in got] == [200, 200]
+    stream, chunked = [body for _, body in got]
+    lines = [json.loads(x) for x in stream.splitlines()]
+    assert lines[-1]["done"] and len(lines) >= 3 and lines[-1]["language"]
+    assert [status for status, _ in want] == [200, 200]
+    for body, ref in zip((lines, json.loads(chunked)), (
+            [json.loads(x) for x in want[0][1].splitlines()], json.loads(want[1][1]))):
+        assert _close(body, ref), (body, ref)
+
+
+def _close(a, b) -> bool:
+    """JSON values equal, floats within 1e-5 relative (the scores of a
+    segment sum in another order under the mesh)."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_close(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return isinstance(b, list) and len(a) == len(b) and all(map(_close, a, b))
+    if isinstance(a, float) and isinstance(b, float):
+        return abs(a - b) <= 1e-5 * max(abs(a), abs(b))
+    return a == b
 
 
 def _one_device_step(jparams, batch):

@@ -6,8 +6,13 @@ packages (whisper_tpu's init_params through save_npz -> load_npz).  The
 batcher's results must equal a direct ``transcribe_batch`` of the same
 audios and whisper_tpu's batcher (text and tokens equal), though the port
 does not pad a partial batch with empty files; the HTTP answers must carry
-whisper_tpu's JSON fields.  Multi-device serving (``mesh``) raises
-NotImplementedError in the port.
+whisper_tpu's JSON fields.  Multi-device serving (``mesh``) is
+tests/test_torch_parallel.py's, but for a mesh of one rank here.
+
+The streaming test times its first NDJSON line against the whole answer
+(0.3-0.7 s on the CPU): it pins torch to two threads, as the other
+test_torch_* files, and takes the lock that tests/test_torch_parallel.py's
+spawns hold, so that it does not run beside their ranks.
 """
 
 import http.client
@@ -21,6 +26,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import whisper_tpu.models.whisper as jw
 from whisper_tpu.models.load import load_npz as jload
@@ -33,8 +39,11 @@ from whisper_tpu_torch.batch import transcribe_batch
 from whisper_tpu_torch.chunked import transcribe_chunked
 from whisper_tpu_torch.serve import BatchingTranscriber, make_server
 
+import _torch_parallel_ranks as ranks
 from _reference import TINY_DIMS
 from conftest import JFK
+
+torch.set_num_threads(2)
 
 OPTS = dict(
     language="en", temperature=0.0, sample_len=12,
@@ -116,17 +125,20 @@ def test_batcher_coalesces_and_matches_direct_and_jax(models):
 
 def test_fill_window_reopens_when_engine_frees(model):
     """Requests that queued during a decode still get max_wait_s to
-    coalesce with a client's re-send that arrives just after it."""
+    coalesce with a client's re-send that arrives just after it.  Batch 1
+    starts at 0.5 s and decodes until 1.7 s; fut2 and fut3 come at 0.8 s
+    (0.3 s into the decode) and their fill window ends at 1.3 s (0.4 s
+    before the decode does); the re-send has 0.5 s."""
     sizes = []
-    with BatchingTranscriber(model, batch_size=4, max_wait_s=0.3, **OPTS) as bt:
+    with BatchingTranscriber(model, batch_size=4, max_wait_s=0.5, **OPTS) as bt:
         def slow(model_, audios, **kw):
             sizes.append(len(audios))
-            time.sleep(0.4)
+            time.sleep(1.2)
             return [{"text": "", "segments": [], "language": "en"} for _ in audios]
 
         bt._transcribe_batch = slow
         fut1 = bt.submit(_tone(seed=0))
-        threading.Event().wait(0.35)  # batch 1 ([fut1]) is now decoding
+        threading.Event().wait(0.8)  # batch 1 ([fut1]) is now decoding
         fut2 = bt.submit(_tone(seed=1))  # queued during the decode: their
         fut3 = bt.submit(_tone(seed=2))  # arrival deadline expires in it
         fut1.result(timeout=60)
@@ -255,12 +267,7 @@ def test_mesh_is_a_later_slice(model):
     one rank (no process group needed) answers as the plain one, and
     ``--mesh`` builds the mesh, refusing one larger than the world (the
     many-rank paths are tests/test_torch_parallel.py's)."""
-    import torch
-
-    from whisper_tpu_torch.parallel import Mesh
-
-    one = Mesh((1, 1), ("data", "model"), 0, (0, 0), torch.device("cpu"), "gloo",
-               {"data": None, "model": None}, {"data": None, "model": None, "world": None})
+    one = _one_rank_mesh()
     audio = _tone(seed=3)
     with BatchingTranscriber(model, batch_size=2, max_wait_s=0.05, **OPTS) as bt:
         want = bt.transcribe(audio, timeout=300)
@@ -270,6 +277,86 @@ def test_mesh_is_a_later_slice(model):
     assert got["text"] == want["text"]
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         serve_mod.main(["--mesh", "data=2", "--device", "cpu"])
+
+
+def _one_rank_mesh():
+    """A mesh of one rank without a process group: its collectives are
+    no-ops, so a batcher under it runs its mesh paths in this process."""
+    from whisper_tpu_torch.parallel import Mesh
+
+    return Mesh((1, 1), ("data", "model"), 0, (0, 0), torch.device("cpu"), "gloo",
+                {"data": None, "model": None}, {"data": None, "model": None, "world": None})
+
+
+def test_mesh_forms_run_as_worker_jobs(model):
+    """Under a mesh a stream and a chunked request's language detection run
+    on the batcher's worker thread, with the results of the request's own
+    thread without a mesh."""
+    from whisper_tpu_torch.streaming import StreamingTranscriber
+
+    langless = {k: v for k, v in OPTS.items() if k != "language"}
+    audio = _tone(seconds=36.0, seed=21)
+    threads = []
+    real_push = StreamingTranscriber.push
+
+    def push(self, pcm):
+        threads.append(threading.current_thread().name)
+        return real_push(self, pcm)
+
+    def stream(bt):
+        st = bt._open_stream(dict(langless))
+        segments = [s for i in range(0, len(audio), 80000) for s in st.push(audio[i:i + 80000])]
+        return segments + st.flush(), st.result
+
+    with BatchingTranscriber(model, batch_size=4, max_wait_s=0.05, **langless) as bt:
+        want = stream(bt), bt.submit_chunked(audio).result(timeout=300)
+    StreamingTranscriber.push = push
+    try:
+        with BatchingTranscriber(model, batch_size=4, max_wait_s=0.05, mesh=_one_rank_mesh(),
+                                 **langless) as bt:
+            got = stream(bt), bt.submit_chunked(audio).result(timeout=300)
+            assert not bt._streams  # the flush closed it
+    finally:
+        StreamingTranscriber.push = real_push
+    assert threads and set(threads) == {"whisper-tpu-torch-batcher"}
+    (segments, result), chunked = got
+    (want_segments, want_result), want_chunked = want
+    assert [s["tokens"] for s in segments] == [s["tokens"] for s in want_segments]
+    assert (result["text"], result["language"]) == (want_result["text"], want_result["language"])
+    assert [s["tokens"] for s in chunked["segments"]] == [s["tokens"] for s in want_chunked["segments"]]
+    assert chunked["language"] == want_chunked["language"] == result["language"]
+
+
+def test_mesh_jobs_alternate_with_batch_rounds(model):
+    """While batches are queued the worker runs one job between two batch
+    rounds; a failed job fails its future and counts as an error."""
+    order, gate = [], threading.Event()
+    with BatchingTranscriber(model, batch_size=1, max_wait_s=0.01, mesh=_one_rank_mesh(),
+                             **OPTS) as bt:
+        def batch(model_, audios, **kw):
+            order.append(f"batch {kw['sample_len']}")
+            gate.wait(60)
+            return [{"text": "", "segments": [], "language": "en"} for _ in audios]
+
+        def job(kind, payload):
+            order.append(f"job {payload}")
+            if payload == "bad":
+                raise ValueError("planted")
+            return payload
+
+        bt._transcribe_batch, bt._job = batch, job
+        futures = [bt.submit(_tone(seed=0), sample_len=1)]
+        while not order:  # the first batch is decoding
+            time.sleep(0.01)
+        jobs = [bt._submit_job("detect", p) for p in ("a", "bad", "c")]
+        futures += [bt.submit(_tone(seed=0), sample_len=n) for n in (2, 3)]
+        gate.set()
+        assert [f.result(timeout=60)["language"] for f in futures] == ["en"] * 3
+        assert jobs[0].result(timeout=60) == "a" and jobs[2].result(timeout=60) == "c"
+        with pytest.raises(RuntimeError, match="rank 0: ValueError: planted"):
+            jobs[1].result(timeout=60)
+        assert bt.stats["errors"] == 1
+    assert order == ["batch 1", "job a", "batch 2", "job bad", "batch 3", "job c"]
 
 
 # -- the HTTP front-end --------------------------------------------------------
@@ -344,16 +431,17 @@ def test_http_ndjson_streaming(server, query):
     if query == "?stream=true":  # warm-up
         _post(server, query, payload)
     conn = http.client.HTTPConnection("127.0.0.1", server.server_port, timeout=600)
-    t0 = time.monotonic()
-    conn.request("POST", f"/v1/audio/transcriptions{query}", body=payload)
-    resp = conn.getresponse()
-    assert resp.status == 200 and resp.getheader("Content-Type") == "application/x-ndjson"
-    body, t_first = b"", None
-    while chunk := resp.read(1):
-        body += chunk
-        if chunk == b"\n" and t_first is None:
-            t_first = time.monotonic() - t0
-    t_total = time.monotonic() - t0
+    with ranks.spawn_lock():  # not beside tests/test_torch_parallel.py's ranks
+        t0 = time.monotonic()
+        conn.request("POST", f"/v1/audio/transcriptions{query}", body=payload)
+        resp = conn.getresponse()
+        assert resp.status == 200 and resp.getheader("Content-Type") == "application/x-ndjson"
+        body, t_first = b"", None
+        while chunk := resp.read(1):
+            body += chunk
+            if chunk == b"\n" and t_first is None:
+                t_first = time.monotonic() - t0
+        t_total = time.monotonic() - t0
     conn.close()
     lines = [json.loads(line) for line in body.decode().splitlines() if line]
     assert lines[-1].get("done") is True and "error" not in lines[-1], lines[-1]

@@ -18,6 +18,7 @@ int8 weights (``load_model(..., quantize="int8" | "int8+logits")``) and
 int8 cross K/V (``kv_cache_dtype="int8"``) too.
 """
 
+import contextlib
 import hashlib
 import os
 import urllib.request
@@ -132,6 +133,22 @@ def available_models() -> List[str]:
     return list(_MODELS.keys())
 
 
+def _write_cache(path: str, params, dims) -> None:
+    """save_npz to a file of this process, renamed into place when whole,
+    so that no load (another rank's under torchrun) reads a partial cache;
+    a directory that takes no file leaves the model uncached."""
+    from .models.load import save_npz
+
+    part = f"{path}.{os.getpid()}.part"
+    try:
+        with open(part, "wb") as f:
+            save_npz(f, params, dims)
+        os.replace(part, path)
+    except OSError:
+        with contextlib.suppress(OSError):
+            os.remove(part)
+
+
 def load_model(
     name: str,
     device: Union[str, torch.device] = "cuda",
@@ -145,7 +162,11 @@ def load_model(
     Parameters
     ----------
     name : one of ``available_models()``, or a path to a checkpoint — an
-        official torch ``.pt`` file or the JAX package's converted ``.npz``
+        official torch ``.pt`` file or a converted ``.npz`` (``save_npz``'s,
+        the port's or the JAX package's).  A named model's ``.pt`` is
+        converted once: the conversion, in the checkpoint's own dtype, is
+        cached as ``<checkpoint>.npz`` beside it (if the directory takes
+        it), and later loads read that file (whisper_tpu/__init__.py:186-210)
     device : where the model runs, "cuda" by default.  A CUDA device that is
         not there is an error: the model never moves to the CPU by itself.
     download_root : checkpoint cache dir (default ``$XDG_CACHE_HOME/whisper``)
@@ -161,7 +182,7 @@ def load_model(
     ``Whisper(dims, init_params(dims, generator, dtype, device))`` with
     ``dims = models.KNOWN_MODELS[name]`` and ``models.whisper.init_params``.
     """
-    from .models.load import load_npz, load_torch_checkpoint
+    from .models.load import cast_params, load_npz, load_torch_checkpoint
     from .quantize import quantize_params
 
     if quantize not in (None, "int8", "int8+logits"):
@@ -178,8 +199,11 @@ def load_model(
     if download_root is None:
         default = os.path.join(os.path.expanduser("~"), ".cache")
         download_root = os.path.join(os.getenv("XDG_CACHE_HOME", default), "whisper")
+    cache = None
     if name in _MODELS:
         checkpoint = _download(_MODELS[name], download_root, in_memory)
+        if isinstance(checkpoint, str):
+            cache = checkpoint + ".npz"
     elif os.path.isfile(name):
         checkpoint = name
         if in_memory:
@@ -189,6 +213,14 @@ def load_model(
         raise RuntimeError(f"Model {name} not found; available models = {available_models()}")
     if isinstance(checkpoint, str) and checkpoint.endswith(".npz"):
         params, dims = load_npz(checkpoint, dtype, device)
+    elif cache is not None and os.path.isfile(cache):
+        params, dims = load_npz(cache, dtype, device)
+    elif cache is not None:
+        # cached in the checkpoint's own dtype, before the cast and the
+        # quantization, so that any dtype and quantize mode reads it
+        params, dims = load_torch_checkpoint(checkpoint, None, device)
+        _write_cache(cache, params, dims)
+        params = cast_params(params, dtype, device)
     else:
         params, dims = load_torch_checkpoint(checkpoint, dtype, device)
     if quantize is not None:

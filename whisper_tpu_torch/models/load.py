@@ -7,10 +7,11 @@ checkpoint only needs its per-layer tensors stacked, while the JAX
 package's tree (linear (in, out), convolution (k, in, out)) is transposed.
 Its int8 leaves (``whisper_tpu.quantize``, ``{"q", "s"}``) become
 :class:`~whisper_tpu_torch.quantize.Int8Weight` in the port's layout.
+:func:`save_npz` writes that ``.npz`` back, in the JAX package's layouts.
 """
 
 import io
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -58,12 +59,13 @@ def params_from_numpy(
     def leaf(name: str, a):
         if isinstance(a, dict) and set(a) == {"q", "s"}:
             return int8_leaf(name, a)
-        a = np.array(a, dtype=np.float32)  # a writable copy
-        if name in _LINEAR:
-            a = np.swapaxes(a, -1, -2)
-        elif name in ("conv1_w", "conv2_w"):
-            a = a.transpose(2, 1, 0)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+        # a copy of its own in float16 or float32 (any other float, such as
+        # bfloat16, widened to float32), moved as it is, then cast and laid
+        # out by torch on the device
+        a = np.asarray(a)
+        a = np.array(a, dtype=a.dtype if a.dtype in (np.float16, np.float32) else np.float32)
+        t = torch.from_numpy(a).to(device=device).to(dtype)
+        return _layout(name, t).contiguous()
 
     def walk(node: Dict[str, Any]) -> Dict[str, Any]:
         return {
@@ -93,6 +95,56 @@ def load_npz(
     return params_from_numpy(_unflatten(flat), dims, dtype, device), dims
 
 
+def _layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A leaf between the two packages' layouts (its own inverse):
+    linear (out, in) <-> (in, out), convolution (out, in, k) <-> (k, in,
+    out)."""
+    if name in _LINEAR:
+        return t.transpose(-1, -2)
+    if name in ("conv1_w", "conv2_w"):
+        return t.permute(2, 1, 0)
+    return t
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a contiguous numpy array on the host; bfloat16, which
+    numpy cannot hold without ml_dtypes, as float32 (exact)."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).contiguous().cpu().numpy()
+
+
+def save_npz(path, params: Params, dims: ModelDimensions) -> None:
+    """Write a parameter tree as whisper_tpu's flat ``.npz``
+    (whisper_tpu/models/load.py:134-138), which both packages'
+    ``load_npz`` read.  ``path``: a file name or a binary file.
+
+    Keys are ``"encoder/blocks/q_w"``-style, in whisper_tpu's layouts: the
+    inverse of :func:`params_from_numpy`'s transposes (linear (in, out),
+    convolution (k, in, out)).  An int8 leaf is ``<key>/q`` (int8, (...,
+    in, out)) and ``<key>/s`` (f32, (..., 1, out)); the int8 logits copy
+    ``logits_w`` keeps (V, C) and (V, 1).  The dims are ``__dims__/<field>``
+    int64 entries.  Floating values keep float32 or float16; bfloat16 is
+    written as float32."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node: Dict[str, Any], path: str) -> None:
+        for name, value in node.items():
+            key = f"{path}/{name}" if path else name
+            if isinstance(value, dict):
+                walk(value, key)
+            elif isinstance(value, Int8Weight):
+                q, s = value
+                if name != "logits_w":
+                    q, s = q.transpose(-1, -2), s.transpose(-1, -2)
+                flat[f"{key}/q"], flat[f"{key}/s"] = _host(q), _host(s)
+            else:  # laid out by torch, on the tensor's device
+                flat[key] = _host(_layout(name, value))
+
+    walk(params, "")
+    meta = {f"__dims__/{k}": np.int64(v) for k, v in dims.__dict__.items()}
+    np.savez(path, **flat, **meta)
+
+
 def _stack_blocks(sd: Dict[str, Any], prefix: str, n_layer: int, cross: bool) -> Dict[str, Any]:
     names = {
         "attn_ln_g": "attn_ln.weight", "attn_ln_b": "attn_ln.bias",
@@ -118,14 +170,23 @@ def _stack_blocks(sd: Dict[str, Any], prefix: str, n_layer: int, cross: bool) ->
     }
 
 
+def cast_params(node, dtype: Optional[torch.dtype], device: Union[str, torch.device]):
+    """A parameter tree's tensors on ``device`` in ``dtype`` (None: their
+    own), contiguous."""
+    if isinstance(node, dict):
+        return {k: cast_params(v, dtype, device) for k, v in node.items()}
+    return node.to(device=device, dtype=dtype).contiguous()
+
+
 def convert_torch_state_dict(
     state_dict: Dict[str, Any],
     dims: ModelDimensions,
-    dtype: torch.dtype = torch.float32,
+    dtype: Optional[torch.dtype] = torch.float32,
     device: Union[str, torch.device] = "cpu",
 ) -> Params:
     """A reference-format state_dict (reference whisper/model.py:174-249)
-    in the port's parameter dict; weights keep torch's layouts."""
+    in the port's parameter dict; weights keep torch's layouts.  ``dtype``
+    None keeps the checkpoint's own (the positional sinusoids are f32)."""
     sd = {k: v.detach() for k, v in state_dict.items()}
     params = {
         "encoder": {
@@ -146,21 +207,16 @@ def convert_torch_state_dict(
             "ln_b": sd["decoder.ln.bias"],
         },
     }
-
-    def cast(node):
-        if isinstance(node, dict):
-            return {k: cast(v) for k, v in node.items()}
-        return node.to(device=device, dtype=dtype).contiguous()
-
-    return cast(params)
+    return cast_params(params, dtype, device)
 
 
 def load_torch_checkpoint(
     path_or_bytes: Union[str, bytes],
-    dtype: torch.dtype = torch.float32,
+    dtype: Optional[torch.dtype] = torch.float32,
     device: Union[str, torch.device] = "cpu",
 ) -> Tuple[Params, ModelDimensions]:
-    """Load a reference-format ``.pt`` checkpoint."""
+    """Load a reference-format ``.pt`` checkpoint (``dtype`` None: in its
+    own dtype)."""
     fp = io.BytesIO(path_or_bytes) if isinstance(path_or_bytes, bytes) else open(
         path_or_bytes, "rb"
     )

@@ -41,14 +41,30 @@ other ranks' batcher threads receive the batch and run the same
 (``transcribe_batch`` splits the files over the data groups).  An idle rank
 0 broadcasts a heartbeat, so that no rank waits in a broadcast past the
 process group's timeout; ``close()`` broadcasts a stop.  ``submit`` on
-another rank raises.  Two request forms are not served under a mesh, since
-they run the model in the request's own thread on rank 0, where the other
-ranks cannot join its collectives: ``stream=true`` without ``chunked``
-(``StreamingTranscriber``) and a chunked request without a ``language``
-(its language detection); both answer 400.
+another rank raises.
+
+The two request forms that run the model outside a batch, ``stream=true``
+without ``chunked`` (a ``StreamingTranscriber``) and a chunked request
+without a ``language`` (its language detection on the first 30 s), run in
+the request's own thread on one device, as whisper_tpu's.  Under a mesh
+only rank 0's worker thread may start collectives, so they become jobs of
+the worker, which rank 0 broadcasts as it does a batch: a detection, and a
+stream's open, each push of PCM, its flush and its close.  Every rank runs
+each job under the mesh on its own shards (each keeps its own
+``StreamingTranscriber`` of every open stream, fed the same PCM, so all
+make the same model calls in the same order), and then all ranks gather
+whether any of them failed: a failure on any rank fails the job on rank 0,
+whose handler answers it (a stream's NDJSON ``error`` line), and every rank
+drops the stream.  A fault that strikes one rank between two collectives
+leaves the others waiting in the next until the process group's timeout
+(``make_mesh``) raises there.  The worker takes jobs in their order, one job between two batch rounds while
+batches are queued, so that a long stream and a burst of batch requests
+advance in turns.
 """
 
 import argparse
+import contextlib
+import itertools
 import json
 import os
 import tempfile
@@ -118,11 +134,21 @@ class BatchingTranscriber:
         self._groups: "OrderedDict[tuple, Dict[str, deque]]" = OrderedDict()
         self._cv = threading.Condition()
         self._closed = False
-        # when the engine last became free: a batch's fill window runs from
-        # max(its oldest request, engine free), so requests that queued
-        # during a decode still get max_wait_s to coalesce with the re-sends
-        # of the clients that decode just answered
+        # when the engine last finished a batch round: a batch's fill window
+        # runs from max(its oldest request, engine free), so requests that
+        # queued during a decode still get max_wait_s to coalesce with the
+        # re-sends of the clients that decode just answered.  The worker
+        # thread is its one writer and its one reader (in _take), so it takes
+        # no lock; a mesh job leaves it as it is, since it answers no batch
+        # client, and its time counts towards the window
         self._engine_free_t = 0.0
+        # under a mesh: rank 0's queue of (kind, payload, future) jobs, whether
+        # the last round was a batch (a job goes next), and every rank's open
+        # streams by id
+        self._jobs: deque = deque()
+        self._after_batch = False
+        self._streams: Dict[int, Any] = {}
+        self._stream_ids = itertools.count()
         self.stats: Dict[str, int] = {"requests": 0, "batches": 0, "errors": 0}
         follower = mesh is not None and mesh.rank != 0
         self._worker = threading.Thread(target=self._follow if follower else self._run,
@@ -181,10 +207,11 @@ class BatchingTranscriber:
             wave = wave.reshape(-1)
         language = overrides.get("language", self.defaults.get("language"))
         if language is None:
-            if self.mesh is not None:
-                raise ValueError("a chunked request under a mesh needs a language: its detection "
-                                 "would run on rank 0 alone")
-            language = detect_file_language(self.model, wave)
+            if self.mesh is None:
+                language = detect_file_language(self.model, wave)
+            else:  # on every rank, as a job of the worker
+                language = self._submit_job("detect", wave[: 30 * SAMPLE_RATE]).result(
+                    timeout=REQUEST_TIMEOUT_S)
         offsets = chunk_offsets(wave.shape[0], chunk_overlap)
         chunk_samples = 30 * SAMPLE_RATE
         futures = [
@@ -233,6 +260,26 @@ class BatchingTranscriber:
             f.add_done_callback(_done)
         return out
 
+    def _open_stream(self, options: Dict[str, Any]):
+        """A streaming transcriber of the model: a StreamingTranscriber, or
+        under a mesh one that runs on every rank through the worker
+        (module docstring)."""
+        if self.mesh is None:
+            from .streaming import StreamingTranscriber
+
+            return StreamingTranscriber(self.model, **options)
+        return _MeshStream(self, options)
+
+    def _submit_job(self, kind: str, payload) -> Future:
+        """Queue a job for the worker (under a mesh, on rank 0)."""
+        fut: Future = Future()
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("BatchingTranscriber is closed")
+            self._jobs.append((kind, payload, fut))
+            self._cv.notify()
+        return fut
+
     def close(self, drain: bool = True):
         """Stop the worker; with drain=True, first finish queued requests.
         Under a mesh rank 0's worker broadcasts a stop as it ends, and the
@@ -243,7 +290,8 @@ class BatchingTranscriber:
         if drain:
             while self._worker.is_alive():
                 with self._cv:
-                    if not any(lanes["p"] or lanes["n"] for lanes in self._groups.values()):
+                    if not self._jobs and not any(lanes["p"] or lanes["n"]
+                                                  for lanes in self._groups.values()):
                         break
                 time.sleep(0.01)
         with self._cv:
@@ -279,24 +327,37 @@ class BatchingTranscriber:
             if self.mesh is not None:
                 self.mesh.broadcast_object(("stop",))
 
+    def _next_work(self):
+        """The worker's next round (called under the lock): ("job", kind,
+        payload, future) when a job is queued and the last round was a batch
+        or no batch is queued, else ("batch", key, items), or None."""
+        key = self._pick_group()
+        if self._jobs and (self._after_batch or key is None):
+            self._after_batch = False
+            return ("job",) + self._jobs.popleft()
+        if key is None:
+            return None
+        self._after_batch = True
+        return "batch", key, self._take(key)
+
     def _serve_queue(self):
         idle_s = _HEARTBEAT_S if self.mesh is not None else None
         while True:
             with self._cv:
-                key = self._pick_group()
-                while key is None and not self._closed:
+                work = self._next_work()
+                while work is None and not self._closed:
                     if not self._cv.wait(timeout=idle_s):
                         break  # idle under a mesh: the heartbeat below
-                    key = self._pick_group()
-                if key is None and self._closed:
+                    work = self._next_work()
+                if work is None and self._closed:
                     return
-                if key is None:
-                    items = None
-                else:
-                    items = self._take(key)
-            if items is None:
+            if work is None:
                 self.mesh.broadcast_object(("idle",))
                 continue
+            if work[0] == "job":
+                self._lead_job(*work[1:])
+                continue
+            _, key, items = work
             if not items:
                 continue
             options = dict(self.defaults)
@@ -305,9 +366,10 @@ class BatchingTranscriber:
             self._engine_free_t = time.monotonic()
 
     def _follow(self):
-        """A mesh rank other than 0: run each batch rank 0 broadcasts, under
-        the mesh, until its stop.  A failure here is rank 0's too (the same
-        inputs), which answers it."""
+        """A mesh rank other than 0: run each batch and job rank 0
+        broadcasts, under the mesh, until its stop.  A batch's failure here
+        is rank 0's too (the same inputs), which answers it; a job's reaches
+        rank 0 through the job's gather."""
         while True:
             message = self.mesh.broadcast_object()
             if message[0] == "stop":
@@ -320,6 +382,59 @@ class BatchingTranscriber:
                                                **options)
                 except Exception:  # the batcher keeps serving; rank 0 answers the request
                     traceback.print_exc()
+            elif message[0] == "job":
+                self._run_job(*message[1:])
+
+    def _lead_job(self, kind: str, payload, fut: Future):
+        """Rank 0: broadcast a job, run it, and answer its future."""
+        self.mesh.broadcast_object(("job", kind, payload))
+        value, error = self._run_job(kind, payload)
+        if error is not None:
+            with self._cv:
+                self.stats["errors"] += 1
+        with contextlib.suppress(Exception):  # cancelled by the client
+            if error is None:
+                fut.set_result(value)
+            else:
+                fut.set_exception(RuntimeError(error))
+
+    def _run_job(self, kind: str, payload):
+        """Every rank: one job under the mesh, then the gather of every
+        rank's failure; returns (this rank's value, the failures or None).
+        A failed job drops its stream on every rank."""
+        error = None
+        try:
+            with self.mesh:
+                value = self._job(kind, payload)
+        except Exception as exc:  # the worker keeps serving; rank 0 answers the job
+            traceback.print_exc()
+            value, error = None, f"{type(exc).__name__}: {exc}"
+        failures = [f"rank {rank}: {e}" for rank, e in
+                    enumerate(self.mesh.gather_objects(error, "world")) if e is not None]
+        if failures and kind == "stream":
+            self._streams.pop(payload[0], None)
+        return value, "; ".join(failures) or None
+
+    def _job(self, kind: str, payload):
+        if kind == "detect":
+            from .chunked import detect_file_language
+
+            return detect_file_language(self.model, payload)
+        sid, op, arg = payload
+        if op == "open":
+            from .streaming import StreamingTranscriber
+
+            self._streams[sid] = StreamingTranscriber(self.model, **arg)
+            return None
+        if op == "close":
+            self._streams.pop(sid, None)
+            return None
+        st = self._streams[sid]
+        if op == "push":
+            return st.push(arg)
+        segments = st.flush()  # op == "flush": the stream ends
+        del self._streams[sid]
+        return segments, st.result
 
     def _take(self, key) -> list:
         """Up to batch_size requests of an options group, after its fill
@@ -378,6 +493,35 @@ class BatchingTranscriber:
                     futures[0].set_exception(exc)
                 except Exception:  # cancelled by the client
                     pass
+
+
+class _MeshStream:
+    """A stream under a mesh, with StreamingTranscriber's ``push``,
+    ``flush`` and ``result``: each call is a job of the batcher's worker on
+    every rank (module docstring), waited for here.  ``close`` drops it on
+    every rank if it did not end."""
+
+    def __init__(self, batcher: BatchingTranscriber, options: Dict[str, Any]):
+        self._batcher = batcher
+        self._id = next(batcher._stream_ids)
+        self.result = None
+        self._call("open", options)
+
+    def _call(self, op: str, arg=None):
+        fut = self._batcher._submit_job("stream", (self._id, op, arg))
+        return fut.result(timeout=REQUEST_TIMEOUT_S)
+
+    def push(self, pcm) -> List[dict]:
+        return self._call("push", np.asarray(pcm, np.float32).reshape(-1))
+
+    def flush(self) -> List[dict]:
+        segments, self.result = self._call("flush")
+        return segments
+
+    def close(self):
+        if self.result is None:  # not flushed: a no-op where it is gone already
+            with contextlib.suppress(RuntimeError):  # the batcher closed first
+                self._batcher._submit_job("stream", (self._id, "close", None))
 
 
 # ---------------------------------------------------------------------------
@@ -493,10 +637,6 @@ def _make_handler(batcher: BatchingTranscriber):
                     audio = load_audio(tmp)
                 finally:
                     os.unlink(tmp)
-                if stream and not chunked and batcher.mesh is not None:
-                    self._send_json(400, {"error": "stream=true without chunked=true is not served "
-                                          "under a mesh (it decodes in the request's thread)"})
-                    return
                 if stream:
                     if chunked:
                         self._stream_chunked_response(audio, options, chunk_overlap, priority)
@@ -528,14 +668,13 @@ def _make_handler(batcher: BatchingTranscriber):
 
         def _stream_response(self, audio, options):
             """NDJSON, one line per finalized segment, from a
-            StreamingTranscriber in this handler's thread: the first
-            window's segments go out while later windows still decode."""
-            from .streaming import StreamingTranscriber
-
+            StreamingTranscriber in this handler's thread (under a mesh, on
+            every rank through the worker): the first window's segments go
+            out while later windows still decode."""
             merged = dict(batcher.defaults)
             merged.update(options)
             merged.pop("batch_size", None)
-            st = StreamingTranscriber(batcher.model, **merged)
+            st = batcher._open_stream(merged)
             self._start_ndjson()
             try:
                 # ~5 s slices, so that segments stream out per window
@@ -550,6 +689,9 @@ def _make_handler(batcher: BatchingTranscriber):
                                    "language": final["language"]})
             except Exception as exc:
                 self._write_chunk({"error": f"{type(exc).__name__}: {exc}"})
+            finally:
+                if isinstance(st, _MeshStream):
+                    st.close()
             self.wfile.write(b"0\r\n\r\n")
 
         def _stream_chunked_response(self, audio, options, chunk_overlap, priority):
