@@ -251,7 +251,7 @@ def test_batch_mel_store_equals_each_files_log_mel(models, audio):
     _, tmodel = models
     noise = np.random.RandomState(1).randn(16000 * 4).astype(np.float32) * 0.05
     files = [audio, noise, np.tile(audio, 4)[: 16000 * 40]]
-    store, lens = _prepare_mels(tmodel, files, lambda name: contextlib.nullcontext(), lambda x: x)
+    store, lens = _prepare_mels(tmodel, files, lambda x: x)
     assert lens == [len(f) for f in files]
     for i, f in enumerate(files):
         own = whisper_tpu_torch.log_mel_spectrogram(f, 80, padding=16000 * 30)
@@ -334,6 +334,65 @@ def test_transcribe_batch_reports_its_stages(models, audio):
     for a, b in zip(tmodel.transcribe_batch(files, batch_size=1, word_timestamps=True, **BATCH_KW), timed):
         _compare(a, b, words=True)
     assert {"audio_host", "mel", "window_slice", "engine", "segment", "alignment"} <= set(recorder.names)
+
+
+SPANS = {"audio_host", "mel", "window_slice", "engine", "segment", "alignment", "assemble",
+         "encoder", "prefill", "step", "filters", "update", "decode_step", "logits", "sync"}
+
+
+@pytest.mark.parametrize("write_block", [0, 4], ids=["per_step", "blocks_of_4"])
+def test_transcribe_batch_records_every_span(models, audio, monkeypatch, write_block):
+    """Under profiling.recording every span of the batching stages and the
+    engine records, a step span per token step and a sync span per block of
+    steps, and the results stay those of an unrecorded call."""
+    from whisper_tpu_torch import engine
+    from whisper_tpu_torch.profiling import StageTimer, recording
+
+    _, tmodel = models
+    monkeypatch.setattr(DecodingTask, "write_block", lambda self, n_audio: write_block)
+    calls = [0]
+    real_steps = engine.decoder_steps
+
+    def counting(fn):
+        def step(*args):
+            calls[0] += 1
+            return fn(*args)
+        return step
+
+    monkeypatch.setattr(engine, "decoder_steps",
+                        lambda params, dims: tuple(map(counting, real_steps(params, dims))))
+    files = _files(audio)[:2]
+    kw = dict(BATCH_KW, word_timestamps=True)
+    plain = whisper_tpu_torch.transcribe_batch(tmodel, files, batch_size=2, **kw)
+    steps, calls[0] = calls[0], 0
+    timer = StageTimer("cpu")
+    with recording(timer):
+        recorded = whisper_tpu_torch.transcribe_batch(tmodel, files, batch_size=2, **kw)
+    for a, b in zip(plain, recorded):
+        _compare(a, b, words=True)
+    assert set(timer.counts) == SPANS
+    assert calls[0] == steps > 0
+    for name in ("step", "filters", "update", "decode_step", "logits"):
+        assert timer.counts[name] == steps, name
+    assert timer.counts["sync"] == steps // max(write_block, 1)
+    assert timer.counts["encoder"] == timer.counts["prefill"] == timer.counts["engine"]
+
+
+@pytest.mark.parametrize("recorded", [False, True], ids=["no_recorder", "recording"])
+def test_a_profiler_sees_the_spans_only_under_recording(models, audio, recorded):
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_tpu_torch.profiling import StageTimer, recording
+
+    _, tmodel = models
+    with contextlib.ExitStack() as stack:
+        if recorded:
+            stack.enter_context(recording(StageTimer("cpu")))
+        prof = stack.enter_context(profile(activities=[ProfilerActivity.CPU]))
+        whisper_tpu_torch.transcribe_batch(tmodel, [audio[: 16000 * 4]], batch_size=1,
+                                           **dict(BATCH_KW, sample_len=4))
+    names = {e.name for e in prof.events() if e.name.startswith("whisper.")}
+    assert names == ({"whisper." + n for n in SPANS - {"alignment"}} if recorded else set())
 
 
 def test_transcribe_batch_rejects_a_fixed_prompt(models, audio):

@@ -123,6 +123,50 @@ def test_batcher_coalesces_and_matches_direct_and_jax(models):
     assert stats["requests"] == 5 and stats["batches"] < 5
 
 
+def test_batcher_records_its_rounds_and_counts_the_queue_wait(model):
+    """Under profiling.recording the worker thread records each batch's
+    fill window and round; stats["taken"] counts the requests taken off the
+    queue, and stats["queue_wait_s"] their waits from submit: a lone
+    request on an idle server waits out the fill window, and no wait
+    outlasts its request."""
+    import contextlib
+
+    from whisper_tpu_torch.profiling import recording
+
+    class Recorder:
+        def __init__(self):
+            self.spans = []
+
+        def stage(self, name):
+            self.spans.append((name, threading.current_thread().name))
+            return contextlib.nullcontext()
+
+    recorder = Recorder()
+    with recording(recorder), BatchingTranscriber(model, batch_size=4, max_wait_s=0.2, **OPTS) as bt:
+        t0 = time.monotonic()
+        bt.submit(_tone(seed=0)).result(timeout=300)
+        lone = time.monotonic() - t0
+        lone_wait = bt.stats["queue_wait_s"]
+        sent = []
+        futures = []
+        for i in range(5):
+            sent.append(time.monotonic())
+            futures.append(bt.submit(_tone(seed=i + 1)))
+        answered = []
+        for f in futures:
+            f.result(timeout=300)
+            answered.append(time.monotonic())
+        stats = dict(bt.stats)
+    assert stats["requests"] == stats["taken"] == 6 and 3 <= stats["batches"] <= 4
+    assert 0.2 - 0.01 <= lone_wait <= lone
+    assert lone_wait < stats["queue_wait_s"] <= lone + sum(b - a for a, b in zip(sent, answered))
+    worker = {thread for name, thread in recorder.spans if name in ("fill", "round")}
+    assert worker == {"whisper-tpu-torch-batcher"}
+    names = [name for name, _ in recorder.spans]
+    assert names.count("round") == stats["batches"] and names.count("fill") >= stats["batches"]
+    assert {"engine", "encoder", "step", "sync"} <= set(names)
+
+
 def test_fill_window_reopens_when_engine_frees(model):
     """Requests that queued during a decode still get max_wait_s to
     coalesce with a client's re-send that arrives just after it.  Batch 1

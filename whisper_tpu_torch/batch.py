@@ -26,7 +26,6 @@ seek loops under its model group alone, and every rank returns every
 file's result, gathered in input order on a CPU gloo group.
 """
 
-import contextlib
 from queue import Queue
 from threading import Thread
 from typing import List, Optional, Sequence, Tuple, Union
@@ -45,6 +44,7 @@ from .audio import (
 )
 from .decoding import DecodingOptions, DecodingTask, detect_language
 from .parallel.mesh import current_mesh
+from .profiling import recording, span
 from .timing import add_word_timestamps, find_alignment_batch
 from .tokenizer import get_tokenizer
 from .transcribe import _refine_seek_with_word_timings, needs_fallback, segment_window
@@ -131,7 +131,7 @@ def _waveform(audio) -> np.ndarray:
     return audio.astype(np.float32)
 
 
-def _prepare_mels(model, audios, _st, _sync) -> Tuple[torch.Tensor, List[int]]:
+def _prepare_mels(model, audios, _sync) -> Tuple[torch.Tensor, List[int]]:
     """Host-decode ``audios``, upload them as one buffer and compute every
     log-mel in one batched pass on the model's device; returns the mel store
     (n_files, n_mels, F) there and the files' lengths in samples.
@@ -145,13 +145,13 @@ def _prepare_mels(model, audios, _st, _sync) -> Tuple[torch.Tensor, List[int]]:
     padding, where the two waveforms agree sample for sample, reflected
     edges included.
     """
-    with _st("audio_host"):
+    with span("audio_host"):
         waves = [_waveform(a) for a in audios]
         lens = [w.shape[0] for w in waves]
         buf = np.zeros((len(waves), max(lens) if lens else 0), np.float32)
         for i, w in enumerate(waves):
             buf[i, : w.shape[0]] = w
-    with _st("mel"):
+    with span("mel"):
         mels = _sync(log_mel_spectrogram(buf, model.dims.n_mels, padding=N_SAMPLES,
                                          device=model.device))
     return mels, lens
@@ -186,10 +186,16 @@ def transcribe_batch(
     Inside a group each round decodes the next window of up to
     ``batch_size`` unfinished files.
 
-    ``stage_timer``: any object whose ``.stage(name)`` is a context manager;
-    wall time is then attributed to the audio_host / mel / window_slice /
-    engine / segment / alignment stages, with the device synchronised at
-    each stage boundary and the groups prepared serially.
+    ``stage_timer``: any object whose ``.stage(name)`` is a context manager,
+    such as a :class:`~whisper_tpu_torch.profiling.StageTimer`; it is
+    installed with ``profiling.recording`` for the call and the calling
+    thread (the groups run on it, one after another), so that wall time
+    is attributed to the audio_host / mel / window_slice / engine / segment
+    / alignment stages (and the spans inside them: the engine's encoder,
+    prefill and token steps, the results' assembly), with the device
+    synchronised at each of those six stages' boundaries and the groups
+    prepared serially.  Under ``profiling.recording`` without a
+    ``stage_timer`` the same spans record with neither.
 
     ``word_seek_refinement`` (default True = the reference's semantics):
     with ``word_timestamps=True`` the reference rewinds each window's seek
@@ -225,9 +231,6 @@ def transcribe_batch(
             "fixed decode-level prompt"
         )
 
-    def _st(name):
-        return stage_timer.stage(name) if stage_timer is not None else contextlib.nullcontext()
-
     def _sync(x):
         if stage_timer is not None and x.is_cuda:
             torch.cuda.synchronize(x.device)
@@ -250,18 +253,18 @@ def transcribe_batch(
         hallucination_silence_threshold=hallucination_silence_threshold,
         word_seek_refinement=word_seek_refinement,
         decode_options=decode_options,
-        _st=_st,
         _sync=_sync,
     )
     # every file's windows, prompts and fallback ladder live inside its group
     groups = [list(audios[i : i + batch_size]) for i in range(0, len(audios), batch_size)]
     if not groups:
         return []
-    if len(groups) == 1 or stage_timer is not None:
-        results = []
-        for g in groups:
-            results.extend(_transcribe_group(model, *_prepare_mels(model, g, _st, _sync), **group_kw))
-        return results
+    if stage_timer is not None:
+        with recording(stage_timer, this_thread=True):
+            return [r for g in groups
+                    for r in _transcribe_group(model, *_prepare_mels(model, g, _sync), **group_kw)]
+    if len(groups) == 1:
+        return _transcribe_group(model, *_prepare_mels(model, groups[0], _sync), **group_kw)
 
     # a thread prepares group k+1's mel store while group k decodes; the
     # queue holds at most two prepared groups, and an error in the thread
@@ -271,7 +274,7 @@ def transcribe_batch(
     def _producer():
         for g in groups:
             try:
-                q.put(_prepare_mels(model, g, _st, _sync))
+                q.put(_prepare_mels(model, g, _sync))
             except BaseException as e:
                 q.put(e)
                 return
@@ -309,7 +312,6 @@ def _transcribe_group(
     hallucination_silence_threshold,
     word_seek_refinement,
     decode_options,
-    _st,
     _sync,
 ):
     """Decode one group of files out of its mel store on the device; the
@@ -399,7 +401,7 @@ def _transcribe_group(
             # so rows that carry a prompt decode beside files that start
             rows = active[:batch_size]
             sizes = [states[i].window_size() for i in rows]
-            with _st("window_slice"):
+            with span("window_slice"):
                 windows = _sync(slice_windows(rows))
             prompts = [prompt_for(states[i]) for i in rows]
 
@@ -407,7 +409,7 @@ def _transcribe_group(
             # already passed the gates keep their earlier result
             results = [None] * len(rows)
             for t in temperatures:
-                with _st("engine"):
+                with span("engine"):
                     batch_results = get_task(t).run_with_prompts(windows, prompts)
                 any_pending = False
                 for j in range(len(rows)):
@@ -425,7 +427,7 @@ def _transcribe_group(
 
             # phase 1: per-file segmentation and seek advance
             pending = []  # rows that produced segments this round
-            with _st("segment"):
+            with span("segment"):
                 for j, i in enumerate(rows):
                     st = states[i]
                     result = results[j]
@@ -465,7 +467,7 @@ def _transcribe_group(
             # files that produced text this round, from the encoder features
             # the decode already computed
             if word_timestamps and pending:
-                with _st("alignment"):
+                with span("alignment"):
                     _align_round(
                         model, tokenizer, pending, prepend_punctuations, append_punctuations,
                         word_seek_refinement, hallucination_silence_threshold,

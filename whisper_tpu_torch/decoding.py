@@ -37,6 +37,7 @@ from .engine import (
     prefill_bucket,
 )
 from .parallel.mesh import current_mesh
+from .profiling import span
 from .tokenizer import Tokenizer, get_tokenizer
 from .utils import compression_ratio
 
@@ -486,7 +487,8 @@ class DecodingTask:
 
         result = self._engine(self.spec, mel, initial, self.sample_begin, self.sot_index,
                               features_given)
-        return self._assemble(result, languages, language_probs)
+        with span("assemble"):  # the results read back to the host
+            return self._assemble(result, languages, language_probs)
 
     def run_with_prompts(self, mel, prompts: List[List[int]]) -> List[DecodingResult]:
         """Decode a batch where each row carries its own prompt tokens.
@@ -526,7 +528,8 @@ class DecodingTask:
         result = self._engine(spec, mel, rows, sample_begins, sot_indices,
                               _features_given(self.model, mel))
         languages = [self.options.language] * n_audio
-        return self._assemble(result, languages, None, sample_begins=sample_begins)
+        with span("assemble"):
+            return self._assemble(result, languages, None, sample_begins=sample_begins)
 
     # -- host finalize (parity with decoding.py:384-404,712-789) ------------
 

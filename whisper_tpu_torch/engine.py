@@ -21,7 +21,6 @@ the target verifies them in one pass, and the output is the target's own
 greedy decode (whisper_tpu/engine.py:712-975).
 """
 
-import contextlib
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -46,6 +45,7 @@ from .models.whisper import (
     project_logits,
 )
 from .ops.kernels import fused_step
+from .profiling import recording, span
 from .quantize import quantize_kv
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 448)
@@ -462,10 +462,19 @@ def decode_engine(
     single-file decode) the rows share one position, a host int, and the
     step needs no per-row gather or scatter.  The token loop reads
     ``completed`` back to the host once per step, after queueing that
-    step's decode step, so the host's launches overlap the device's work on
-    the step before; with ``spec.write_block`` (:func:`_block_loop`) once per
-    block.  Its last decode step is computed and never used, as in the JAX
-    engine.
+    step's decode step and logits.  The read waits for all the work queued
+    before it on the stream, that step's included, so the device drains at
+    every step and idles while the host queues the next step's filters and
+    update: the host's launches overlap only the device's work on the same
+    step.  With ``spec.write_block`` (:func:`_block_loop`) the read comes
+    once per block, and the host queues up to a block ahead.  Its last
+    decode step is computed and never used, as in the JAX engine.
+
+    Spans (``profiling.span``): ``encoder``; ``prefill`` (cross K/V,
+    prefill, no-speech and first logits); each token step's host work as
+    ``step``, around ``filters``, ``update`` (greedy or beam),
+    ``decode_step`` (kernel K2 or the PyTorch step) and ``logits``; and
+    ``sync``, the read of ``completed``.
     """
     n_audio = mel_or_features.shape[0]
     G = spec.n_group
@@ -483,55 +492,58 @@ def decode_engine(
     audios = torch.arange(n_audio, device=device)
 
     # 1) encoder (or passthrough of precomputed features)
-    if features_given:
-        audio_features = mel_or_features.to(compute_dtype)
-    else:
-        audio_features = encoder_apply(params, dims, mel_or_features)
+    with span("encoder"):
+        if features_given:
+            audio_features = mel_or_features.to(compute_dtype)
+        else:
+            audio_features = encoder_apply(params, dims, mel_or_features)
 
-    # 2) cross K/V once per audio, then prefill the prompt blocks
-    xk, xv = compute_cross_kv(params, dims, audio_features)
-    hidden, pk, pv = decoder_prefill(params, dims, initial_tokens, xk, xv)
+    with span("prefill"):
+        # 2) cross K/V once per audio, then prefill the prompt blocks
+        xk, xv = compute_cross_kv(params, dims, audio_features)
+        hidden, pk, pv = decoder_prefill(params, dims, initial_tokens, xk, xv)
 
-    # no-speech probability from the unfiltered logits at each row's SOT
-    if spec.no_speech >= 0:
-        sot_probs = torch.softmax(project_logits(params, hidden[audios, sots_dev]), dim=-1)
-        no_speech_probs = sot_probs[:, spec.no_speech]
-    else:
-        no_speech_probs = torch.full((n_audio,), float("nan"), device=device)
+        # no-speech probability from the unfiltered logits at each row's SOT
+        if spec.no_speech >= 0:
+            sot_probs = torch.softmax(project_logits(params, hidden[audios, sots_dev]), dim=-1)
+            no_speech_probs = sot_probs[:, spec.no_speech]
+        else:
+            no_speech_probs = torch.full((n_audio,), float("nan"), device=device)
 
-    # 3) tile to n_audio * n_group rows; cross K/V stay at one per audio
-    cur_logits = project_logits(params, hidden[audios, lens_dev - 1]).repeat_interleave(G, 0)
-    uniform = min(lens) == max(lens)  # every row at lens[0] + step
-    if min(begins) != max(begins):
-        filter_args = filter_args._replace(sample_begin=begins_dev.repeat_interleave(G))
-    else:
-        filter_args = filter_args._replace(sample_begin=begins[0])
-    # the token loop's cross K/V, optionally int8 per (audio, head, channel)
-    # as whisper_tpu's (engine.py:545-554): the prefill, no_speech and the
-    # first logits above ran at full precision
-    if spec.kv_int8:
-        xk, xv = quantize_kv(xk), quantize_kv(xv)
-    cache = init_kv_cache(dims, B, xk, xv, compute_dtype, ctx=n_ctx)
-    # prefill K/V arrive (L, n_audio, H, P, D); the cache stores time-last
-    L, _, H, D, _ = cache.self_k.shape
-    for buf, pre in ((cache.self_k, pk), (cache.self_v, pv)):
-        buf.view(L, n_audio, G, H, D, n_ctx)[..., :P] = pre.transpose(-1, -2)[:, :, None]
+        # 3) tile to n_audio * n_group rows; cross K/V stay at one per audio
+        cur_logits = project_logits(params, hidden[audios, lens_dev - 1]).repeat_interleave(G, 0)
+        uniform = min(lens) == max(lens)  # every row at lens[0] + step
+        if min(begins) != max(begins):
+            filter_args = filter_args._replace(sample_begin=begins_dev.repeat_interleave(G))
+        else:
+            filter_args = filter_args._replace(sample_begin=begins[0])
+        # the token loop's cross K/V, optionally int8 per (audio, head, channel)
+        # as whisper_tpu's (engine.py:545-554): the prefill, no_speech and the
+        # first logits above ran at full precision
+        if spec.kv_int8:
+            xk, xv = quantize_kv(xk), quantize_kv(xv)
+        cache = init_kv_cache(dims, B, xk, xv, compute_dtype, ctx=n_ctx)
+        # prefill K/V arrive (L, n_audio, H, P, D); the cache stores time-last
+        L, _, H, D, _ = cache.self_k.shape
+        for buf, pre in ((cache.self_k, pk), (cache.self_v, pv)):
+            buf.view(L, n_audio, G, H, D, n_ctx)[..., :P] = pre.transpose(-1, -2)[:, :, None]
 
-    tokens = torch.zeros((B, n_ctx + 1), dtype=torch.int64, device=device)
-    tokens[:, :P] = initial_tokens.repeat_interleave(G, 0)
-    n_fin = max(spec.max_candidates, 1)
-    state = _LoopState(
-        tokens=tokens,
-        t=lens_dev.repeat_interleave(G),
-        step=0,
-        sum_logprobs=torch.zeros(B, dtype=torch.float32, device=device),
-        completed=torch.zeros((), dtype=torch.bool, device=device),
-        cache=cache,
-        # one spare slot past n_fin takes the finished writes that miss
-        fin_tokens=torch.zeros((n_audio, n_fin + 1, n_ctx + 1), dtype=torch.int64, device=device),
-        fin_scores=torch.full((n_audio, n_fin + 1), float("-inf"), device=device),
-        fin_count=torch.zeros(n_audio, dtype=torch.int64, device=device),
-    )
+        tokens = torch.zeros((B, n_ctx + 1), dtype=torch.int64, device=device)
+        tokens[:, :P] = initial_tokens.repeat_interleave(G, 0)
+        n_fin = max(spec.max_candidates, 1)
+        state = _LoopState(
+            tokens=tokens,
+            t=lens_dev.repeat_interleave(G),
+            step=0,
+            sum_logprobs=torch.zeros(B, dtype=torch.float32, device=device),
+            completed=torch.zeros((), dtype=torch.bool, device=device),
+            cache=cache,
+            # one spare slot past n_fin takes the finished writes that miss
+            fin_tokens=torch.zeros((n_audio, n_fin + 1, n_ctx + 1), dtype=torch.int64,
+                                   device=device),
+            fin_scores=torch.full((n_audio, n_fin + 1), float("-inf"), device=device),
+            fin_count=torch.zeros(n_audio, dtype=torch.int64, device=device),
+        )
 
     step, step_pending = decoder_steps(params, dims)
     if spec.write_block > 1 and spec.beam_size == 0:
@@ -540,22 +552,31 @@ def decode_engine(
                             step_pending)
     else:
         while state.step < sample_len:
-            filtered = apply_logit_filters(spec, cur_logits, state.tokens, state.t, filter_args)
-            if spec.beam_size > 0:
-                state = _beam_update(spec, state, filtered)
-            else:
-                state = _greedy_update(spec, state, filtered, temperature, generator, forced_tokens)
-            # the step for the tokens just chosen, each row at its own position
-            if uniform:
-                pos = lens[0] + state.step - 1
-                prev = state.tokens[:, min(pos, n_ctx)]
-            else:
-                pos = state.t - 1
-                prev = state.tokens.gather(1, pos.clamp(0, n_ctx)[:, None])[:, 0]
-            h, cache = step(params, dims, prev, pos, state.cache)
-            state = state._replace(cache=cache)
-            cur_logits = project_logits(params, h)
-            if bool(state.completed):  # the loop's one host sync per step
+            with span("step"):
+                with span("filters"):
+                    filtered = apply_logit_filters(spec, cur_logits, state.tokens, state.t,
+                                                   filter_args)
+                with span("update"):
+                    if spec.beam_size > 0:
+                        state = _beam_update(spec, state, filtered)
+                    else:
+                        state = _greedy_update(spec, state, filtered, temperature, generator,
+                                               forced_tokens)
+                # the step for the tokens just chosen, each row at its own position
+                if uniform:
+                    pos = lens[0] + state.step - 1
+                    prev = state.tokens[:, min(pos, n_ctx)]
+                else:
+                    pos = state.t - 1
+                    prev = state.tokens.gather(1, pos.clamp(0, n_ctx)[:, None])[:, 0]
+                with span("decode_step"):
+                    h, cache = step(params, dims, prev, pos, state.cache)
+                state = state._replace(cache=cache)
+                with span("logits"):
+                    cur_logits = project_logits(params, h)
+            with span("sync"):  # the loop's one host sync per step
+                completed = bool(state.completed)
+            if completed:
                 break
 
     return EngineResult(
@@ -603,21 +624,29 @@ def _block_loop(
         pend_k.zero_()
         pend_v.zero_()
         for w in range(W):
-            active = ~state.completed if state.step < sample_len else inactive
-            filtered = apply_logit_filters(spec, cur_logits, state.tokens, state.t, filter_args)
-            state = _greedy_update(spec, state, filtered, temperature, generator, forced_tokens,
-                                   active=active)
-            if base is not None:
-                pos = base + state.step - 1
-                prev = state.tokens[:, min(pos, n_ctx)]
-            else:
-                pos = state.t - 1
-                prev = state.tokens.gather(1, pos.clamp(0, n_ctx)[:, None])[:, 0]
-            h, pend_k, pend_v = step_pending(
-                params, dims, prev, pos, block_start, w, pend_k, pend_v, cache)
-            cur_logits = project_logits(params, h)
+            with span("step"):
+                active = ~state.completed if state.step < sample_len else inactive
+                with span("filters"):
+                    filtered = apply_logit_filters(spec, cur_logits, state.tokens, state.t,
+                                                   filter_args)
+                with span("update"):
+                    state = _greedy_update(spec, state, filtered, temperature, generator,
+                                           forced_tokens, active=active)
+                if base is not None:
+                    pos = base + state.step - 1
+                    prev = state.tokens[:, min(pos, n_ctx)]
+                else:
+                    pos = state.t - 1
+                    prev = state.tokens.gather(1, pos.clamp(0, n_ctx)[:, None])[:, 0]
+                with span("decode_step"):
+                    h, pend_k, pend_v = step_pending(
+                        params, dims, prev, pos, block_start, w, pend_k, pend_v, cache)
+                with span("logits"):
+                    cur_logits = project_logits(params, h)
         flush_pending(cache, pend_k, pend_v, block_start)
-        if bool(state.completed):  # the loop's one host sync per block
+        with span("sync"):  # the loop's one host sync per block
+            completed = bool(state.completed)
+        if completed:
             break
     return state
 
@@ -701,14 +730,12 @@ def decode_engine_speculative(
 
     The host queues a round's work and reads ``done`` back once per round,
     after the verify pass and the scan.  Greedy only: one row per audio.
-    ``stage_timer`` (any object whose ``.stage(name)`` is a context manager,
-    e.g. :class:`~whisper_tpu_torch.profiling.StageTimer`) takes the
-    encoder, prefill, draft (resync and draft steps), verify and accept
-    stages.
+    The spans (``profiling.span``) are the encoder, prefill, draft (resync
+    and draft steps), verify and accept stages.  ``stage_timer`` (any
+    object whose ``.stage(name)`` is a context manager, e.g.
+    :class:`~whisper_tpu_torch.profiling.StageTimer`) records them for the
+    call, on the calling thread (``profiling.recording``).
     """
-    def stage(name):
-        return stage_timer.stage(name) if stage_timer is not None else contextlib.nullcontext()
-
     if spec.n_group != 1 or spec.beam_size or not spec.argmax:
         raise ValueError("speculative decoding is greedy only: one row per audio at temperature 0")
     if features_given and not share_encoder:
@@ -717,119 +744,123 @@ def decode_engine_speculative(
             "speculative decoding with precomputed encoder features requires "
             "share_encoder=True (a non-shared draft encoder needs the raw mel)"
         )
-    B = mel_or_features.shape[0]
-    n_ctx = spec.ctx_len or dims.n_text_ctx
-    S = draft_len
-    W = S + 2  # the resync window covers the largest advance of a round
-    compute_dtype = params["decoder"]["tok_emb"].dtype
-    draft_dtype = draft_params["decoder"]["tok_emb"].dtype
-    device = mel_or_features.device
-    begins = _per_audio(filter_args.sample_begin, B)
-    lens_dev, sots_dev, begins_dev = torch.tensor(
-        [_per_audio(initial_len, B), _per_audio(sot_index, B), begins], dtype=torch.int64
-    ).to(device)
-    rows = torch.arange(B, device=device)
-    filter_args = filter_args._replace(
-        sample_begin=begins[0] if min(begins) == max(begins) else begins_dev)
+    with recording(stage_timer, this_thread=True):
+        B = mel_or_features.shape[0]
+        n_ctx = spec.ctx_len or dims.n_text_ctx
+        S = draft_len
+        W = S + 2  # the resync window covers the largest advance of a round
+        compute_dtype = params["decoder"]["tok_emb"].dtype
+        draft_dtype = draft_params["decoder"]["tok_emb"].dtype
+        device = mel_or_features.device
+        begins = _per_audio(filter_args.sample_begin, B)
+        lens_dev, sots_dev, begins_dev = torch.tensor(
+            [_per_audio(initial_len, B), _per_audio(sot_index, B), begins], dtype=torch.int64
+        ).to(device)
+        rows = torch.arange(B, device=device)
+        filter_args = filter_args._replace(
+            sample_begin=begins[0] if min(begins) == max(begins) else begins_dev)
 
-    with stage("encoder"):
-        if features_given:
-            audio_features = mel_or_features.to(compute_dtype)
+        with span("encoder"):
+            if features_given:
+                audio_features = mel_or_features.to(compute_dtype)
+            else:
+                audio_features = encoder_apply(params, dims, mel_or_features)
+            if share_encoder:
+                draft_features = audio_features.to(draft_dtype)
+            else:
+                draft_features = encoder_apply(draft_params, draft_dims, mel_or_features)
+        with span("prefill"):  # cross K/V and prefill of both models
+            xk, xv = compute_cross_kv(params, dims, audio_features)
+            hidden, pk, pv = decoder_prefill(params, dims, initial_tokens, xk, xv)
+            dxk, dxv = compute_cross_kv(draft_params, draft_dims, draft_features)
+            _, dpk, dpv = decoder_prefill(draft_params, draft_dims, initial_tokens, dxk, dxv)
+        if spec.no_speech >= 0:
+            sot_probs = torch.softmax(project_logits(params, hidden[rows, sots_dev]), dim=-1)
+            no_speech_probs = sot_probs[:, spec.no_speech]
         else:
-            audio_features = encoder_apply(params, dims, mel_or_features)
-        if share_encoder:
-            draft_features = audio_features.to(draft_dtype)
-        else:
-            draft_features = encoder_apply(draft_params, draft_dims, mel_or_features)
-    with stage("prefill"):  # cross K/V and prefill of both models
-        xk, xv = compute_cross_kv(params, dims, audio_features)
-        hidden, pk, pv = decoder_prefill(params, dims, initial_tokens, xk, xv)
-        dxk, dxv = compute_cross_kv(draft_params, draft_dims, draft_features)
-        _, dpk, dpv = decoder_prefill(draft_params, draft_dims, initial_tokens, dxk, dxv)
-    if spec.no_speech >= 0:
-        sot_probs = torch.softmax(project_logits(params, hidden[rows, sots_dev]), dim=-1)
-        no_speech_probs = sot_probs[:, spec.no_speech]
-    else:
-        no_speech_probs = torch.full((B,), float("nan"), device=device)
-    if spec.kv_int8:  # the target's loop reads int8 cross K/V (whisper_tpu/engine.py:807-810)
-        xk, xv = quantize_kv(xk), quantize_kv(xv)
+            no_speech_probs = torch.full((B,), float("nan"), device=device)
+        if spec.kv_int8:  # the target's loop reads int8 cross K/V (whisper_tpu/engine.py:807-810)
+            xk, xv = quantize_kv(xk), quantize_kv(xv)
 
-    tokens = torch.zeros((B, n_ctx + 1), dtype=torch.int64, device=device)
-    tokens[:, :spec.prefill_len] = initial_tokens
-    state = _SpecState(
-        tokens=tokens,
-        t=lens_dev.clone(),
-        cache=_prefilled_cache(dims, B, xk, xv, pk, pv, compute_dtype, n_ctx),
-        draft_cache=_prefilled_cache(draft_dims, B, dxk, dxv, dpk, dpv, draft_dtype, n_ctx),
-        sum_logprobs=torch.zeros(B, dtype=torch.float32, device=device),
-        done=torch.zeros(B, dtype=torch.bool, device=device),
-    )
-    draft_step, _ = decoder_steps(draft_params, draft_dims)
+        tokens = torch.zeros((B, n_ctx + 1), dtype=torch.int64, device=device)
+        tokens[:, :spec.prefill_len] = initial_tokens
+        state = _SpecState(
+            tokens=tokens,
+            t=lens_dev.clone(),
+            cache=_prefilled_cache(dims, B, xk, xv, pk, pv, compute_dtype, n_ctx),
+            draft_cache=_prefilled_cache(draft_dims, B, dxk, dxv, dpk, dpv, draft_dtype, n_ctx),
+            sum_logprobs=torch.zeros(B, dtype=torch.float32, device=device),
+            done=torch.zeros(B, dtype=torch.bool, device=device),
+        )
+        draft_step, _ = decoder_steps(draft_params, draft_dims)
 
-    def round_(s: _SpecState) -> _SpecState:
-        tokens, t = s.tokens, s.t
-        with stage("draft"):
-            # the draft's resync: the tokens committed last round were never
-            # through the draft; its logits at t give the first proposal.
-            # Early rounds (t < W) rewrite prompt columns 0..W-1, as whisper_tpu
-            start0 = (t - W).clamp(min=0)
-            sync_h, draft_cache = decoder_step_k(
-                draft_params, draft_dims, _gather_cols(tokens, start0, W), start0, s.draft_cache)
-            d_logits = project_logits(draft_params, sync_h[rows, t - 1 - start0])
-            prev = apply_logit_filters(spec, d_logits, tokens, t, filter_args).argmax(dim=-1)
-            _put(tokens, t, prev)
-            drafts, pos = [prev], t
-            for _ in range(S - 1):  # the last proposal needs no step of its own
-                h, draft_cache = draft_step(draft_params, draft_dims, prev, pos, draft_cache)
-                logits = project_logits(draft_params, h)
-                prev = apply_logit_filters(spec, logits, tokens, pos + 1, filter_args).argmax(dim=-1)
-                _put(tokens, pos + 1, prev)
-                drafts.append(prev)
-                pos = pos + 1
+        def round_(s: _SpecState) -> _SpecState:
+            tokens, t = s.tokens, s.t
+            with span("draft"):
+                # the draft's resync: the tokens committed last round were never
+                # through the draft; its logits at t give the first proposal.
+                # Early rounds (t < W) rewrite prompt columns 0..W-1, as whisper_tpu
+                start0 = (t - W).clamp(min=0)
+                sync_h, draft_cache = decoder_step_k(draft_params, draft_dims,
+                                                     _gather_cols(tokens, start0, W), start0,
+                                                     s.draft_cache)
+                d_logits = project_logits(draft_params, sync_h[rows, t - 1 - start0])
+                prev = apply_logit_filters(spec, d_logits, tokens, t, filter_args).argmax(dim=-1)
+                _put(tokens, t, prev)
+                drafts, pos = [prev], t
+                for _ in range(S - 1):  # the last proposal needs no step of its own
+                    h, draft_cache = draft_step(draft_params, draft_dims, prev, pos, draft_cache)
+                    logits = project_logits(draft_params, h)
+                    prev = apply_logit_filters(spec, logits, tokens, pos + 1,
+                                               filter_args).argmax(dim=-1)
+                    _put(tokens, pos + 1, prev)
+                    drafts.append(prev)
+                    pos = pos + 1
 
-        with stage("verify"):  # the target's pass over [last committed, d_1 .. d_S] at t - 1 ..
-            ver_h, cache = decoder_step_k(params, dims, _gather_cols(tokens, t - 1, S + 1), t - 1,
-                                          s.cache)
-            ver_logits = project_logits(params, ver_h)  # (B, S + 1, V) f32
+            with span("verify"):  # the target's pass over [last committed, d_1 .. d_S] at t - 1 ..
+                ver_h, cache = decoder_step_k(params, dims, _gather_cols(tokens, t - 1, S + 1),
+                                              t - 1, s.cache)
+                ver_logits = project_logits(params, ver_h)  # (B, S + 1, V) f32
 
-        with stage("accept"):
-            # position i commits the target's greedy token; the scan goes on
-            # only while the draft predicted that token
-            acc, done, sum_lp, t_cur = ~s.done, s.done, s.sum_logprobs, t
-            for i in range(S + 1):
-                filtered = apply_logit_filters(spec, ver_logits[:, i], tokens, t_cur, filter_args)
-                tok = filtered.argmax(dim=-1)
-                lp = torch.log_softmax(filtered, dim=-1).gather(1, tok[:, None])[:, 0]
-                capped = t_cur >= n_ctx + 1
-                budget_ok = (t_cur - lens_dev) < sample_len
-                commit = acc & ~done & budget_ok & ~capped
-                _put(tokens, t_cur, tok, commit)
-                sum_lp = sum_lp + torch.where(commit, lp, 0.0)
-                t_cur = t_cur + commit.long()
-                done = done | (commit & (tok == spec.eot)) | ~budget_ok | capped
-                if i < S:  # the bonus position i == S never continues
-                    matched = torch.ones_like(commit) if force_accept else tok == drafts[i]
-                    acc = commit & matched & (tok != spec.eot)
-        return _SpecState(tokens, t_cur, cache, draft_cache, sum_lp, done)
+            with span("accept"):
+                # position i commits the target's greedy token; the scan goes on
+                # only while the draft predicted that token
+                acc, done, sum_lp, t_cur = ~s.done, s.done, s.sum_logprobs, t
+                for i in range(S + 1):
+                    filtered = apply_logit_filters(spec, ver_logits[:, i], tokens, t_cur,
+                                                   filter_args)
+                    tok = filtered.argmax(dim=-1)
+                    lp = torch.log_softmax(filtered, dim=-1).gather(1, tok[:, None])[:, 0]
+                    capped = t_cur >= n_ctx + 1
+                    budget_ok = (t_cur - lens_dev) < sample_len
+                    commit = acc & ~done & budget_ok & ~capped
+                    _put(tokens, t_cur, tok, commit)
+                    sum_lp = sum_lp + torch.where(commit, lp, 0.0)
+                    t_cur = t_cur + commit.long()
+                    done = done | (commit & (tok == spec.eot)) | ~budget_ok | capped
+                    if i < S:  # the bonus position i == S never continues
+                        matched = torch.ones_like(commit) if force_accept else tok == drafts[i]
+                        acc = commit & matched & (tok != spec.eot)
+            return _SpecState(tokens, t_cur, cache, draft_cache, sum_lp, done)
 
-    for _ in range(sample_len):
-        state = round_(state)
-        if bool(state.done.all()):  # the loop's one host sync per round
-            break
+        for _ in range(sample_len):
+            state = round_(state)
+            if bool(state.done.all()):  # the loop's one host sync per round
+                break
 
-    # provisional draft tokens past each row's length become EOT
-    cols = torch.arange(n_ctx + 1, device=device)[None, :]
-    n_fin = max(spec.max_candidates, 1)
-    return EngineResult(
-        tokens=torch.where(cols >= state.t[:, None], spec.eot, state.tokens),
-        seq_len=state.t,
-        sum_logprobs=state.sum_logprobs,
-        no_speech_probs=no_speech_probs,
-        audio_features=audio_features,
-        fin_tokens=torch.zeros((B, n_fin, n_ctx + 1), dtype=torch.int64, device=device),
-        fin_scores=torch.full((B, n_fin), float("-inf"), device=device),
-        fin_count=torch.zeros(B, dtype=torch.int64, device=device),
-    )
+        # provisional draft tokens past each row's length become EOT
+        cols = torch.arange(n_ctx + 1, device=device)[None, :]
+        n_fin = max(spec.max_candidates, 1)
+        return EngineResult(
+            tokens=torch.where(cols >= state.t[:, None], spec.eot, state.tokens),
+            seq_len=state.t,
+            sum_logprobs=state.sum_logprobs,
+            no_speech_probs=no_speech_probs,
+            audio_features=audio_features,
+            fin_tokens=torch.zeros((B, n_fin, n_ctx + 1), dtype=torch.int64, device=device),
+            fin_scores=torch.full((B, n_fin), float("-inf"), device=device),
+            fin_count=torch.zeros(B, dtype=torch.int64, device=device),
+        )
 
 
 @torch.inference_mode()
@@ -846,10 +877,11 @@ def detect_language_engine(
     Returns (language_tokens (n_audio,), language_probs (n_audio, V),
     audio_features).  Parity with reference decoding.py:18-77.
     """
-    if features_given:
-        audio_features = mel_or_features.to(params["decoder"]["tok_emb"].dtype)
-    else:
-        audio_features = encoder_apply(params, dims, mel_or_features)
+    with span("encoder"):
+        if features_given:
+            audio_features = mel_or_features.to(params["decoder"]["tok_emb"].dtype)
+        else:
+            audio_features = encoder_apply(params, dims, mel_or_features)
     n_audio = audio_features.shape[0]
     tokens = torch.full((n_audio, 1), sot, dtype=torch.int64, device=audio_features.device)
     logits = decoder_forward(params, dims, tokens, audio_features)[:, 0]

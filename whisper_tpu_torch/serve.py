@@ -74,9 +74,11 @@ import traceback
 from collections import OrderedDict, deque
 from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FutureTimeoutError
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
+
+from .profiling import span
 
 __all__ = ["BatchingTranscriber", "make_server", "serve"]
 
@@ -101,6 +103,13 @@ class BatchingTranscriber:
     ``submit(..., priority=True)`` puts a request in the priority lane: it
     is batched ahead of every queued normal request of its options group,
     and groups with priority work are dispatched first.
+
+    ``stats`` counts as it goes (no device read): ``requests`` submitted,
+    ``taken`` off the queue, ``batches`` and ``errors``, and
+    ``queue_wait_s``, the taken requests' summed time from ``submit`` to
+    leaving the queue.  The worker's spans (``profiling.span``): ``fill``,
+    a batch's fill window, and ``round``, its call into
+    ``transcribe_batch``.
     """
 
     def __init__(
@@ -149,7 +158,8 @@ class BatchingTranscriber:
         self._after_batch = False
         self._streams: Dict[int, Any] = {}
         self._stream_ids = itertools.count()
-        self.stats: Dict[str, int] = {"requests": 0, "batches": 0, "errors": 0}
+        self.stats: Dict[str, Union[int, float]] = {"requests": 0, "taken": 0, "batches": 0,
+                                                    "errors": 0, "queue_wait_s": 0.0}
         follower = mesh is not None and mesh.rank != 0
         self._worker = threading.Thread(target=self._follow if follower else self._run,
                                         name="whisper-tpu-torch-batcher", daemon=True)
@@ -451,12 +461,16 @@ class BatchingTranscriber:
         # oldest request arrived or the engine became free, whichever
         # is later; an idle engine with a lone request pays max_wait_s
         deadline = max(oldest(), self._engine_free_t) + self.max_wait_s
-        while count() < self.batch_size and not self._closed and time.monotonic() < deadline:
-            self._cv.wait(timeout=max(deadline - time.monotonic(), 0.001))
+        with span("fill"):
+            while count() < self.batch_size and not self._closed and time.monotonic() < deadline:
+                self._cv.wait(timeout=max(deadline - time.monotonic(), 0.001))
         items = []
         for dq in (lanes["p"], lanes["n"]):  # priority lane first
             while dq and len(items) < self.batch_size:
                 items.append(dq.popleft())
+        now = time.monotonic()
+        self.stats["taken"] += len(items)
+        self.stats["queue_wait_s"] += sum(now - t for _, _, t in items)
         if not (lanes["p"] or lanes["n"]):
             del self._groups[key]  # drained groups don't accumulate
         return items
@@ -466,11 +480,12 @@ class BatchingTranscriber:
         futures = [f for _, f, _ in items]
         try:
             if self.mesh is None:
-                results = self._transcribe_batch(self.model, audios, batch_size=self.batch_size,
-                                                 **options)
+                with span("round"):
+                    results = self._transcribe_batch(self.model, audios,
+                                                     batch_size=self.batch_size, **options)
             else:
                 self.mesh.broadcast_object(("batch", audios, options))
-                with self.mesh:
+                with self.mesh, span("round"):
                     results = self._transcribe_batch(self.model, audios,
                                                      batch_size=self.batch_size, **options)
             with self._cv:
