@@ -7,7 +7,8 @@ Phases, each of which must pass (any failure exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from whisper_tpu_torch/csrc (nvcc, sm_90a, one
      process per source), with ptxas's registers and spills in short; K1's
-     and E1's bf16 instances and E3's (TMA + wgmma) must use wgmma (HGMMA
+     and E1's bf16 instances, the encoder GEMM's and E3's (TMA + wgmma)
+     must use wgmma (HGMMA
      in the SASS), spill nothing and draw no "serialized" report from
      ptxas, and
      no instance of K2's, K5's, E2's, K3's or K4's kernels may spill;
@@ -124,7 +125,17 @@ Phases, each of which must pass (any failure exits non-zero):
      large-v3's encoder fc2 at batch 16 (24000 x 5120 x 1280) in bf16 and
      at (3000, 1280, 640) in f32, beside addmm + add; bf16 each element
      within the plain version's three roundings (bf16_rounding_bound), on
-     the phase's inputs and on 20 more seeds;
+     the phase's inputs and on 20 more seeds; then the encoder block's
+     GEMM (encoder_block.linear / qkv) at each projection (q/k/v into K1's
+     layout in one launch, o from K1's layout with bias and residual, fc1
+     with bias and GELU, fc2 with bias and residual) at 1500 x {1, 7, 16}
+     rows, each element within its rounding bound (rounding_bound), timed
+     at 1 and 16 windows with the chosen tile and the other one, beside
+     F.linear and its epilogue; its LayerNorm at 1, 7 and 16 windows and a
+     tiny width, beside F.layer_norm; a two-layer turbo-width encoder pass
+     against the torch route; and the 32-layer turbo encoder pass on each
+     route at 1 and 16 windows (phase 7 also checks that jfk's encoder
+     passes took the kernel route, every block);
  27. E2 (the streamed logits) in both weight layouts against its plain
      version at B = 1, 5 and 16 of turbo's vocabulary, beside bf16 torch.mm;
  28. E3 (the packing experiment's pairs) unpacked and packed against their
@@ -321,15 +332,17 @@ def ptxas_summary(log: str) -> list:
     return out + [f"spills {s} bytes: {n}" for n, s in spills]
 
 
-# K1's and E1's bf16 kernels, and E3's (each instance: head dim, cluster size)
-WGMMA_KERNELS = ("encoder_attention_wgmma_kernel", "matmul_residual_wgmma_kernel", "attn_pairs_cluster_kernel")
+# K1's and E1's bf16 kernels, E3's (each instance: head dim, cluster size)
+# and the encoder GEMM's (column tile, epilogue)
+WGMMA_KERNELS = ("encoder_attention_wgmma_kernel", "matmul_residual_wgmma_kernel", "attn_pairs_cluster_kernel",
+                 "encoder_linear_wgmma_kernel")
 # K2's, K5's, E2's, K3's and K4's kernels, redesigned for Hopper: none may spill
 SPILL_FREE_KERNELS = ("gemv_kernel", "gemv_tc_kernel", "decode_attention_kernel", "mlp_stream_kernel",
                       "logits_vc_kernel", "logits_cv_kernel", "median_kernel", "dtw_trace_kernel")
 
 
 def wgmma_check(log: str, lib_path: str) -> list:
-    """K1's, E1's bf16 and E3's instances, the wgmma kernels: their registers and
+    """K1's, E1's bf16, the encoder GEMM's and E3's instances, the wgmma kernels: their registers and
     spills from ptxas -v, and their HGMMA (wgmma) instructions in the
     library's SASS (cuobjdump).  Raises on ptxas's "wgmma.mma_async
     instructions are serialized" report for any kernel, on a spill in one
@@ -534,6 +547,264 @@ def check_e1(gen, device):
     if not max(ratios) <= 1.0:
         raise RuntimeError(f"E1 bf16 outside its rounding bound on some seed: {ratios}")
     return rows["bfloat16"]
+
+
+# the encoder's projections at turbo's and large-v3's width: (N, K) and
+# the segments of one launch; o reads K1's layout, q/k/v write it
+ENCODER_PROJECTIONS = {"qkv": (1280, 1280, 3), "o": (1280, 1280, 1), "fc1": (5120, 1280, 1),
+                       "fc2": (1280, 5120, 1)}
+ENCODER_HEADS = 20
+# LayerNorm against its plain version: one ulp of the plain value (the
+# two sides' f32 values may straddle a rounding boundary) and 1e-5 of the
+# terms before they cancel, (|x| + |mean|) rstd |g| + |b| (the statistics
+# summed in another order: the mean's f32 error shows in x - mean, which
+# may cancel, and xhat g may cancel b)
+LN_REL_SLACK = 1e-5
+# a two-layer turbo-width encoder pass, kernel route against torch route:
+# both round in bf16 at the same places, so they part only where an f32
+# sum in another order rounds to the other neighbour, and the parting
+# propagates through the next products: relative RMS and largest error
+# over the largest |output|
+ENCODER_PASS_REL_RMS, ENCODER_PASS_REL_MAX = 1e-2, 5e-2
+
+
+def encoder_projection_inputs(gen, device, B: int, name: str, T: int = 1500):
+    """Random inputs of one encoder projection at B audios of T frames:
+    (x, weights, biases, residual); x in K1's layout for o."""
+    import torch
+
+    N, K, segments = ENCODER_PROJECTIONS[name]
+
+    def randn(*shape, scale):
+        return (torch.randn(shape, generator=gen, device=device) * scale).to(torch.bfloat16)
+
+    x = randn(B, ENCODER_HEADS, T, K // ENCODER_HEADS, scale=0.5) if name == "o" else randn(B, T, K, scale=0.5)
+    ws = [randn(N, K, scale=K ** -0.5) for _ in range(segments)]
+    bs = [randn(N, scale=0.1) for _ in range(segments)]
+    if name == "qkv":
+        bs[1] = None  # k has no bias
+    res = randn(B, T, N, scale=0.5) if name in ("o", "fc2") else None
+    return x, ws, bs, res
+
+
+def encoder_projection_call(name: str, x, ws, bs, res, plain: bool = False):
+    from whisper_tpu_torch.ops.kernels import encoder_block as eb
+
+    if name == "qkv":
+        return (eb.qkv_plain if plain else eb.qkv)(x, ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], ENCODER_HEADS)
+    fn = eb.linear_plain if plain else eb.linear
+    return (fn(x, ws[0], bs[0], gelu=name == "fc1", residual=res),)
+
+
+def encoder_projection_ratio(name: str, x, ws, bs, res) -> float:
+    """The largest error of the kernel over its rounding bound
+    (encoder_block.rounding_bound), every output of the projection."""
+    from whisper_tpu_torch.ops.attention import split_heads
+    from whisper_tpu_torch.ops.kernels import encoder_block as eb
+
+    outs = encoder_projection_call(name, x, ws, bs, res)
+    refs = encoder_projection_call(name, x, ws, bs, res, plain=True)
+    worst = 0.0
+    for out, ref, w, b in zip(outs, refs, ws, bs):
+        bnd = eb.rounding_bound(x, w, b, gelu=name == "fc1", residual=res)
+        if name == "qkv":
+            bnd = split_heads(bnd, ENCODER_HEADS)
+        worst = max(worst, ((out.float() - ref.float()).abs() / bnd).max().item())
+    return worst
+
+
+def check_encoder_linear(gen, device):
+    """The encoder's GEMM against its plain version (the torch route's own
+    operations, cuBLAS with bf16 reductions in f32) for each projection at
+    B = 1, 7 and 16 windows of 1500 frames: every element within its
+    rounding bound.  Timed at B = 1 and 16 with the tile the wrapper
+    chooses and with the other one (device time from a CUDA graph), beside
+    the plain version and the library yardstick (F.linear with its bias,
+    then GELU or the residual add; the port no longer calls it).  Returns
+    {(name, B): row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from whisper_tpu_torch.ops.kernels import encoder_block as eb
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = {}
+    for B in (1, 7, 16):
+        for name, (N, K, segments) in ENCODER_PROJECTIONS.items():
+            x, ws, bs, res = encoder_projection_inputs(gen, device, B, name)
+            ratio = encoder_projection_ratio(name, x, ws, bs, res)
+            M = 1500 * B
+            heads = name == "o"
+            G, T = (B, 1500) if heads or name == "qkv" else (1, M)
+            chosen = eb.tile_n(G * -(-T // eb.BM), N, segments, sms)
+            line = f"encoder_linear {name} B={B} (M={M}, N={N} x {segments}, K={K}): error over bound {ratio:.3f}"
+            if not ratio <= 1.0:
+                raise RuntimeError(f"{line}: outside its rounding bound")
+            if B == 7:
+                log(line)
+                continue
+
+            def forced(bn):
+                outs = [torch.empty(B, ENCODER_HEADS, 1500, N // ENCODER_HEADS, dtype=torch.bfloat16,
+                                    device=device) for _ in range(segments)] if name == "qkv" else [
+                    torch.empty(B, 1500, N, dtype=torch.bfloat16, device=device)]
+                epilogue = "gelu" if name == "fc1" else "residual" if res is not None else "bias"
+                return lambda: eb._launch(epilogue, x, ws, bs, outs, res, G, T, K, N, N // ENCODER_HEADS
+                                          if name == "qkv" else x.shape[-1] if heads else 64, heads,
+                                          name == "qkv", bn)
+
+            ms = time_ms(lambda: encoder_projection_call(name, x, ws, bs, res), CUDA)
+            device_ms = {bn: graph_ms(forced(bn)) for bn in eb.TILE_N}
+            plain_ms = time_ms(lambda: encoder_projection_call(name, x, ws, bs, res, plain=True), CUDA)
+            x2 = x.transpose(1, 2).reshape(B, 1500, K) if heads else x
+
+            def library():
+                for w, b in zip(ws, bs):
+                    y = F.linear(x2, w, b)
+                    y = F.gelu(y) if name == "fc1" else y + res if res is not None else y
+                return y
+
+            library_ms = graph_ms(library)
+            flops = 2 * M * K * N * segments
+            kb = bound(2 * (M * K + segments * (N * K + N + M * N) + (M * N if res is not None else 0)), flops,
+                       "bfloat16")
+            dev = device_ms[chosen]
+            log(f"{line}; kernel {ms:.4f} ms [device {dev:.4f}, tile {chosen}; the other tile "
+                f"{device_ms[384 - chosen]:.4f}] plain {plain_ms:.4f} ms library (F.linear + epilogue, device) "
+                f"{library_ms:.4f} ms bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}; "
+                f"{flops / dev / 1e9:.1f} TFLOP/s, {kb['bound_ms'] / dev:.3f} of the bound")
+            rows[name, B] = dict(max_abs_err=ratio, ms=ms, device_ms=dev, other_tile_ms=device_ms[384 - chosen],
+                                 tile_n=chosen, plain_ms=plain_ms, library_ms=library_ms, **kb)
+            del x, ws, bs, res
+    return rows
+
+
+def layer_norm_ratio(x, g, b) -> float:
+    """The LayerNorm kernel's largest error over its bound (LN_REL_SLACK)."""
+    from whisper_tpu_torch.ops.kernels import encoder_block as eb
+    from whisper_tpu_torch.ops.kernels.matmul_residual import _ulp_bound
+
+    out, ref = eb.layer_norm(x, g, b).float(), eb.layer_norm_plain(x, g, b).float()
+    xf = x.float()
+    mean, rstd = xf.mean(-1, keepdim=True), (xf.var(-1, keepdim=True, correction=0) + 1e-5).rsqrt()
+    bnd = _ulp_bound(ref) + LN_REL_SLACK * ((xf.abs() + mean.abs()) * rstd * g.float().abs() + b.float().abs())
+    return ((out - ref).abs() / bnd).max().item()
+
+
+def check_layer_norm(gen, device):
+    """The LayerNorm kernel against its plain version at 1500 x {1, 7, 16}
+    rows of 1280 and at a tiny width (64), timed at 1 and 16 windows beside
+    the plain version and F.layer_norm (the library's, f32 statistics;
+    never called by the port).  Returns {B: row}."""
+    import torch
+    import torch.nn.functional as F
+
+    from whisper_tpu_torch.ops.kernels import encoder_block as eb
+
+    rows = {}
+    for B, C in ((1, 1280), (7, 1280), (16, 1280), (3, 64)):
+        def randn(*shape, scale, shift=0.0):
+            return (torch.randn(shape, generator=gen, device=device) * scale + shift).to(torch.bfloat16)
+
+        x, g, b = randn(B, 1500, C, scale=2.0, shift=0.5), randn(C, scale=0.2, shift=1.0), randn(C, scale=0.2)
+        ratio = layer_norm_ratio(x, g, b)
+        line = f"layer_norm ({B}, 1500, {C}): error over bound {ratio:.3f}"
+        if not ratio <= 1.0:
+            raise RuntimeError(f"{line}: outside its bound")
+        if B in (7, 3):
+            log(line)
+            continue
+        ms = time_ms(lambda: eb.layer_norm(x, g, b), CUDA)
+        device_ms = graph_ms(lambda: eb.layer_norm(x, g, b))
+        plain_ms = time_ms(lambda: eb.layer_norm_plain(x, g, b), CUDA)
+        library_ms = graph_ms(lambda: F.layer_norm(x, (C,), g, b))
+        kb = bound(2 * (2 * x.numel() + 2 * C), 0, "bfloat16")
+        log(f"{line}; kernel {ms:.4f} ms [device {device_ms:.4f}] plain {plain_ms:.4f} ms library "
+            f"(F.layer_norm, device) {library_ms:.4f} ms bound {kb['bound_ms']:.4f} ms by {kb['bound_by']}; "
+            f"{kb['bound_ms'] / device_ms:.3f} of the bound")
+        rows[B] = dict(max_abs_err=ratio, ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+                       **kb)
+    return rows
+
+
+@contextlib.contextmanager
+def torch_route():
+    """The encoder's blocks on their torch route, whatever the device."""
+    from whisper_tpu_torch.models import whisper as W
+
+    on_card = W._on_card
+    W._on_card = lambda x: False
+    try:
+        yield
+    finally:
+        W._on_card = on_card
+
+
+def encoder_params(device, layers: int, seed: int):
+    """Random turbo-width encoder parameters (bf16), biases and LayerNorm
+    gains drawn too (init_params makes them 0 and 1)."""
+    import dataclasses
+
+    import torch
+
+    from whisper_tpu_torch.models import KNOWN_MODELS
+    from whisper_tpu_torch.models.whisper import init_params
+
+    dims = dataclasses.replace(KNOWN_MODELS["turbo"], n_audio_layer=layers, n_text_layer=1)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(dims, gen, torch.bfloat16, device)
+    for key, v in params["encoder"]["blocks"].items():
+        if key.endswith("_b") or key.endswith("_g"):
+            noise = torch.randn(v.shape, generator=gen, device=device) * 0.1
+            v.copy_((v.float() + noise).to(v.dtype))
+    return dims, params
+
+
+def check_encoder_pass(device):
+    """A two-layer turbo-width encoder pass, kernel route against torch
+    route (ENCODER_PASS_REL_RMS, _MAX), at 1 and 3 windows; then the
+    32-layer turbo encoder pass on each route at 1 and 16 windows (device
+    time from a CUDA graph, and CUDA events over back-to-back passes), with
+    the blocks counted by route.  Returns {B: (kernel ms, torch ms)}."""
+    import torch
+
+    from whisper_tpu_torch.models import whisper as W
+
+    dims, params = encoder_params(device, 2, 20)
+    gen = torch.Generator(device=device).manual_seed(21)
+    for B in (1, 3):
+        mel = torch.randn((B, dims.n_mels, 3000), generator=gen, device=device)
+        with torch.inference_mode():
+            before = W.encoder_apply.blocks_by_route["kernels"]
+            out = W.encoder_apply(params, dims, mel).float()
+            if W.encoder_apply.blocks_by_route["kernels"] != before + 2:
+                raise RuntimeError(f"the encoder pass did not take the kernels: {W.encoder_apply.blocks_by_route}")
+            with torch_route():
+                ref = W.encoder_apply(params, dims, mel).float()
+        diff = out - ref
+        rel_rms, rel_max = (diff.norm() / ref.norm()).item(), (diff.abs().max() / ref.abs().max()).item()
+        log(f"encoder pass, 2 turbo-width layers, B={B}: kernel route against torch route, relative rms "
+            f"{rel_rms:.3e} / max {rel_max:.3e} (tol {ENCODER_PASS_REL_RMS:.0e} / {ENCODER_PASS_REL_MAX:.0e})")
+        if not (rel_rms <= ENCODER_PASS_REL_RMS and rel_max <= ENCODER_PASS_REL_MAX):
+            raise RuntimeError(f"the encoder's kernel route disagrees with its torch route: {rel_rms}, {rel_max}")
+    del params
+    dims, params = encoder_params(device, 32, 22)
+    times = {}
+    for B in (1, 16):
+        mel = torch.randn((B, dims.n_mels, 3000), generator=gen, device=device)
+        with torch.inference_mode():
+            fused = graph_ms(lambda: W.encoder_apply(params, dims, mel), iters=10)
+            fused_wall = time_ms(lambda: W.encoder_apply(params, dims, mel), CUDA, iters=5)
+            with torch_route():
+                plain = graph_ms(lambda: W.encoder_apply(params, dims, mel), iters=10)
+                plain_wall = time_ms(lambda: W.encoder_apply(params, dims, mel), CUDA, iters=5)
+        log(f"turbo encoder pass (32 layers), B={B}: kernel route {fused:.3f} ms device, {fused_wall:.3f} ms "
+            f"back to back; torch route {plain:.3f} ms device, {plain_wall:.3f} ms back to back; per window "
+            f"{fused / B:.3f} against {plain / B:.3f} ms")
+        times[B] = (fused, plain)
+    log(f"encoder blocks by route: {dict(W.encoder_apply.blocks_by_route)}")
+    return times
 
 
 def check_e2(gen, device):
@@ -1172,10 +1443,12 @@ def check_int8_logits(gen, device):
 
 
 def reset_launches():
+    from whisper_tpu_torch.models.whisper import encoder_apply
     from whisper_tpu_torch.ops.kernels import (
         attention,
         attn_packed,
         dtw,
+        encoder_block,
         fused_step,
         logits,
         matmul_residual,
@@ -1184,6 +1457,10 @@ def reset_launches():
     )
 
     attention.attention.launches = 0
+    encoder_block.linear.launches = 0
+    encoder_block.linear.launches_by_layout.clear()
+    encoder_block.layer_norm.launches = 0
+    encoder_apply.blocks_by_route.clear()
     fused_step.fused_decoder_layers.launches = 0
     fused_step.fused_decoder_layers.launches_by_layout.clear()
     fused_step.int8_logits.launches = 0
@@ -1260,6 +1537,8 @@ def end_to_end(device, name: str = "turbo"):
     import whisper_tpu_torch
     from whisper_tpu_torch.models import KNOWN_MODELS
     from whisper_tpu_torch.models.whisper import init_params
+    from whisper_tpu_torch.models.whisper import encoder_apply
+    from whisper_tpu_torch.ops.kernels import encoder_block
     from whisper_tpu_torch.ops.kernels.attention import attention
     from whisper_tpu_torch.ops.kernels.fused_step import cross_attention, fused_decoder_layers
     from whisper_tpu_torch.tokenizer import LANGUAGES, get_tokenizer
@@ -1283,7 +1562,11 @@ def end_to_end(device, name: str = "turbo"):
     wall = time.perf_counter() - t0
     launches = {"encoder_attention": attention.launches,
                 "fused_decoder_layers": fused_decoder_layers.launches_by_layout[(1, 1)],
-                "decode_cross_attention": cross_attention.launches}
+                "decode_cross_attention": cross_attention.launches,
+                "encoder_linear": encoder_block.linear.launches, "layer_norm": encoder_block.layer_norm.launches,
+                "encoder_blocks_on_kernels": encoder_apply.blocks_by_route["kernels"]}
+    if encoder_apply.blocks_by_route["torch"]:
+        raise RuntimeError(f"bf16 encoder blocks took the torch route: {dict(encoder_apply.blocks_by_route)}")
     n_tokens = sum(len(s["tokens"]) for s in result["segments"])
     log(f"transcribe(jfk.flac, language=None): language {result['language']!r}, "
         f"{len(result['segments'])} segments, {n_tokens} tokens kept, "
@@ -3371,6 +3654,12 @@ def main() -> int:
     # this slice's kernels: K1 at head dim 128, E1-E3; K2 above 128 rows
     k1_128 = check_k1_d128(gen, device)
     e1 = check_e1(gen, device)
+    # the encoder block's GEMM and LayerNorm, and whole passes on each route
+    # (inputs from a generator of their own)
+    encoder_gen = torch.Generator(device=device).manual_seed(1500)
+    enc_linear = check_encoder_linear(encoder_gen, device)
+    enc_ln = check_layer_norm(encoder_gen, device)
+    check_encoder_pass(device)
     e2 = check_e2(gen, device)
     e3 = check_e3(gen, device)
     k2_160 = check_k2(gen, device, A=32, G=5, t=[(37 * i) % 257 for i in range(160)], label=" slices")
@@ -3524,6 +3813,16 @@ def main() -> int:
         dict(name="encoder_attention_d128", route="cuda", source="whisper_tpu_torch/csrc/attention.cu",
              replaces="whisper_tpu/ops/kernels/attention_pallas.py:62", launches=d128_launches,
              **k1_128[1, "bfloat16"]),
+        # the encoder block's GEMM, timed at one window (qkv: q, k and v in
+        # one launch; o: K1's layout in, bias and residual; fc1: bias and
+        # GELU; fc2: bias and residual) and at 16 (fc2), and its LayerNorm;
+        # launches: the greedy transcribe's (the encoder on the kernels)
+        *[dict(name=f"encoder_linear_{name}" + ("" if B == 1 else f"_b{B}"), route="cuda",
+               source="whisper_tpu_torch/csrc/encoder_block.cu", replaces=None,
+               launches=launches["encoder_linear"], **enc_linear[name, B])
+          for name, B in (("qkv", 1), ("o", 1), ("fc1", 1), ("fc2", 1), ("fc2", 16))],
+        dict(name="layer_norm", route="cuda", source="whisper_tpu_torch/csrc/encoder_block.cu",
+             replaces=None, launches=launches["layer_norm"], **enc_ln[1]),
         # E1-E3, launched by the experiments' entry points at their defaults
         dict(name="matmul_residual", route="cuda", source="whisper_tpu_torch/csrc/matmul_residual.cu",
              replaces="scripts/_matmul_pallas_experiment.py:44",

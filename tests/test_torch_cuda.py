@@ -1332,3 +1332,193 @@ def test_distill_on_mel_launches_k1_and_its_draft_decodes_exact(cuda):
     assert k2.fused_decoder_layers.launches > 0
     for p, s in zip(plain, spec):
         assert p.tokens == s.tokens and abs(p.avg_logprob - s.avg_logprob) < 1e-4
+
+
+# -- the encoder block's GEMM and LayerNorm (ops/kernels/encoder_block.py) --
+
+# (N, K, weights a launch) of each projection at turbo's and large-v3's
+# width; o reads K1's (B, H, T, D) layout, q, k and v write it
+ENCODER_PROJECTIONS = {"qkv": (1280, 1280, 3), "o": (1280, 1280, 1), "fc1": (5120, 1280, 1),
+                       "fc2": (1280, 5120, 1)}
+# a two-layer turbo-width encoder pass, kernel route against torch route:
+# both round in bf16 at the same places, so they part only where an f32
+# sum in another order rounds to the other neighbour, and that parting
+# runs on through the later products (relative RMS; largest error over
+# the largest |output|)
+ENCODER_PASS_REL_RMS, ENCODER_PASS_REL_MAX = 1e-2, 5e-2
+# LayerNorm: one ulp of the plain value (the two f32 values may straddle a
+# rounding boundary) and 1e-5 of the terms before they cancel, (|x| +
+# |mean|) rstd |g| + |b| (statistics summed in another order: the mean's
+# f32 error shows in x - mean, and xhat g may cancel b)
+LN_REL_SLACK = 1e-5
+
+
+@pytest.fixture
+def exact_reductions(cuda):
+    """The plain versions' cuBLAS products reduce in f32 (rounded once, as
+    the kernel's; the bound assumes it)."""
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+
+
+def _projection(cuda, seed, name, B, T, width=1280, heads=20):
+    """One projection's inputs: (x, weights, biases, residual); k has no
+    bias; x in K1's layout for o."""
+    N, K, segments = ENCODER_PROJECTIONS[name]
+    N, K = N * width // 1280, K * width // 1280
+    x = (_randn(cuda, seed, B, heads, T, K // heads, scale=0.5) if name == "o"
+         else _randn(cuda, seed, B, T, K, scale=0.5))
+    ws = [_randn(cuda, seed + 1 + s, N, K, scale=K ** -0.5) for s in range(segments)]
+    bs = [_randn(cuda, seed + 4 + s, N, scale=0.1) for s in range(segments)]
+    if name == "qkv":
+        bs[1] = None
+    res = _randn(cuda, seed + 7, B, T, N, scale=0.5) if name in ("o", "fc2") else None
+    return x, ws, bs, res, heads
+
+
+def _projection_ratio(name, x, ws, bs, res, heads) -> float:
+    """The kernel's largest error over its rounding bound, every output."""
+    from whisper_tpu_torch.ops.attention import split_heads
+    from whisper_tpu_torch.ops.kernels import encoder_block as eb
+
+    if name == "qkv":
+        args = (x, ws[0], bs[0], ws[1], bs[1], ws[2], bs[2], heads)
+        outs, refs = eb.qkv(*args), eb.qkv_plain(*args)
+    else:
+        kw = dict(gelu=name == "fc1", residual=res)
+        outs, refs = (eb.linear(x, ws[0], bs[0], **kw),), (eb.linear_plain(x, ws[0], bs[0], **kw),)
+    worst = 0.0
+    for out, ref, w, b in zip(outs, refs, ws, bs):
+        assert out.shape == ref.shape and out.dtype == ref.dtype == torch.bfloat16 and out.is_contiguous()
+        bound = eb.rounding_bound(x, w, b, gelu=name == "fc1", residual=res)
+        if name == "qkv":
+            bound = split_heads(bound, heads)
+        worst = max(worst, ((out.float() - ref.float()).abs() / bound).max().item())
+    return worst
+
+
+@pytest.mark.parametrize("name", list(ENCODER_PROJECTIONS))
+@pytest.mark.parametrize("B", [1, 7, 16])
+def test_encoder_linear_matches_plain(exact_reductions, name, B):
+    """Each epilogue at 1500 x {1, 7, 16} rows (a ragged last row tile,
+    both column tiles): every element within its rounding bound, one
+    launch counted under its epilogue."""
+    from whisper_tpu_torch.ops.kernels import encoder_block as eb
+
+    inputs = _projection(exact_reductions, 30 + B, name, B, 1500)
+    epilogue = {"qkv": "qkv", "o": "residual", "fc1": "gelu", "fc2": "residual"}[name]
+    launches = eb.linear.launches_by_layout[epilogue]
+    assert _projection_ratio(name, *inputs) <= 1.0
+    assert eb.linear.launches_by_layout[epilogue] == launches + 1
+
+
+@pytest.mark.parametrize("name", list(ENCODER_PROJECTIONS))
+@pytest.mark.parametrize("B,T", [(1, 1), (2, 100), (3, 129)])
+def test_encoder_linear_at_a_tiny_width(exact_reductions, name, B, T):
+    """Width 128 (two heads of 64, fc 512): a column tile past N, one row,
+    row tiles that end inside an audio."""
+    inputs = _projection(exact_reductions, 40 + T, name, B, T, width=128, heads=2)
+    assert _projection_ratio(name, *inputs) <= 1.0
+
+
+@pytest.mark.parametrize("B,T,C", [(1, 1500, 1280), (7, 1500, 1280), (16, 1500, 1280), (1, 1, 64),
+                                   (3, 333, 384), (2, 7, 2048)])
+def test_layer_norm_kernel_matches_plain(cuda, B, T, C):
+    from whisper_tpu_torch.ops.kernels import encoder_block as eb
+
+    x = (_randn(cuda, 50, B, T, C, dtype=torch.float32) * 2.0 + 0.5).to(torch.bfloat16)
+    g, b = (_randn(cuda, 51, C, scale=0.2, dtype=torch.float32) + 1.0).to(torch.bfloat16), _randn(cuda, 52, C, 
+                                                                                                  scale=0.2)
+    launches = eb.layer_norm.launches
+    out, ref = eb.layer_norm(x, g, b).float(), eb.layer_norm_plain(x, g, b).float()
+    assert eb.layer_norm.launches == launches + 1
+    xf = x.float()
+    mean, rstd = xf.mean(-1, keepdim=True), (xf.var(-1, keepdim=True, correction=0) + 1e-5).rsqrt()
+    bound = e1._ulp_bound(ref) + LN_REL_SLACK * ((xf.abs() + mean.abs()) * rstd * g.float().abs() + b.float().abs())
+    assert ((out - ref).abs() <= bound).all()
+
+
+def _encoder(cuda, layers: int, seed: int):
+    """Turbo-width encoder parameters (bf16), biases and gains drawn too."""
+    import dataclasses
+
+    from whisper_tpu_torch.models import KNOWN_MODELS
+    from whisper_tpu_torch.models.whisper import init_params
+
+    dims = dataclasses.replace(KNOWN_MODELS["turbo"], n_audio_layer=layers, n_text_layer=1)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    params = init_params(dims, gen, torch.bfloat16, cuda)
+    for key, v in params["encoder"]["blocks"].items():
+        if key.endswith(("_b", "_g")):
+            v.add_((torch.randn(v.shape, generator=gen, device=cuda) * 0.1).to(v.dtype))
+    return dims, params
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_encoder_pass_matches_the_torch_route(cuda, monkeypatch, B):
+    """Two turbo-width layers and ln_post on the kernels against the same
+    pass on the torch route (ENCODER_PASS_REL_RMS, _MAX)."""
+    from whisper_tpu_torch.models import whisper as W
+
+    dims, params = _encoder(cuda, 2, 60)
+    mel = _randn(cuda, 61, B, dims.n_mels, 3000, dtype=torch.float32)
+    with torch.inference_mode():
+        before = W.encoder_apply.blocks_by_route["kernels"]
+        out = W.encoder_apply(params, dims, mel).float()
+        assert W.encoder_apply.blocks_by_route["kernels"] == before + 2
+        monkeypatch.setattr(W, "_on_card", lambda x: False)
+        ref = W.encoder_apply(params, dims, mel).float()
+    diff = out - ref
+    assert (diff.norm() / ref.norm()).item() <= ENCODER_PASS_REL_RMS
+    assert (diff.abs().max() / ref.abs().max()).item() <= ENCODER_PASS_REL_MAX
+
+
+@pytest.mark.parametrize("case", ["bf16", "f32", "autograd", "int8"])
+def test_encoder_block_routes_on_the_card(cuda, case):
+    """A bf16 block takes the kernels: one q/k/v launch, two residual
+    epilogues (o, fc2), one GELU (fc1), two LayerNorms; f32, a pass that
+    takes gradients and an int8 weight keep the torch route."""
+    from whisper_tpu_torch.models import whisper as W
+    from whisper_tpu_torch.ops.kernels import encoder_block as eb
+
+    dims, params = _encoder(cuda, 1, 62)
+    p = {k: v[0] for k, v in params["encoder"]["blocks"].items()}
+    x = _randn(cuda, 63, 2, 1500, 1280, scale=0.5)
+    if case == "f32":
+        p, x = {k: v.float() for k, v in p.items()}, x.float()
+    elif case == "autograd":
+        p["fc1_w"] = p["fc1_w"].clone().requires_grad_(True)
+    elif case == "int8":
+        p["fc2_w"] = quantize_weight(p["fc2_w"])
+    before = (dict(W.encoder_apply.blocks_by_route), dict(eb.linear.launches_by_layout), eb.layer_norm.launches)
+    with torch.inference_mode(case != "autograd"):
+        out = W._encoder_block(x, p, 20)
+    kernels = case == "bf16"
+    routes = {r: W.encoder_apply.blocks_by_route[r] - before[0].get(r, 0) for r in ("kernels", "torch")}
+    assert routes == {"kernels": int(kernels), "torch": int(not kernels)}
+    launched = {e: eb.linear.launches_by_layout[e] - before[1].get(e, 0) for e in ("qkv", "residual", "gelu")}
+    assert launched == ({"qkv": 1, "residual": 2, "gelu": 1} if kernels else {"qkv": 0, "residual": 0, "gelu": 0})
+    assert eb.layer_norm.launches - before[2] == (2 if kernels else 0)
+    assert out.shape == x.shape and torch.isfinite(out.float()).all()
+
+
+def test_encoder_linear_refuses_what_it_does_not_take(cuda):
+    from whisper_tpu_torch.ops.kernels import encoder_block as eb
+
+    x, w = _randn(cuda, 70, 4, 64), _randn(cuda, 71, 128, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        eb.linear(_misaligned(x), w)
+    with pytest.raises(ValueError, match="bf16"):
+        eb.linear(x.float(), w.float())
+    with pytest.raises(ValueError, match="multiple"):
+        eb.linear(_randn(cuda, 72, 4, 48), _randn(cuda, 73, 128, 48))
+    with pytest.raises(ValueError, match="head dim"):
+        eb.linear(_randn(cuda, 74, 1, 2, 8, 32), _randn(cuda, 75, 128, 64))
+    with pytest.raises(ValueError, match="one epilogue"):
+        eb.linear(x, w, gelu=True, residual=_randn(cuda, 76, 4, 128))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        eb.qkv(_randn(cuda, 77, 1, 8, 64), w, None, w, None, w, None, 4)
+    with pytest.raises(ValueError, match="16-byte"):
+        eb.layer_norm(_misaligned(x), _randn(cuda, 78, 64), _randn(cuda, 79, 64))

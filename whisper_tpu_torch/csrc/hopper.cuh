@@ -11,7 +11,7 @@
 //   start at parity 0 on "full", the producer at parity 1 on "empty" (its
 //   first pass over the ring waits for nothing).
 // - TMA: cp.async.bulk.tensor 2-D and 3-D loads into shared memory,
-//   completing on an mbarrier.  The tensor map is built on the host per
+//   completing on an mbarrier, and 3-D stores from it in bulk groups.  The tensor map is built on the host per
 //   launch (make_tmap_bf16) and passed by value as a __grid_constant__
 //   kernel parameter, so a launch captured in a CUDA graph keeps its own.
 //   Boxes are 64 bf16 (128 bytes) wide with the 128-byte swizzle; rows or
@@ -165,6 +165,36 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// TMA stores from shared memory (the tensor map's box and swizzle, as the
+// loads); elements past the tensor's edges are not written.  The writing
+// threads make their shared-memory stores visible to TMA first
+// (fence_proxy_async); one thread issues the stores and commits them as a
+// bulk group, and waits for the group's reads of shared memory
+// (bulk_wait_read) before that memory is written again.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a barrier among `threads` threads of the block (named barrier `id`, 1-15)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // A row-major tensor of `rank` dims of `type` (dims[0] innermost,

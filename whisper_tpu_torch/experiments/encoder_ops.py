@@ -8,8 +8,9 @@ Times, in bf16 at large-v3's encoder shapes (batch 16 by default):
 - K1 (``ops.kernels.attention``) at head dim ``--d`` (64 or 128), beside
   ``scaled_dot_product_attention`` as the yardstick (never called by the
   port);
-- the MLP's fc2 with its residual, (B T, 4C) x (4C, C): the port's encoder
-  fc2 (``_linear`` then the residual add: the library GEMM and two adds),
+- the MLP's fc2 with its residual, (B T, 4C) x (4C, C): the encoder's
+  torch-route fc2 (``_linear`` then the residual add: the library GEMM and
+  two adds; the kernel route runs ``ops.kernels.encoder_block``),
   the f32-output product rounded once then the bias and residual, and E1
   (``ops.kernels.matmul_residual``, the fused epilogue);
 - fc1 + GELU, for reference.

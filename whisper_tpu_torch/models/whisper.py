@@ -14,6 +14,8 @@ along T.
 
 import base64
 import gzip
+import threading
+from collections import Counter
 from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -27,6 +29,8 @@ from ..ops.attention import (
     qkv_attention_kt,
     split_heads,
 )
+from ..ops.kernels import encoder_block as _kernels
+from ..ops.kernels.encoder_block import layer_norm_plain as layer_norm
 from ..parallel.mesh import copy_to_model, current_mesh, reduce_from_model
 from ..quantize import Int8Weight, take_layer
 from .dims import ModelDimensions
@@ -49,17 +53,6 @@ def sinusoids(length: int, channels: int, max_timescale: int = 10000) -> np.ndar
     return np.concatenate([np.sin(scaled_time), np.cos(scaled_time)], axis=1).astype(
         np.float32
     )
-
-
-def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """LayerNorm with float32 statistics, output cast back to input dtype."""
-    orig_dtype = x.dtype
-    x = x.float()
-    mean = x.mean(dim=-1, keepdim=True)
-    var = x.var(dim=-1, keepdim=True, correction=0)
-    x = (x - mean) * torch.rsqrt(var + 1e-5)
-    x = x * g.float() + b.float()
-    return x.to(orig_dtype)
 
 
 def _int8_product(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -165,10 +158,53 @@ class KVCache(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def _on_kernels(x: torch.Tensor, params) -> bool:
+    """Whether the encoder's kernels (:mod:`..ops.kernels.encoder_block`)
+    take x with these parameters: a bf16 CUDA activation (:func:`_on_card`,
+    which a CPU test may stand in for), plain bf16 tensors (no Int8Weight)
+    on its device, and no autograd (the kernels have no backward).  A CPU
+    tensor, f32 and a pass that takes gradients keep the torch ops."""
+    if not (_on_card(x) and x.dtype == torch.bfloat16):
+        return False
+    if not all(isinstance(v, torch.Tensor) and v.dtype == x.dtype and v.device == x.device for v in params):
+        return False
+    return not (torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)))
+
+
+def _block_on_kernels(x: torch.Tensor, p: Params, n_head: int) -> bool:
+    """Whether an encoder block takes the kernels: :func:`_on_kernels`, a
+    whole block (not a model shard, whose o and fc2 products are reduced
+    before their bias and residual) and a head dim a multiple of 64 (K1's
+    layout, read and written by the kernels)."""
+    return (not is_shard(p, x.shape[-1]) and (x.shape[-1] // n_head) % 64 == 0
+            and _on_kernels(x, list(p.values())))
+
+
+_route_lock = threading.Lock()
+
+
+def _count_route(route: str) -> None:
+    with _route_lock:
+        encoder_apply.blocks_by_route[route] += 1
+
+
 def _encoder_block(x: torch.Tensor, p: Params, n_head: int, attention=encoder_attention) -> torch.Tensor:
     """Pre-LN self-attention block (reference model.py:142-171, no
     cross-attn).  ``n_head``: the heads these parameters hold (a model
-    shard's H / model)."""
+    shard's H / model).
+
+    The route is the inputs': where :func:`_block_on_kernels` holds, the
+    block runs :func:`_encoder_block_kernels`; else the torch ops below.
+    Both round at the same places.  ``encoder_apply.blocks_by_route``
+    counts the blocks of each route."""
+    if _block_on_kernels(x, p, n_head):
+        _count_route("kernels")
+        return _encoder_block_kernels(x, p, n_head, attention)
+    _count_route("torch")
     tp = is_shard(p, x.shape[-1])
     h = layer_norm(x, p["attn_ln_g"], p["attn_ln_b"])
     if tp:
@@ -186,13 +222,32 @@ def _encoder_block(x: torch.Tensor, p: Params, n_head: int, attention=encoder_at
     return x + _linear_rows(h, p["fc2_w"], p["fc2_b"], tp)
 
 
+def _encoder_block_kernels(x: torch.Tensor, p: Params, n_head: int, attention=encoder_attention) -> torch.Tensor:
+    """The block on the encoder's kernels: no activation makes a trip
+    through memory for a pointwise operation.  LayerNorm in one pass; q, k
+    and v in one launch, stored in the (B, H, T, D) layout ``attention``
+    (K1) reads; the o projection reads its output in place and adds the
+    bias and residual in its epilogue; fc1 adds its bias and GELU, fc2 its
+    bias and the residual.  On a CPU tensor the kernels' plain versions,
+    which equal the torch route bit for bit."""
+    x = x.contiguous()  # the first block's x is the positional add's, (B, C, T) in memory
+    h = _kernels.layer_norm(x, p["attn_ln_g"], p["attn_ln_b"])
+    q, k, v = _kernels.qkv(h, p["q_w"], p["q_b"], p["k_w"], None, p["v_w"], p["v_b"], n_head)
+    x = _kernels.linear(attention(q, k, v).contiguous(), p["o_w"], p["o_b"], residual=x)
+    h = _kernels.layer_norm(x, p["mlp_ln_g"], p["mlp_ln_b"])
+    h = _kernels.linear(h, p["fc1_w"], p["fc1_b"], gelu=True)
+    return _kernels.linear(h, p["fc2_w"], p["fc2_b"], residual=x)
+
+
 def encoder_apply(
     params: Params, dims: ModelDimensions, mel: torch.Tensor, *, attention=encoder_attention
 ) -> torch.Tensor:
     """mel (B, n_mels, 3000) -> audio features (B, n_audio_ctx, n_audio_state).
 
     Two stride-1/stride-2 convs + GELU, sinusoidal positions, N pre-LN
-    blocks, final LayerNorm (reference model.py:188-204).  ``attention``
+    blocks, final LayerNorm (reference model.py:188-204); the blocks and
+    the final LayerNorm take the encoder's kernels where the inputs allow
+    (:func:`_encoder_block`).  ``attention``
     (q, k, v) -> out is the blocks' self-attention: by default
     :func:`encoder_attention` (kernel K1 on a CUDA tensor, which has no
     backward); a training pass gives the differentiable torch ops
@@ -209,9 +264,17 @@ def encoder_apply(
     assert x.shape[1] == dims.n_audio_ctx, "incorrect audio shape"
     x = x + enc["pos"]
     n_head = n_heads(enc["blocks"]["q_w"], dims.n_audio_state, dims.n_audio_head)
-    for p in _layers(enc["blocks"], dims.n_audio_layer):
+    layers = _layers(enc["blocks"], dims.n_audio_layer)
+    for p in layers:
         x = _encoder_block(x, p, n_head, attention)
-    return layer_norm(x, enc["ln_post_g"], enc["ln_post_b"])
+    g, b = enc["ln_post_g"], enc["ln_post_b"]
+    # ln_post takes the route the blocks took (the torch route's output may
+    # keep the first block's (B, C, T) layout)
+    on_kernels = bool(layers) and _block_on_kernels(x, layers[-1], n_head) and _on_kernels(x, [g, b])
+    return (_kernels.layer_norm if on_kernels else layer_norm)(x, g, b)
+
+
+encoder_apply.blocks_by_route = Counter()  # "kernels" / "torch" -> encoder blocks run
 
 
 # ---------------------------------------------------------------------------

@@ -27,13 +27,13 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libwhisper_kernels.so")
 SOURCES = ("attention.cu", "fused_step.cu", "median.cu", "dtw.cu", "matmul_residual.cu",
-           "logits.cu", "attn_packed.cu")
+           "logits.cu", "attn_packed.cu", "encoder_block.cu")
 HEADERS = ("common.cuh", "mma.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo",
 )
-# K1's and E1's bf16 kernels build TMA tensor maps on the host with
+# K1's, E1's and the encoder GEMM's bf16 kernels build TMA tensor maps on the host with
 # cuTensorMapEncodeTiled, which libcuda exports, so the library links
 # libcuda (the toolkit's stub at link time, the installed one at run time)
 LINK_FLAGS = ("-lcuda",)
@@ -73,6 +73,12 @@ SIGNATURES = {
     "dtw_chain": [_P, _P, _P, _I, _P],
     # dtype, x, w, bias, res, out, M, K, N, stream
     "matmul_residual": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # epilogue (0 bias, 1 GELU, 2 residual), column tile, x in K1's layout,
+    # outputs in K1's layout, segments; x, three weights, three biases (or
+    # null), res (or null), three outputs; G, T, K, N, D, stream
+    "encoder_linear": [_I] * 5 + [_P] * 11 + [_I] * 5 + [_P],
+    # x, g, b, out, rows, C, stream
+    "layer_norm_rows": [_P] * 4 + [ctypes.c_longlong, _I, _P],
     # layout (0: (V, C), 1: (C, V)), B, C, V, x, emb, out, stream
     "logits_streamed": [_I] * 4 + [_P] * 4,
     # packed, g, Q, T, reps, eps (float), q, k0, v0, k1, v1, out, stream

@@ -6,9 +6,11 @@ the experiment of a fused fc2 epilogue for the encoder's MLP: ``res +
 res's dtype, then the bias and the residual in that dtype.  The kernel is
 ``whisper_tpu_torch/csrc/matmul_residual.cu`` (its header says what bounds
 it and how it is laid out); :func:`matmul_residual_plain` is the same
-function in PyTorch.  No model path calls it: the encoder's fc2 stays
-``_linear`` plus the residual add, and the experiment
-(:mod:`whisper_tpu_torch.experiments.encoder_ops`) times the two.
+function in PyTorch.  No model path calls it, and the experiment
+(:mod:`whisper_tpu_torch.experiments.encoder_ops`) times it beside
+``_linear`` plus the residual add.  The encoder's fc2 runs on its
+successor, the encoder block's GEMM (:mod:`.encoder_block`: the weight
+in its own (out, in) layout, the epilogue stored by TMA).
 """
 
 import torch
