@@ -3,14 +3,15 @@ process at the cell's own traffic and sizes, each with a short window:
 the port as the configuration states it (``--seeds``, a dozen or more),
 the control (``--control-seeds``, three or more: the reference with
 float8 products put in the port's place), and the port with each planted
-fault of ``harness/faults.py`` (``--fault-seeds``).
+fault of the cell's model family (``FAULTS`` of ``families/<family>.py``,
+``--fault-seeds``).
 
     python3 benchmark/calibrate.py --workload large-v3.batch16 --seconds 1 \\
         --seeds 11 12 13 ... --control-seeds 21 22 23 --fault-seeds 31 32 33
 
 One JSON line a seed and side (``program``, ``control``, or
 ``fault:<name>``): each number compared with the reference
-(``harness/check.py``) and whether the cell's limits pass it.  A limit
+(``judge`` of the family) and whether the cell's limits pass it.  A limit
 lies above the largest reading of the port and below the smallest of the
 control; ``PERF.md`` records both, and the faults' readings beside them.
 Needs a CUDA card.
@@ -44,15 +45,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
         return 2
-    from benchmark.harness import cell, check, faults, spec
+    from benchmark.harness import cell, check, spec
 
     device = torch.device("cuda", 0)
     c = spec.Cell(args.workload)
+    faults = c.family.FAULTS
     sides = [("program", s) for s in args.seeds] + [("control", s) for s in args.control_seeds] + \
-            [(f"fault:{name}", s) for name in faults.FAULTS for s in args.fault_seeds]
+            [(f"fault:{name}", s) for name in faults for s in args.fault_seeds]
     for side, seed in sides:
         t = time.perf_counter()
-        fault = faults.FAULTS[side[6:]]() if side.startswith("fault:") else contextlib.nullcontext()
+        fault = faults[side[6:]]() if side.startswith("fault:") else contextlib.nullcontext()
         run = cell.Run(c, seed, args.seconds, False, device, t)
         with fault:
             run.setup(warm=False)

@@ -1,5 +1,6 @@
 """The yardstick: an H100 SXM's published peaks, and the operations and
-bytes of the port's work counted from shapes.
+bytes of K1's and K2's work counted from shapes (a model family's own
+operations are the family's: ``window_ops``).
 
 The peaks are NVIDIA's data sheet's, dense, at a 700 W power limit:
 3.35 TB/s of HBM3, 989 TFLOP/s in bf16 on the tensor cores.  The counts
@@ -42,20 +43,3 @@ def k2_launch_bytes(dims: Dict[str, int], rows: int, audios: int, t_cache: int,
     io = 2 * rows * C + 2 * L * rows * C
     return float(elem * (weights + cross + self_kv + io))
 
-
-def window_ops(dims: Dict[str, int], prompt: int, steps: int) -> float:
-    """Model operations of one 30 s window: the encoder (two convolutions,
-    the blocks' projections, MLP and attention), the cross K/V, the prompt
-    prefill (causal self-attention, cross-attention, its logits at the SOT
-    and the last position), and per decoded token the decoder at its
-    position and the logits."""
-    M, Ta, C, Le = dims["n_mels"], dims["n_audio_ctx"], dims["n_audio_state"], dims["n_audio_layer"]
-    Cd, Ld, V = dims["n_text_state"], dims["n_text_layer"], dims["n_vocab"]
-    frames = 2 * Ta
-    encoder = (2 * 3 * M * C * frames + 2 * 3 * C * C * Ta
-               + Le * (2 * Ta * 12 * C * C + 4 * Ta * Ta * C))
-    cross_kv = Ld * 2 * Ta * 2 * Cd * C
-    per_layer = 2 * 14 * Cd * Cd  # q, k, v, o, xq, xo, fc1, fc2 per token
-    prefill = Ld * (prompt * per_layer + 2 * prompt * prompt * Cd + 4 * prompt * Ta * Cd) + 2 * 2 * V * Cd
-    decode = sum(Ld * (per_layer + 4 * (prompt + s) * Cd + 4 * Ta * Cd) + 2 * V * Cd for s in range(steps))
-    return float(encoder + cross_kv + prefill + decode)

@@ -1,15 +1,14 @@
 """One run of one cell: set-up, the measured window, the metrics, the
 comparison with the reference, and the result line.
 
-The port (``whisper_tpu_torch``) is driven through its public entry points
-by the driver of the mix's kind (``kinds/<kind>.py``), its weights given as
-an official-layout state_dict through
-``models.load.convert_torch_state_dict``, and its windows pinned through its
-benchmark hook ``DecodingTask._forced_tokens``.  A traced window installs
-every probe of ``probes/``.
+What depends on the model comes from the configuration's family
+(``families/<family>.py``): the seeded inputs it pins in the port, the
+port's model, the work of each window and the comparison with its
+reference.  The port (``whisper_tpu_torch``) is driven through its public
+entry points by the driver of the mix's kind (``kinds/<kind>.py``).  A
+traced window installs every probe of ``probes/``.
 """
 
-import collections
 import contextlib
 import gc
 import sys
@@ -18,11 +17,10 @@ from typing import Dict, List
 
 import torch
 
-from . import check, spec, traffic, weights
+from . import check, spec, traffic
 from .trace import WINDOW, profiled, span
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "whisper_tpu")
-PROMPT_MAX = 223
 
 
 class SilentMetric(RuntimeError):
@@ -34,45 +32,6 @@ def forbidden_modules() -> List[str]:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
 
-def build_model(cell: spec.Cell, seed: int, device):
-    """The port's model from the seeded official-layout state_dict, in the
-    configuration's dtype; quantized where the configuration names a
-    ``quantize`` mode of the port's (``quantize.quantize_params``)."""
-    from whisper_tpu_torch.models import ModelDimensions, Whisper
-    from whisper_tpu_torch.models.load import convert_torch_state_dict
-
-    dims = ModelDimensions(**cell.dims)
-    dtype = getattr(torch, cell.config["dtype"])
-    state = weights.make_state_dict(cell.dims, cell.config["assumed"]["weights"], seed, dtype, device)
-    params = convert_torch_state_dict(state, dims, dtype=dtype, device=device)
-    del state
-    quantize = cell.config.get("quantize")
-    if quantize is not None:
-        from whisper_tpu_torch.quantize import quantize_params
-
-        params = quantize_params(params, logits=quantize == "int8+logits")
-    return Whisper(dims, params)
-
-
-def window_work(results: List[dict]) -> List[tuple]:
-    """(prompt length, decoded tokens) of every window of the results, the
-    prompt as transcribe builds it from the file's earlier segments."""
-    out = []
-    for r in results:
-        history: List[int] = []
-        for s in r["segments"]:
-            prompt = history[-PROMPT_MAX:]
-            out.append(((1 + len(prompt) if prompt else 0) + 3, len(s["tokens"]) + 1))
-            history += list(s["tokens"])
-    return out
-
-
-def _k2_layouts() -> collections.Counter:
-    from whisper_tpu_torch.ops.kernels import fused_step
-
-    return collections.Counter(fused_step.fused_decoder_layers.launches_by_layout)
-
-
 class Run:
     """Drives one cell; its attributes are what the metric readers read."""
 
@@ -80,6 +39,7 @@ class Run:
         self.cell, self.seed, self.seconds, self.traced = cell, seed, seconds, traced
         self.device, self.t0 = device, t0
         self.kind = spec.kind(cell.mix)
+        self.family = cell.family
         self.dims = cell.dims
         self.trace = None
         self.stats: Dict[str, int] = {}
@@ -93,11 +53,9 @@ class Run:
     # -- set-up ---------------------------------------------------------------
 
     def setup(self, warm: bool = True) -> None:
-        """The kernel library, the inputs, the model, and the kind's set-up
-        (with ``warm``, one round of the cell's own traffic); each step's
-        time goes to the log."""
-        from whisper_tpu_torch.decoding import DecodingTask
-
+        """The kernel library, the inputs (pinned in the port by the
+        family), the model, and the kind's set-up (with ``warm``, one round
+        of the cell's own traffic); each step's time goes to the log."""
         steps, t = [f"imports {time.perf_counter() - self.t0:.3f} s"], time.perf_counter()
 
         def done(what: str) -> None:
@@ -114,11 +72,10 @@ class Run:
             done("kernel library (built)" if built else "kernel library")
         mix = self.cell.mix
         self.wave = traffic.waveform(self.seed, mix["audio_s"])
-        self.forced = traffic.forced_sequence(self.seed, mix["forced"], self.cell.vocab)
+        self.family.pin(self)
         done("inputs")
-        self.model = build_model(self.cell, self.seed, self.device)
+        self.model = self.family.build_model(self.cell, self.seed, self.device)
         done("weights")
-        DecodingTask._forced_tokens = self.forced
         self.kind.setup(self, warm)
         done("warm-up")
         self.log.append("set-up: " + ", ".join(steps))
@@ -133,7 +90,6 @@ class Run:
         self.setup_s = time.perf_counter() - self.t0
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
-        layouts0 = _k2_layouts()
         batcher = getattr(self, "batcher", None)
         stats0 = dict(batcher.stats) if batcher is not None else {}
         with contextlib.ExitStack() as stack:
@@ -144,7 +100,6 @@ class Run:
             with span(WINDOW, self.traced):
                 self.kind.window(self)
         self.trace = holder.trace if self.traced else None
-        self.layouts = _k2_layouts() - layouts0
         if batcher is not None:
             self.stats = {k: v - stats0.get(k, 0) for k, v in batcher.stats.items()}
         self.peak_bytes = torch.cuda.max_memory_allocated(self.device) if self.device.type == "cuda" else 0
@@ -153,10 +108,8 @@ class Run:
 
     def close(self) -> None:
         """Free the port's state (the reference runs after it)."""
-        from whisper_tpu_torch.decoding import DecodingTask
-
         self.kind.close(self)
-        DecodingTask._forced_tokens = None
+        self.family.unpin()
         del self.model
         gc.collect()
         if self.device.type == "cuda":
@@ -170,7 +123,7 @@ class Run:
     def per_layer(self) -> Dict[str, Dict]:
         """Every per-layer metric of the cell; one that reads nothing
         raises :class:`SilentMetric`, since the cell lists it."""
-        self.windows = window_work([r for r in self.results if isinstance(r, dict)])
+        self.windows = self.family.window_work(self.results)
         out, silent = {}, []
         for m in self.cell.per_layer:
             value = spec.metric_reader(m["name"])(self)
@@ -187,11 +140,9 @@ class Run:
         reference with float8 products in the port's place (the control)."""
         lengths = [len(f) for f in self.files]
         picked = check.sample(lengths, self.cell.mix["check"]["requests"], self.seed)
-        checks, self.readings, log = check.judge(
-            self.cell, self.seed, self.forced, [self.files[i] for i in picked],
-            [self.results[i] for i in picked], self.device, self.failed, products)
+        self.readings, log = self.family.judge(self, picked, products)
         self.log.append(log)
-        return checks
+        return {k: {"value": self.readings[k], "limit": v} for k, v in self.cell.limits.items()}
 
 
 def run(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t0: float) -> dict:

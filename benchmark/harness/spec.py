@@ -1,6 +1,7 @@
 """Finds a cell's pieces by the names in ``BENCHMARK.json``: its
-configuration (``configs/<config>.json``), its traffic mix
-(``traffic/<traffic>.json``), the driver of the mix's kind
+configuration (``configs/<config>.json``) and the module of the model
+family that the configuration names (``families/<family>.py``), its
+traffic mix (``traffic/<traffic>.json``), the driver of the mix's kind
 (``kinds/<kind>.py``), its correctness limits (``limits/<cell>.json``) and
 the reader of each per-layer metric (``metrics/<metric>.py``); and every
 probe of a traced window (``probes/*.py``)."""
@@ -38,7 +39,6 @@ class Cell:
         self.config = _json(os.path.join(ROOT, config["file"]))
         self.mix = _json(os.path.join(BENCH_DIR, "traffic", self.workload["traffic"] + ".json"))
         self.limits = _json(os.path.join(BENCH_DIR, "limits", name + ".json"))
-        self.vocab = _json(os.path.join(BENCH_DIR, "reference", f"vocab_{self.config['dims']['n_vocab']}.json"))
         self.end_to_end: List[Dict] = [m for m in bench["end_to_end"]
                                        if name in m.get("workloads", [name])]
         moved = {m["name"] for m in self.end_to_end}
@@ -47,18 +47,24 @@ class Cell:
                                       if name in m.get("workloads", [name] if m["moves"] in moved else [])]
 
     @classmethod
-    def of(cls, name: str, config: Dict, mix: Dict, limits: Dict, vocab: Dict,
+    def of(cls, name: str, config: Dict, mix: Dict, limits: Dict,
            end_to_end: List[Dict], per_layer: List[Dict]) -> "Cell":
         """A cell from its pieces, not from files (the benchmark's tests)."""
         cell = cls.__new__(cls)
         cell.name, cell.workload = name, {"name": name}
-        cell.config, cell.mix, cell.limits, cell.vocab = config, mix, limits, vocab
+        cell.config, cell.mix, cell.limits = config, mix, limits
         cell.end_to_end, cell.per_layer = end_to_end, per_layer
         return cell
 
     @property
     def dims(self) -> Dict[str, int]:
         return self.config["dims"]
+
+    @property
+    def family(self):
+        """The module of the configuration's model family,
+        ``families/<family>.py``."""
+        return module("families", self.config["family"])
 
 
 def module(folder: str, name: str):

@@ -1,6 +1,7 @@
 """The one generator of every traffic mix: it reads a mix's parameters
 (``benchmark/traffic/<name>.json``) and a seed, and returns the audio, the
-lengths, the schedule and the forced token sequence.
+lengths and the schedule.  What a mix asks of a model family (Whisper's
+forced token sequence) the family draws from the seed itself.
 
 Every seed gets the same lengths and gaps between arrivals, so that the
 seed changes the inputs and not the amount of work: lengths are the
@@ -15,7 +16,6 @@ from typing import Dict, List
 import numpy as np
 
 SAMPLE_RATE = 16000
-TIME_PRECISION = 0.02
 
 
 def rng(seed: int, *stream: int) -> np.random.Generator:
@@ -46,18 +46,6 @@ def waveform(seed: int, seconds: float) -> np.ndarray:
                 for f in r.uniform(120, 2400, size=4))
     wave = envelope * (0.25 * tones + r.standard_normal(n))
     return (wave / np.abs(wave).max()).astype(np.float32)
-
-
-def forced_sequence(seed: int, spec: Dict, vocab: Dict) -> List[int]:
-    """The pinned greedy sequence: the timestamp 0.00, text ids drawn from
-    the seed among the ordinary tokens that no filter suppresses, a closing
-    timestamp, EOT."""
-    banned = set(vocab["suppress"]) | set(vocab["blank"])
-    allowed = np.array([i for i in range(vocab["eot"]) if i not in banned])
-    text = rng(seed, 2).choice(allowed, size=spec["text_tokens"])
-    tsb = vocab["timestamp_begin"]
-    close = tsb + round(spec["closing_timestamp_s"] / TIME_PRECISION)
-    return [tsb] + [int(x) for x in text] + [close, vocab["eot"]]
 
 
 def clips(seed: int, lengths: np.ndarray, wave: np.ndarray, stream: int) -> List[np.ndarray]:

@@ -1,6 +1,6 @@
 """mfu_pct.serve: the model operations of the requests served in the traced
-window (``arith.window_ops``) over the wall of the server's batch rounds
-(``bench.round`` spans) at 989 TFLOP/s."""
+window (the family's ``window_ops``) over the wall of the server's batch
+rounds (``bench.round`` spans) at 989 TFLOP/s."""
 
 from benchmark.harness import arith
 from benchmark.harness.trace import ROUND, union
@@ -12,5 +12,5 @@ def read(run):
     wall = sum(b - a for a, b in union(run.trace.spans.get(ROUND, [])))
     if wall <= 0:
         return None
-    ops = sum(arith.window_ops(run.dims, prompt, steps) for prompt, steps in run.windows)
+    ops = sum(run.family.window_ops(run.dims, *work) for work in run.windows)
     return 100.0 * ops / arith.PEAK_OPS_PER_S / wall

@@ -1,12 +1,15 @@
 """Each K2 step's rows, audios, cache length and positions, recorded around
 the engine's two kernel step functions (``engine.decoder_step_fused`` and
 ``engine.decoder_step_fused_pending``) as ``run.k2``; ``k2.roofline_pct``
-counts the bytes of these launches.
+counts the bytes of these launches.  Beside them, as ``run.layouts``, the
+window's K2 launches by layout, from the port's counter
+``fused_decoder_layers.launches_by_layout`` (``batch.rows_per_step``).
 
 Nothing is read back from the card while the window runs: a position
 tensor is kept as it is and read once the window has closed.
 """
 
+import collections
 import contextlib
 from typing import List
 
@@ -39,11 +42,18 @@ class K2Steps:
         return out
 
 
+def _layouts() -> collections.Counter:
+    from whisper_tpu_torch.ops.kernels import fused_step
+
+    return collections.Counter(fused_step.fused_decoder_layers.launches_by_layout)
+
+
 @contextlib.contextmanager
 def install(run):
     from whisper_tpu_torch import engine
 
     run.k2 = steps = K2Steps()
+    layouts0 = _layouts()
     step, pending = engine.decoder_step_fused, engine.decoder_step_fused_pending
 
     def step_probe(params, dims, tokens, t, cache):
@@ -59,3 +69,4 @@ def install(run):
         yield
     finally:
         engine.decoder_step_fused, engine.decoder_step_fused_pending = step, pending
+        run.layouts = _layouts() - layouts0

@@ -44,13 +44,11 @@ def tiny(kind: str, dtype: str = "bfloat16") -> spec.Cell:
     else:
         mix.update(rate_per_s=20.0, warmup_s=0.5, batch_size=4)
         mix["check"]["requests"] = 10  # every request of a 0.5 s window
-    return spec.Cell.of(name, cfg, mix, dict(TINY_LIMITS), cell.vocab, cell.end_to_end, cell.per_layer)
+    return spec.Cell.of(name, cfg, mix, dict(TINY_LIMITS), cell.end_to_end, cell.per_layer)
 
 
 @pytest.fixture(autouse=True)
 def _no_forced_tokens():
     """A failed run leaves no pinned sequence behind for the next test."""
     yield
-    from whisper_tpu_torch.decoding import DecodingTask
-
-    DecodingTask._forced_tokens = None
+    spec.module("families", "whisper").unpin()

@@ -7,6 +7,8 @@ import pytest
 
 from benchmark.harness import arith, spec, trace
 
+whisper = spec.module("families", "whisper")
+
 DIMS = dict(n_mels=2, n_audio_ctx=3, n_audio_state=4, n_audio_head=2, n_audio_layer=1,
             n_vocab=5, n_text_ctx=8, n_text_state=4, n_text_head=2, n_text_layer=2)
 
@@ -34,7 +36,7 @@ def test_window_operations():
     cross = L * 2 * Ta * 2 * C * C
     prefill = L * (1 * 28 * C * C + 2 * 1 * C + 4 * 1 * Ta * C) + 4 * V * C
     decode = sum(L * (28 * C * C + 4 * (1 + s) * C + 4 * Ta * C) + 2 * V * C for s in range(2))
-    assert arith.window_ops(DIMS, prompt=1, steps=2) == encoder + cross + prefill + decode
+    assert whisper.window_ops(DIMS, prompt=1, steps=2) == encoder + cross + prefill + decode
 
 
 def test_bound_takes_the_slower_of_bytes_and_operations():
@@ -111,7 +113,7 @@ def test_metric_readers_on_a_made_up_trace():
     t = made_up_trace()
     assert t.window_s == pytest.approx(10.0) and t.busy_s() == pytest.approx(2.0)
     dims = dict(DIMS, n_audio_ctx=1500, n_audio_state=1280, n_audio_head=20, n_audio_layer=32)
-    run = SimpleNamespace(trace=t, dims=dims, rounds=SimpleNamespace(audios=[1, 2]), windows=[(4, 10)], stats={"requests": 30, "batches": 4},
+    run = SimpleNamespace(trace=t, dims=dims, family=whisper, rounds=SimpleNamespace(audios=[1, 2]), windows=[(4, 10)], stats={"requests": 30, "batches": 4},
                           layouts={(16, 1): 3, (4, 1, "pending"): 1},
                           k2=SimpleNamespace(launches=lambda: [(2, 2, 8, [1, 2], 0)]))
     ops, nbytes = arith.k1_ops(dims, 3)
@@ -121,7 +123,7 @@ def test_metric_readers_on_a_made_up_trace():
     assert reader("idle_pct.batch")(run) == pytest.approx(80.0)
     # rounds: [1, 3] busy 1.5 (the kernels), [5, 6] busy 0.5 (the copy)
     assert reader("idle_pct.serve")(run) == pytest.approx(100 * (1 - 2.0 / 3.0))
-    win = arith.window_ops(dims, 4, 10)
+    win = whisper.window_ops(dims, 4, 10)
     assert reader("mfu_pct.batch")(run) == pytest.approx(100 * win / arith.PEAK_OPS_PER_S / 10.0)
     assert reader("mfu_pct.serve")(run) == pytest.approx(100 * win / arith.PEAK_OPS_PER_S / 3.0)
     assert reader("serve.rows_per_batch")(run) == pytest.approx(7.5)

@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.harness import cell, check, faults
+from benchmark.harness import cell, check, spec
 from benchmark.reference import whisper_ref
 from conftest import tiny
+
+FAULTS = spec.module("families", "whisper").FAULTS
 
 
 def run_tiny(kind, products=None):
@@ -68,9 +70,9 @@ def test_a_metric_that_reads_nothing_stops_the_run():
         cell.run(tiny("serve"), 2**31 + 98, 0.5, True, torch.device("cpu"), time.perf_counter())
 
 
-@pytest.mark.parametrize("fault", sorted(faults.FAULTS))
+@pytest.mark.parametrize("fault", sorted(FAULTS))
 @pytest.mark.parametrize("kind", ["batch", "serve"])
 def test_a_broken_timed_path_is_not_correct(kind, fault):
-    with faults.FAULTS[fault]():
+    with FAULTS[fault]():
         ok, readings = run_tiny(kind)
     assert not ok, readings

@@ -1,9 +1,11 @@
 """BENCHMARK.json and the files it names: every cell finds its pieces by
-name, and the file keeps to the benchmark's contract."""
+name, its model family among them, and the file keeps to the benchmark's
+contract."""
 
 import json
 import os
 import re
+from types import SimpleNamespace
 
 import pytest
 
@@ -12,6 +14,8 @@ from benchmark.harness import spec
 BENCH = spec.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+# what the harness calls of a model family (families/<family>.py)
+FAMILY = ("pin", "unpin", "build_model", "judge", "window_work", "window_ops")
 
 
 @pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
@@ -20,8 +24,10 @@ def test_a_cell_finds_its_files_by_name(name):
     assert cell.config["name"] == cell.workload["config"]
     kind = spec.kind(cell.mix)
     assert all(callable(getattr(kind, f)) for f in ("setup", "window", "values", "close"))
-    assert {"segments_wrong", "failed"} <= set(cell.limits)
-    assert cell.vocab["n_vocab"] == cell.dims["n_vocab"]
+    family = cell.family
+    assert all(callable(getattr(family, f)) for f in FAMILY)
+    assert family.FAULTS and all(callable(f) for f in family.FAULTS.values())
+    assert cell.limits["failed"] == 0
     assert {m["name"] for m in cell.end_to_end} >= {"setup_s", "peak_mem_gib"}
     assert len(cell.end_to_end) >= 3 and cell.per_layer
     for m in cell.per_layer:
@@ -29,10 +35,43 @@ def test_a_cell_finds_its_files_by_name(name):
         assert m["moves"] in {e["name"] for e in cell.end_to_end}
 
 
-def test_every_probe_installs():
-    probes = {p.__name__.rsplit("_probes_", 1)[-1] for p in spec.probes()}
-    assert probes == {"k2_steps", "rounds"}
-    assert all(callable(p.install) for p in spec.probes())
+@pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]
+                                  if spec.Cell(w["name"]).config["family"] == "whisper"])
+def test_a_whisper_cell_reads_its_vocabulary_and_compares_its_segments(name):
+    cell = spec.Cell(name)
+    assert cell.family.vocabulary(cell.config)["n_vocab"] == cell.dims["n_vocab"]
+    assert cell.limits["segments_wrong"] == 0
+
+
+PROBES = sorted(f[:-3] for f in os.listdir(os.path.join(spec.BENCH_DIR, "probes"))
+                if f.endswith(".py") and not f.startswith("_"))
+
+
+def test_every_probe_is_found():
+    assert [p.__name__.rsplit("_probes_", 1)[-1] for p in spec.probes()] == PROBES
+
+
+@pytest.mark.parametrize("name", PROBES)
+def test_every_probe_installs(name):
+    """Installed over a window in which the port runs nothing (a model that
+    never calls what the probe wraps), a probe does no harm: it opens and
+    closes, and leaves the port's functions as they were."""
+    import torch
+
+    from whisper_tpu_torch import engine
+
+    probe = spec.module("probes", name)
+    assert callable(probe.install)
+    cell = spec.Cell(BENCH["workloads"][0]["name"])
+    before = {k: getattr(engine, k) for k in dir(engine) if callable(getattr(engine, k))}
+    for batcher in (None, SimpleNamespace(stats={"requests": 0, "batches": 0, "taken": 0, "queue_wait_s": 0.0},
+                                          _transcribe_batch=lambda model, audios, **kw: [])):
+        run = SimpleNamespace(cell=cell, device=torch.device("cpu"), log=[], batcher=batcher)
+        inner = getattr(batcher, "_transcribe_batch", None)
+        with probe.install(run):
+            pass
+        assert getattr(batcher, "_transcribe_batch", None) is inner
+    assert {k: getattr(engine, k) for k in before} == before
 
 
 def test_benchmark_json_keeps_to_its_contract():
@@ -68,10 +107,10 @@ def test_a_configuration_states_its_quantization():
     from whisper_tpu_torch.quantize import Int8Weight
 
     c = tiny("batch")
-    plain = cell.build_model(c, 3, torch.device("cpu"))
+    plain = c.family.build_model(c, 3, torch.device("cpu"))
     c.config["quantize"] = "int8"
     c.config["transcribe_options"] = {"kv_cache_dtype": "int8"}
-    quantized = cell.build_model(c, 3, torch.device("cpu"))
+    quantized = c.family.build_model(c, 3, torch.device("cpu"))
     q_w = lambda m: m.params["decoder"]["blocks"]["q_w"]
     assert not isinstance(q_w(plain), Int8Weight) and isinstance(q_w(quantized), Int8Weight)
     run = cell.Run(c, 3, 1.0, False, torch.device("cpu"), 0.0)

@@ -1,21 +1,23 @@
-"""The traffic generator: a seed gives the same inputs every time, and
-every seed the same amount of work."""
+"""The traffic generator and the Whisper family's forced sequence: a seed
+gives the same inputs every time, and every seed the same amount of
+work."""
 
 import numpy as np
 
 from benchmark.harness import spec, traffic
 
 BIG = 2**31 + 12345
+whisper = spec.module("families", "whisper")
 
 
 def test_waveform_and_forced_sequence_repeat_for_a_seed():
     a, b = traffic.waveform(BIG, 3.0), traffic.waveform(BIG, 3.0)
     assert a.dtype == np.float32 and a.shape == (48000,) and np.array_equal(a, b)
     assert not np.array_equal(a, traffic.waveform(BIG + 1, 3.0))
-    vocab = spec.Cell("large-v3.batch16").vocab
-    mix = spec.Cell("large-v3.batch16").mix
-    f = traffic.forced_sequence(BIG, mix["forced"], vocab)
-    assert f == traffic.forced_sequence(BIG, mix["forced"], vocab)
+    cell = spec.Cell("large-v3.batch16")
+    vocab, mix = whisper.vocabulary(cell.config), cell.mix
+    f = whisper.forced_sequence(BIG, mix["forced"], vocab)
+    assert f == whisper.forced_sequence(BIG, mix["forced"], vocab)
     tsb = vocab["timestamp_begin"]
     assert len(f) == mix["forced"]["text_tokens"] + 3
     assert f[0] == tsb and f[-2] == tsb + 1500 and f[-1] == vocab["eot"]
