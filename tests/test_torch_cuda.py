@@ -1522,3 +1522,49 @@ def test_encoder_linear_refuses_what_it_does_not_take(cuda):
         eb.qkv(_randn(cuda, 77, 1, 8, 64), w, None, w, None, w, None, 4)
     with pytest.raises(ValueError, match="16-byte"):
         eb.layer_norm(_misaligned(x), _randn(cuda, 78, 64), _randn(cuda, 79, 64))
+
+
+# Uni-MoE's speech-to-text path at a small width in bf16 (the tower's heads
+# of 64 on the encoder's kernels, the decode steps replayed from their CUDA
+# graphs) against the plain float32 reference: the logits that choose each
+# forced token, after the prefill and each cached step, as an RMS error
+# relative to the reference's RMS.  At this width the bf16 port reads
+# 0.011-0.025 on the CPU, the reference with float8 products 0.17; the
+# bound lies between.
+UNI_MOE_REL_RMS = 0.06
+
+
+def test_uni_moe_in_bf16_on_the_card_matches_the_reference(cuda):
+    from benchmark.harness import spec
+    from benchmark.reference import uni_moe_ref, whisper_ref
+    from whisper_tpu_torch.models import uni_moe
+    from whisper_tpu_torch.models.whisper import encoder_apply
+
+    family = spec.module("families", "uni_moe")
+    config = spec.Cell("uni-moe.batch16").config
+    dims = dict(config["dims"], n_audio_state=128, n_audio_head=2, n_audio_layer=2, n_audio_tokens=50,
+                n_state=256, n_layer=4, n_head=4, n_kv_head=2, n_vocab=4096, n_ctx=120, expert_width=512,
+                shared_width=128, eos=4095)
+    rng = np.random.default_rng(11)
+    prompt = ([int(x) for x in rng.integers(0, 4000, 5)], [int(x) for x in rng.integers(0, 4000, 3)])
+    forced = [int(x) for x in rng.integers(0, 4000, 40)] + [dims["eos"]]
+    mels = [whisper_ref.log_mel((0.3 * rng.standard_normal(n * 16000)).astype(np.float32), 128, cuda)[:, :3000]
+            for n in (12, 20)]
+    state = family.make_state_dict(dims, config["assumed"]["weights"], 11, torch.bfloat16, cuda)
+    lm = uni_moe.UniMoeDims(**dims)
+    model = uni_moe.UniMoe(lm, uni_moe.convert_state_dict(dict(state), lm), prompt=prompt)
+    kernels = encoder_apply.blocks_by_route["kernels"]
+    P = len(prompt[0]) + lm.n_audio_tokens + len(prompt[1])
+    cache, step = model.decoder(2)
+    with torch.inference_mode():
+        h, _ = uni_moe.prefill(model, model.encode(torch.stack(mels)), *prompt, cache)
+        got = [uni_moe.logits(model.params, lm, h)]
+        for s, tok in enumerate(forced[:-1]):
+            h, _ = step(torch.tensor([tok, tok], device=cuda), P + s)
+            got.append(uni_moe.logits(model.params, lm, h))
+    assert encoder_apply.blocks_by_route["kernels"] - kernels == 2 and step.graph is not None
+    got = torch.stack(got, dim=1)
+    want, low = (torch.stack(uni_moe_ref.Model(state, dims, cuda, products).logits(mels, *prompt, [forced] * 2))
+                 for products in ("float32", "fp8"))
+    err = lambda x: float((x - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+    assert err(got) <= UNI_MOE_REL_RMS < err(low)

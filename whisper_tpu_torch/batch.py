@@ -20,12 +20,17 @@ PyTorch compiles nothing per shape, so the JAX package's waveform-width
 buckets and padded batch rows, which bound its XLA compiles, are not
 carried over: a round decodes exactly its files' rows.
 
+A language model over an audio prefix (``models.uni_moe.UniMoe``) takes
+its own path through the same groups, rounds and mel store
+(:func:`_transcribe_lm`): fixed 30 s windows, one greedy segment each.
+
 Under a mesh (``with mesh:``) the files split over the data groups, each a
 contiguous block (``Mesh.rows``); a group runs its own groups of files and
 seek loops under its model group alone, and every rank returns every
 file's result, gathered in input order on a CPU gloo group.
 """
 
+import inspect
 from queue import Queue
 from threading import Thread
 from typing import List, Optional, Sequence, Tuple, Union
@@ -33,6 +38,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from . import engine
 from .audio import (
     FRAMES_PER_SECOND,
     HOP_LENGTH,
@@ -43,6 +49,7 @@ from .audio import (
     log_mel_spectrogram,
 )
 from .decoding import DecodingOptions, DecodingTask, detect_language
+from .models.uni_moe import UniMoe
 from .parallel.mesh import current_mesh
 from .profiling import recording, span
 from .timing import add_word_timestamps, find_alignment_batch
@@ -118,6 +125,15 @@ class _FileState:
     def window_size(self) -> int:
         clip_end = self.seek_clips[self.clip_idx][1]
         return min(N_FRAMES, self.content_frames - self.seek, clip_end - self.seek)
+
+
+def _file_windows(mels: torch.Tensor, states: List[_FileState], row_indices: List[int]) -> torch.Tensor:
+    """Windows of the given files of a group at their current seeks, out of
+    the group's mel store; a finished (or empty) file gets a zero window."""
+    seeks = [0 if states[i].done else states[i].seek for i in row_indices]
+    sizes = [0 if states[i].done else states[i].window_size() for i in row_indices]
+    rows, seeks, sizes = torch.tensor([row_indices, seeks, sizes], dtype=torch.int64).to(mels.device)
+    return _slice_windows(mels, rows, seeks, sizes)
 
 
 def _waveform(audio) -> np.ndarray:
@@ -208,6 +224,9 @@ def transcribe_batch(
     Under a mesh with a data axis above 1, each data group transcribes its
     block of the files and the results are gathered (module docstring).
     """
+    if isinstance(model, UniMoe):
+        options = {k: v for k, v in locals().items() if k not in ("model", "audios", "decode_options")}
+        return _transcribe_lm(model, audios, options, decode_options)
     mesh = current_mesh()
     if mesh is not None and mesh.shape["data"] > 1:
         call = {k: v for k, v in locals().items()
@@ -231,11 +250,7 @@ def transcribe_batch(
             "fixed decode-level prompt"
         )
 
-    def _sync(x):
-        if stage_timer is not None and x.is_cuda:
-            torch.cuda.synchronize(x.device)
-        return x
-
+    _sync = _syncer(stage_timer)
     temperatures = [temperature] if isinstance(temperature, (int, float)) else list(temperature)
     group_kw = dict(
         batch_size=batch_size,
@@ -256,15 +271,33 @@ def transcribe_batch(
         _sync=_sync,
     )
     # every file's windows, prompts and fallback ladder live inside its group
+    return _run_groups(model, audios, batch_size, stage_timer, _sync, _transcribe_group, group_kw)
+
+
+def _syncer(stage_timer):
+    """The stage boundaries' device sync: under a ``stage_timer``, wait for
+    a CUDA tensor's queued work; else nothing."""
+
+    def _sync(x):
+        if stage_timer is not None and x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        return x
+
+    return _sync
+
+
+def _run_groups(model, audios, batch_size, stage_timer, _sync, group, group_kw) -> List[dict]:
+    """``group(model, mels, lens, **group_kw)`` over the files in groups of
+    ``batch_size``, each group's mel store prepared by
+    :func:`_prepare_mels`; the results in input order."""
     groups = [list(audios[i : i + batch_size]) for i in range(0, len(audios), batch_size)]
     if not groups:
         return []
     if stage_timer is not None:
         with recording(stage_timer, this_thread=True):
-            return [r for g in groups
-                    for r in _transcribe_group(model, *_prepare_mels(model, g, _sync), **group_kw)]
+            return [r for g in groups for r in group(model, *_prepare_mels(model, g, _sync), **group_kw)]
     if len(groups) == 1:
-        return _transcribe_group(model, *_prepare_mels(model, groups[0], _sync), **group_kw)
+        return group(model, *_prepare_mels(model, groups[0], _sync), **group_kw)
 
     # a thread prepares group k+1's mel store while group k decodes; the
     # queue holds at most two prepared groups, and an error in the thread
@@ -287,7 +320,7 @@ def transcribe_batch(
         if isinstance(item, BaseException):
             th.join()
             raise item
-        results.extend(_transcribe_group(model, *item, **group_kw))
+        results.extend(group(model, *item, **group_kw))
     th.join()
     return results
 
@@ -325,16 +358,6 @@ def _transcribe_group(
         for n in lens
     ]
 
-    def slice_windows(row_indices: List[int]) -> torch.Tensor:
-        """Windows of the given files at their current seeks; a finished
-        (or empty) file gets a zero window."""
-        seeks = [0 if states[i].done else states[i].seek for i in row_indices]
-        sizes = [0 if states[i].done else states[i].window_size() for i in row_indices]
-        rows, seeks, sizes = torch.tensor([row_indices, seeks, sizes], dtype=torch.int64).to(
-            mels.device
-        )
-        return _slice_windows(mels, rows, seeks, sizes)
-
     # language: pinned, or batched detection on each file's first window
     language = decode_options.get("language")
     if language is None and not model.is_multilingual:
@@ -343,7 +366,7 @@ def _transcribe_group(
         for st in states:
             st.language = language
     else:
-        _, probs = detect_language(model, slice_windows(list(range(len(states)))))
+        _, probs = detect_language(model, _file_windows(mels, states, list(range(len(states)))))
         for st, p in zip(states, probs):
             st.language = max(p, key=p.get)
 
@@ -402,7 +425,7 @@ def _transcribe_group(
             rows = active[:batch_size]
             sizes = [states[i].window_size() for i in rows]
             with span("window_slice"):
-                windows = _sync(slice_windows(rows))
+                windows = _sync(_file_windows(mels, states, rows))
             prompts = [prompt_for(states[i]) for i in rows]
 
             # temperature-fallback ladder over the whole batch; rows that have
@@ -507,6 +530,82 @@ def _transcribe_group(
         )
         for st in states
     ]
+
+
+def _transcribe_lm(model: UniMoe, audios, options: dict, decode_options: dict) -> List[dict]:
+    """:func:`transcribe_batch` of a language model over an audio prefix
+    (:class:`~.models.uni_moe.UniMoe`): each file cut into consecutive 30 s
+    windows, each window decoded greedily after the chat template's prompt
+    around its audio tokens (:func:`.engine.decode_lm`), one segment a
+    window, in the groups and rounds of the Whisper path.
+
+    The options: ``batch_size``, ``stage_timer``, and ``temperature`` 0
+    alone.  An option left at transcribe_batch's default is a choice of
+    Whisper's decoding (its temperature ladder, quality gates, previous-text
+    prompts, timestamps) that this path does not make; one set to anything
+    else that it does not implement, any decode option that is not None,
+    and a device mesh raise NotImplementedError."""
+    defaults = {k: p.default for k, p in inspect.signature(transcribe_batch).parameters.items()
+                if p.default is not inspect.Parameter.empty}
+    temperature = options.pop("temperature")
+    refused = [k for k, v in options.items() if k not in ("batch_size", "stage_timer") and v != defaults[k]]
+    refused += [k for k, v in decode_options.items() if v is not None]
+    temperatures = [temperature] if isinstance(temperature, (int, float)) else list(temperature)
+    if temperature != defaults["temperature"] and temperatures != [0.0]:
+        refused.append("temperature")
+    if refused:
+        raise NotImplementedError(
+            f"transcribe_batch of {type(model).__name__} decodes greedily at temperature 0, one "
+            f"segment a 30 s window; it does not implement {sorted(refused)}")
+    if current_mesh() is not None:
+        raise NotImplementedError(f"transcribe_batch of {type(model).__name__} runs on one device")
+    _sync = _syncer(options["stage_timer"])
+    return _run_groups(model, audios, options["batch_size"], options["stage_timer"], _sync,
+                       _transcribe_group_lm, dict(batch_size=options["batch_size"], _sync=_sync,
+                                                  numbers=iter(range(len(audios)))))
+
+
+def _transcribe_group_lm(model: UniMoe, mels, lens, *, batch_size, _sync, numbers) -> List[dict]:
+    """One group of files on the LM path: each round decodes the next 30 s
+    window of up to ``batch_size`` unfinished files (the group's files
+    take the next of ``numbers``, their places in the call, which
+    ``engine.LmPins.forced`` reads).  A segment holds its window's place
+    (``seek`` in frames, ``start`` and ``end`` in seconds), the decoded ids
+    before the stop token (``tokens``; ``text`` is empty: the tokenizer's
+    files are not in the repository), the log-probability of each id
+    decoded, stop token included (``token_logprobs``), their mean
+    (``avg_logprob``), and the window's work (``prompt_tokens``, the
+    prefill's positions, and ``routed_picks``, the routed experts' picks
+    over its tokens and layers)."""
+    states = [_FileState(content_frames=(n + N_SAMPLES) // HOP_LENGTH - N_FRAMES) for n in lens]
+    files = [next(numbers) for _ in lens]
+    pins = engine.LmPins.forced
+    prompt = engine.LmPins.prompt or model.prompt
+    if prompt is None:
+        raise ValueError("the chat template's ids around the audio come with the model's tokenizer: "
+                         "give the model its prompt, (ids before, ids after)")
+    eos = model.dims.eos
+    active = [i for i, st in enumerate(states) if not st.done]
+    while active:
+        rows = active[:batch_size]
+        sizes = [states[i].window_size() for i in rows]
+        with span("window_slice"):
+            windows = _sync(_file_windows(mels, states, rows))
+        with span("engine"):
+            forced = None if pins is None else [pins(files[i], states[i].seek) for i in rows]
+            decoded = engine.decode_lm(model, windows, prompt, forced)
+        with span("segment"):
+            for i, size, w in zip(rows, sizes, decoded):
+                st = states[i]
+                text = w.tokens[:-1] if w.tokens and w.tokens[-1] == eos else w.tokens
+                st.segments.append(dict(
+                    id=len(st.segments), seek=st.seek, start=st.seek * HOP_LENGTH / SAMPLE_RATE,
+                    end=(st.seek + size) * HOP_LENGTH / SAMPLE_RATE, text="", tokens=text,
+                    token_logprobs=w.logprobs, avg_logprob=sum(w.logprobs) / max(len(w.logprobs), 1),
+                    prompt_tokens=w.prompt_tokens, routed_picks=w.routed_picks))
+                st.seek += size
+        active = [i for i in active if not states[i].done]
+    return [dict(text="", segments=st.segments, language=None) for st in states]
 
 
 def _align_round(model, tokenizer, pending, prepend_punctuations, append_punctuations,

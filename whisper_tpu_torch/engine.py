@@ -18,14 +18,17 @@ audio's window carries its own prompt length, so every row runs at its own
 position, held on the device.  :func:`decode_engine_speculative` is the
 greedy engine with a draft model: the draft proposes a few tokens a round,
 the target verifies them in one pass, and the output is the target's own
-greedy decode (whisper_tpu/engine.py:712-975).
+greedy decode (whisper_tpu/engine.py:712-975).  :func:`decode_lm` is the
+greedy token loop of a decoder-only language model over an audio prefix
+(``models/uni_moe.py``), in the same shape: one host sync a step.
 """
 
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
+from .models import uni_moe
 from .models.dims import ModelDimensions
 from .models.whisper import (
     NEG_INF,
@@ -649,6 +652,135 @@ def _block_loop(
         if completed:
             break
     return state
+
+
+# ---------------------------------------------------------------------------
+# A decoder-only language model over an audio prefix (models/uni_moe.py)
+# ---------------------------------------------------------------------------
+
+
+class LmPins:
+    """The benchmark's hook on the language-model path, as
+    ``DecodingTask._forced_tokens`` is on Whisper's (class attributes, None
+    when unset).  ``prompt``: (ids before the audio, ids after it), in place
+    of the model's chat template.  ``forced``: ``forced(file, seek)`` gives
+    the ids that the window at frame ``seek`` of file number ``file`` of a
+    ``transcribe_batch`` call commits, decode step s < len(ids) committing
+    ids[s] instead of the argmax; every per-step computation still runs, so
+    that random weights decode production-shaped windows, each its own
+    text."""
+
+    prompt: Optional[Tuple[List[int], List[int]]] = None
+    forced: Optional[Callable[[int, int], Sequence[int]]] = None
+
+
+class LmWindow(NamedTuple):
+    """One row's window: its decoded ids (the stop token last, where one
+    came), the log-probability of each, and its work: the prompt's
+    positions and the routed experts' picks over its prefill and decode
+    steps and the layers."""
+
+    tokens: List[int]
+    logprobs: List[float]
+    prompt_tokens: int
+    routed_picks: int
+
+
+class _LmState(NamedTuple):
+    done: torch.Tensor  # (B,) bool: the stop token committed
+    completed: torch.Tensor  # () bool: every row done
+
+
+def _lm_update(eos: int, state: _LmState, tokens: torch.Tensor, logprobs: torch.Tensor, s: int,
+               logits: torch.Tensor, forced: Optional[torch.Tensor]) -> _LmState:
+    """Greedy selection at step s: each row's argmax (or its pinned id
+    ``forced[row, s]``, where that is not negative) is committed at column
+    s of ``tokens``, and its log-probability at column s of ``logprobs``; a
+    row that has committed ``eos`` commits it again."""
+    nxt = logits.argmax(dim=-1)
+    if forced is not None and s < forced.shape[1]:
+        nxt = torch.where(forced[:, s] >= 0, forced[:, s], nxt)
+    nxt = torch.where(state.done, eos, nxt)
+    logprobs[:, s] = logits.gather(1, nxt[:, None])[:, 0] - torch.logsumexp(logits, dim=-1)
+    tokens[:, s] = nxt
+    done = state.done | (nxt == eos)
+    return _LmState(done=done, completed=done.all())
+
+
+@torch.inference_mode()
+def decode_lm(model, mel: torch.Tensor, prompt: Tuple[Sequence[int], Sequence[int]],
+              forced: Optional[Sequence[Sequence[int]]] = None) -> List[LmWindow]:
+    """Greedy decode of one batch of 30 s windows (B, n_mels, 3000) by a
+    decoder-only language model over an audio prefix
+    (:class:`~.models.uni_moe.UniMoe`): the tower, the prefill of [prompt
+    before, the window's audio tokens, prompt after], then one token a step
+    on the self-attention cache until every row has committed the stop
+    token or the cache is full.  ``forced``: each row's pinned ids
+    (:class:`LmPins`), committed in place of the argmax at its first
+    steps.  Every row shares its positions (the prompt has one length), so
+    a step's position is a host int.
+
+    The loop's shape is :func:`decode_engine`'s: each step queues its token
+    update, the decode step and the logits, then reads ``completed`` back
+    once (the ``sync`` span), so the card drains at every step.  Spans:
+    ``encoder``; ``prefill`` (the connector, the prefill and the first
+    logits); each token step's host work as ``step``, around ``update``,
+    ``decode_step`` (the model's :class:`~.models.uni_moe.Step`: on the card
+    one replay of the step's CUDA graph) and ``logits``; ``sync``.  Reads
+    back to the host once the loop ends.  One decode at a time a model (its
+    ``lock``): the decode holds the model's K/V cache and steps."""
+    before, after = list(prompt[0]), list(prompt[1])
+    with model.lock:
+        return _decode_lm(model, mel, before, after, forced)
+
+
+def _forced_table(forced: Sequence[Sequence[int]], device) -> torch.Tensor:
+    """Each row's pinned ids as a (B, longest) tensor, -1 after a row's
+    last."""
+    table = torch.full((len(forced), max(map(len, forced), default=0)), -1, dtype=torch.int64)
+    for row, ids in zip(table, forced):
+        row[: len(ids)] = torch.as_tensor(list(ids), dtype=torch.int64)
+    return table.to(device)
+
+
+def _decode_lm(model, mel: torch.Tensor, before: List[int], after: List[int],
+               forced: Optional[Sequence[Sequence[int]]]) -> List[LmWindow]:
+    dims = model.dims
+    B = mel.shape[0]
+    P = len(before) + dims.n_audio_tokens + len(after)
+    with span("encoder"):
+        features = model.encode(mel)
+    with span("prefill"):
+        kv, step = model.decoder(B)
+        h, routed = uni_moe.prefill(model, features, before, after, kv)
+        cur = uni_moe.logits(model.params, dims, h)
+        table = None if forced is None else _forced_table(forced, model.device)
+        tokens = torch.zeros((B, dims.n_ctx - P), dtype=torch.int64, device=model.device)
+        logprobs = torch.zeros((B, dims.n_ctx - P), dtype=torch.float32, device=model.device)
+        state = _LmState(done=torch.zeros(B, dtype=torch.bool, device=model.device),
+                         completed=torch.zeros((), dtype=torch.bool, device=model.device))
+    steps = 0
+    for s in range(dims.n_ctx - P):
+        with span("step"):
+            live = ~state.done
+            with span("update"):
+                state = _lm_update(dims.eos, state, tokens, logprobs, s, cur, table)
+            with span("decode_step"):
+                h, picks = step(tokens[:, s], P + s)
+            routed = routed + picks * live
+            with span("logits"):
+                cur = uni_moe.logits(model.params, dims, h)
+        steps = s + 1
+        with span("sync"):  # the loop's one host sync per step
+            completed = bool(state.completed)
+        if completed:
+            break
+    rows, lps, routed = tokens[:, :steps].tolist(), logprobs[:, :steps].tolist(), routed.tolist()
+    out = []
+    for ids, lp, picks in zip(rows, lps, routed):
+        n = ids.index(dims.eos) + 1 if dims.eos in ids else len(ids)
+        out.append(LmWindow(tokens=ids[:n], logprobs=lp[:n], prompt_tokens=P, routed_picks=int(picks)))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -178,6 +178,21 @@ def cast_params(node, dtype: Optional[torch.dtype], device: Union[str, torch.dev
     return node.to(device=device, dtype=dtype).contiguous()
 
 
+def encoder_params(sd: Dict[str, Any], dims: ModelDimensions) -> Dict[str, Any]:
+    """The encoder's part of the port's parameter dict from the
+    ``encoder.*`` keys of a reference-format state_dict, uncast."""
+    return {
+        "conv1_w": sd["encoder.conv1.weight"],
+        "conv1_b": sd["encoder.conv1.bias"],
+        "conv2_w": sd["encoder.conv2.weight"],
+        "conv2_b": sd["encoder.conv2.bias"],
+        "pos": torch.from_numpy(sinusoids(dims.n_audio_ctx, dims.n_audio_state)),
+        "blocks": _stack_blocks(sd, "encoder.blocks", dims.n_audio_layer, cross=False),
+        "ln_post_g": sd["encoder.ln_post.weight"],
+        "ln_post_b": sd["encoder.ln_post.bias"],
+    }
+
+
 def convert_torch_state_dict(
     state_dict: Dict[str, Any],
     dims: ModelDimensions,
@@ -189,16 +204,7 @@ def convert_torch_state_dict(
     None keeps the checkpoint's own (the positional sinusoids are f32)."""
     sd = {k: v.detach() for k, v in state_dict.items()}
     params = {
-        "encoder": {
-            "conv1_w": sd["encoder.conv1.weight"],
-            "conv1_b": sd["encoder.conv1.bias"],
-            "conv2_w": sd["encoder.conv2.weight"],
-            "conv2_b": sd["encoder.conv2.bias"],
-            "pos": torch.from_numpy(sinusoids(dims.n_audio_ctx, dims.n_audio_state)),
-            "blocks": _stack_blocks(sd, "encoder.blocks", dims.n_audio_layer, cross=False),
-            "ln_post_g": sd["encoder.ln_post.weight"],
-            "ln_post_b": sd["encoder.ln_post.bias"],
-        },
+        "encoder": encoder_params(sd, dims),
         "decoder": {
             "tok_emb": sd["decoder.token_embedding.weight"],
             "pos_emb": sd["decoder.positional_embedding"],
